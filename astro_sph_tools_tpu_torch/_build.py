@@ -1,10 +1,14 @@
-"""Build and load the package's CUDA kernel library.
+"""Build and load the package's CUDA kernel libraries.
 
-The kernels live in ``csrc/deposit2d.cu`` with a plain C interface. At first
-use they are compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
-library under ``_build/``, named by a hash of the source and the flags, and
-loaded with ``ctypes``. A build that fails, or a machine without ``nvcc``, raises with
-the compiler's message: nothing falls back to another path.
+Every ``csrc/<name>.cu`` holds kernels with a plain C interface (today
+``deposit2d.cu``, the sorted engine's deposit, and ``coherent.cu``, the
+coherent engine's row prep and deposit; both include
+``csrc/deposit_common.cuh``). At first use each source is compiled by
+``nvcc`` for Hopper (``sm_90a``) into its own shared library under
+``_build/``, named by a hash of the source, of every ``csrc/*.cuh`` it
+includes (directly or through another header) and of the flags, and loaded
+with ``ctypes``. A build that fails, or a machine without ``nvcc``, raises
+with the compiler's message: nothing falls back to another path.
 """
 
 from __future__ import annotations
@@ -12,10 +16,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -31,23 +37,48 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
 
-# C signature of deposit2d_launch; it returns the cudaError_t of the launch
-_DEPOSIT2D_ARGTYPES = [
-    _P, _P, _P, _P, ctypes.c_longlong, _I,  # u, v, h, values, values row stride, n_fields
-    _P, _P, _I,  # pstart, pcount, n_tiles
-    _P,  # out (n_tiles, F*R, 128)
-    _I, _I,  # K, R
-    _F, _F, _F,  # offset, psx, psy
-    _I, _I, _F, _F,  # kernel id, integrated, norm_3d, support_factor
-    _P, _I,  # chebyshev coefficients, count
-    _P,  # cudaStream_t
-]
+# C signatures per library; every function returns an int (a cudaError_t)
+_SIGNATURES = {
+    "deposit2d": {
+        "deposit2d_launch": [
+            _P, _P, _P, _P, _LL, _I,  # u, v, h, values, values row stride, n_fields
+            _P, _P, _I,  # pstart, pcount, n_tiles
+            _P,  # out (n_tiles, F*R, 128)
+            _I, _I,  # K, R
+            _F, _F, _F,  # offset, psx, psy
+            _I, _I, _F, _F,  # kernel id, integrated, norm_3d, support_factor
+            _P, _I,  # chebyshev coefficients, count
+            _P,  # cudaStream_t
+        ],
+    },
+    "coherent": {
+        "coherent_prep_launch": [
+            _P, _P, _P, _P, _LL, _I,  # x, y, h, values, values row stride, n_fields
+            _I, _P, _P,  # n_rows, packed (n_rows, 8, 2048), aux (n_rows, 128)
+            ctypes.POINTER(_F), ctypes.POINTER(_I),  # host float / int parameters
+            _P,  # cudaStream_t
+        ],
+        "coherent_deposit_launch": [
+            _P, _I,  # packed rows, n_fields
+            _P, _P, _P, _I,  # cand_row, cstart, cend, n_tiles
+            _P,  # out (n_tiles, F*R, 128)
+            _I, _I, _F, _F, _F,  # K, R, offset, psx, psy
+            _I, _I, _F, _F,  # kernel id, integrated, norm_3d, support_factor
+            _P, _I,  # chebyshev coefficients, count
+            _P,  # cudaStream_t
+        ],
+        "coherent_prep_param_counts": [ctypes.POINTER(_I), ctypes.POINTER(_I)],
+    },
+}
+
+LIBRARIES = tuple(_SIGNATURES)
 
 
 @dataclass(frozen=True)
 class BuildInfo:
-    """Where the library is, and what building it took (0 s when cached)."""
+    """Where a library is, and what building it took (0 s when cached)."""
 
     path: Path
     seconds: float
@@ -56,7 +87,9 @@ class BuildInfo:
 
 
 _lock = threading.Lock()
-_loaded: list[tuple[ctypes.CDLL, BuildInfo]] = []  # the one loaded library
+_loaded: dict[str, tuple[ctypes.CDLL, BuildInfo]] = {}
+
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+\.cuh)"', re.M)
 
 
 def _find_nvcc() -> str:
@@ -72,15 +105,40 @@ def _find_nvcc() -> str:
     )
 
 
+def _headers(src: Path, src_dir: Path) -> list[Path]:
+    """Every ``src_dir/*.cuh`` that ``src`` includes, directly or not, in a
+    stable order."""
+    seen: dict[str, Path] = {}
+    todo = [src]
+    while todo:
+        for inc in _INCLUDE.findall(todo.pop().read_bytes()):
+            name = inc.decode()
+            path = src_dir / name
+            if name not in seen and path.exists():
+                seen[name] = path
+                todo.append(path)
+    return [seen[k] for k in sorted(seen)]
+
+
+def library_path(name: str, src_dir: Path = _SRC_DIR, build_dir: Path = _BUILD_DIR) -> Path:
+    """The library ``csrc/<name>.cu`` builds into: named by a hash of the
+    source, of the headers it includes and of the flags."""
+    src = src_dir / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    for hdr in _headers(src, src_dir):
+        h.update(hdr.name.encode() + b"\0" + hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
 def _build(name: str) -> BuildInfo:
     src = _SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = _BUILD_DIR / f"lib{name}_{digest}.so"
+    lib_path = library_path(name)
     if lib_path.exists():
         return BuildInfo(lib_path, 0.0, False, "")
     nvcc = _find_nvcc()
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+    tmp = lib_path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -94,16 +152,35 @@ def _build(name: str) -> BuildInfo:
     return BuildInfo(lib_path, seconds, True, proc.stdout + proc.stderr)
 
 
-def load() -> tuple[ctypes.CDLL, BuildInfo]:
-    """Build ``csrc/deposit2d.cu`` if needed, load it, and declare its C
+def _open(name: str, info: BuildInfo) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(info.path))
+    for fn, argtypes in _SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.cuda_error_string.argtypes = [ctypes.c_int]
+    lib.cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def load(name: str = "deposit2d") -> tuple[ctypes.CDLL, BuildInfo]:
+    """Build ``csrc/<name>.cu`` if needed, load it, and declare its C
     signatures. Cached per process."""
+    if name not in _SIGNATURES:
+        raise ValueError(f"unknown kernel library {name!r}; expected one of {LIBRARIES}")
     with _lock:
-        if not _loaded:
-            info = _build("deposit2d")
-            lib = ctypes.CDLL(str(info.path))
-            lib.deposit2d_launch.argtypes = _DEPOSIT2D_ARGTYPES
-            lib.deposit2d_launch.restype = ctypes.c_int
-            lib.cuda_error_string.argtypes = [ctypes.c_int]
-            lib.cuda_error_string.restype = ctypes.c_char_p
-            _loaded.append((lib, info))
-        return _loaded[0]
+        if name not in _loaded:
+            info = _build(name)
+            _loaded[name] = (_open(name, info), info)
+        return _loaded[name]
+
+
+def load_all() -> dict[str, tuple[ctypes.CDLL, BuildInfo]]:
+    """Build every library at once (one ``nvcc`` per source, all started
+    together) and load them. Raises with the first failing build's output."""
+    with _lock:
+        todo = [n for n in LIBRARIES if n not in _loaded]
+        with ThreadPoolExecutor(max_workers=max(1, len(todo))) as pool:
+            infos = dict(zip(todo, pool.map(_build, todo)))
+        for name, info in infos.items():
+            _loaded[name] = (_open(name, info), info)
+        return {n: _loaded[n] for n in LIBRARIES}

@@ -12,9 +12,9 @@
 // clipped or wrapped. The overlap-add that sums the extended tiles into the
 // image stays in torch (ops/deposit_tiled.py::_overlap_add).
 //
-//   kernel3d:    W = shape_q(sqrt(q2)) * norm_3d / h^3,   q = r / h
-//   integrated:  W = clenshaw(2 clip(q2, 0, 1) - 1) * [q2 < 1] / h^2,
-//                q = r / (S_f h)   (line-integrated column kernel)
+// The per-particle footprint math (kernel shapes, Clenshaw, the
+// support-bounded row/column loop) lives in deposit_common.cuh, shared with
+// the coherent engine's deposit kernel (coherent.cu).
 //
 // Design: one thread block per tile (the TPU's sequential flat work-list of
 // (tile, 2048-particle chunk) steps, its packed schedule word and its
@@ -51,58 +51,16 @@
 // blocks, staging particles through shared memory and reducing the atomics
 // per field are later work.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "deposit_common.cuh"
 
 namespace {
 
-constexpr int kLanes = 128;   // accumulator width S
-constexpr int kMaxCheb = 64;  // Chebyshev coefficients held in shared memory
-constexpr int kMaxFields = 5;
+using ast::Footprint;
+using ast::kLanes;
+using ast::kMaxCheb;
+using ast::kMaxFields;
+
 constexpr int kThreads = 256;
-
-// Divide-free kernel shapes, ops as in kernels/splines.py (*_shape).
-template <int KID>
-__device__ __forceinline__ float shape_q(float q) {
-  if constexpr (KID == 0) {  // M4 cubic spline
-    float inner = 1.0f - 1.5f * q * q + 0.75f * q * q * q;
-    float ob = 2.0f - q;
-    float outer = 0.25f * ob * ob * ob;
-    return q < 1.0f ? inner : (q < 2.0f ? outer : 0.0f);
-  } else if constexpr (KID == 1) {  // Wendland C2
-    float u = 0.5f * q;
-    float om = fmaxf(1.0f - u, 0.0f);
-    float p2 = om * om;
-    return (p2 * p2) * (1.0f + 4.0f * u);
-  } else if constexpr (KID == 2) {  // Wendland C4
-    float u = 0.5f * q;
-    float om = fmaxf(1.0f - u, 0.0f);
-    float p2 = om * om;
-    float p6 = p2 * p2 * p2;
-    return p6 * (1.0f + 6.0f * u + (35.0f / 3.0f) * u * u);
-  } else if constexpr (KID == 3) {  // Wendland C6
-    float u = 0.5f * q;
-    float om = fmaxf(1.0f - u, 0.0f);
-    float p2 = om * om;
-    float p8 = p2 * p2 * p2 * p2;
-    return p8 * (1.0f + 8.0f * u + 25.0f * u * u + 32.0f * u * u * u);
-  } else {  // M6 quintic spline
-    float a = fmaxf(3.0f - q, 0.0f), b = fmaxf(2.0f - q, 0.0f), c = fmaxf(1.0f - q, 0.0f);
-    float a2 = a * a, b2 = b * b, c2 = c * c;
-    float w = a2 * a2 * a - 6.0f * (b2 * b2 * b) + 15.0f * (c2 * c2 * c);
-    return q < 3.0f ? w : 0.0f;
-  }
-}
-
-__device__ __forceinline__ float clenshaw(float x, const float* c, int n) {
-  float b1 = 0.0f, b2 = 0.0f;
-  for (int k = n - 1; k > 0; --k) {
-    float t = 2.0f * x * b1 - b2 + c[k];
-    b2 = b1;
-    b1 = t;
-  }
-  return x * b1 - b2 + c[0];
-}
 
 template <int KID, bool INTEG>
 __global__ void __launch_bounds__(kThreads)
@@ -110,14 +68,13 @@ deposit2d_kernel(const float* __restrict__ u, const float* __restrict__ v,
                  const float* __restrict__ h, const float* __restrict__ vals,
                  long long ld_vals, int n_fields, int f_lo, int f_n,
                  const int* __restrict__ pstart, const int* __restrict__ pcount,
-                 float* __restrict__ out, int K, int R, float offset,
-                 float psx, float psy, float norm3d, float inv_sf, float lim2,
+                 float* __restrict__ out, Footprint p,
                  const float* __restrict__ cheb, int n_cheb) {
   extern __shared__ float smem[];
   float* s_cheb = smem;             // kMaxCheb
   float* acc = smem + kMaxCheb;     // f_n * R * kLanes
   const int t = blockIdx.x;
-  const int plane = R * kLanes;
+  const int plane = p.R * kLanes;
   const int n_acc = f_n * plane;
 
   for (int i = threadIdx.x; i < n_acc; i += blockDim.x) acc[i] = 0.0f;
@@ -128,110 +85,15 @@ deposit2d_kernel(const float* __restrict__ u, const float* __restrict__ v,
 
   const int p0 = pstart[t];
   const int p1 = p0 + pcount[t];
-  const float lim = sqrtf(lim2);
+  const float* val0 = vals + (long long)f_lo * ld_vals;
   for (int i = p0 + threadIdx.x; i < p1; i += blockDim.x) {
-    const float hi = h[i];
-    if (!(hi > 0.0f)) continue;  // zero-h pads contribute exactly 0
-    const float ul = u[i];
-    const float vl = v[i];
-    const float inv_h = 1.0f / hi;
-    float inv_n, val_scale;
-    if constexpr (INTEG) {
-      inv_n = inv_h * inv_sf;
-      val_scale = inv_h * inv_h;
-    } else {
-      inv_n = inv_h;
-      val_scale = (norm3d * inv_h) * (inv_h * inv_h);
-    }
-    float ve[kMaxFields];
-#pragma unroll
-    for (int f = 0; f < kMaxFields; ++f)
-      ve[f] = f < f_n ? vals[(long long)(f_lo + f) * ld_vals + i] * val_scale : 0.0f;
-
-    const float sy = psy * inv_n;
-    const float sx = psx * inv_n;
-    // Support radius in pixels, widened by one pixel on each side: the loop
-    // bounds only need to contain every pixel with q2 < lim2, which the
-    // exact test below then decides.
-    const float ry = lim / sy, rx = lim / sx;
-    const int col0 = (int)floorf(ul - offset + 0.5f) - K / 2;
-    int r_lo = (int)fmaxf(floorf(vl - offset - ry) - 1.0f, 0.0f);
-    int r_hi = (int)fminf(ceilf(vl - offset + ry) + 1.0f, (float)(R - 1));
-    int c_lo = max(max(col0, 0), (int)fmaxf(floorf(ul - offset - rx) - 1.0f, -1.0f));
-    int c_hi = min(min(col0 + K - 1, kLanes - 1),
-                   (int)fminf(ceilf(ul - offset + rx) + 1.0f, (float)kLanes));
-
-    for (int r = r_lo; r <= r_hi; ++r) {
-      const float dyn = ((float)r + offset - vl) * sy;
-      const float dy2n = dyn * dyn;
-      if (dy2n >= lim2) continue;
-      float* row = acc + r * kLanes;
-      for (int c = c_lo; c <= c_hi; ++c) {
-        const float dxn = ((float)c + offset - ul) * sx;
-        const float q2 = dy2n + dxn * dxn;
-        if (q2 >= lim2) continue;
-        float w;
-        if constexpr (INTEG) {
-          w = clenshaw(2.0f * fminf(fmaxf(q2, 0.0f), 1.0f) - 1.0f, s_cheb, n_cheb);
-        } else {
-          w = shape_q<KID>(sqrtf(q2));
-        }
-#pragma unroll
-        for (int f = 0; f < kMaxFields; ++f)
-          if (f < f_n) atomicAdd(row + f * plane + c, w * ve[f]);
-      }
-    }
+    ast::deposit_particle<KID, INTEG>(acc, plane, f_n, p, s_cheb, n_cheb, u[i],
+                                      v[i], h[i], val0 + i, ld_vals);
   }
   __syncthreads();
 
   float* dst = out + ((long long)t * n_fields + f_lo) * plane;
   for (int i = threadIdx.x; i < n_acc; i += blockDim.x) dst[i] = acc[i];
-}
-
-template <int KID, bool INTEG>
-cudaError_t launch_one(int n_tiles, size_t smem, cudaStream_t stream,
-                       const float* u, const float* v, const float* h,
-                       const float* vals, long long ld_vals, int n_fields,
-                       int f_lo, int f_n, const int* pstart, const int* pcount,
-                       float* out, int K, int R, float offset, float psx,
-                       float psy, float norm3d, float inv_sf, float lim2,
-                       const float* cheb, int n_cheb) {
-  auto kern = deposit2d_kernel<KID, INTEG>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kern<<<n_tiles, kThreads, smem, stream>>>(
-      u, v, h, vals, ld_vals, n_fields, f_lo, f_n, pstart, pcount, out, K, R,
-      offset, psx, psy, norm3d, inv_sf, lim2, cheb, n_cheb);
-  return cudaGetLastError();
-}
-
-template <bool INTEG>
-cudaError_t dispatch_kernel(int kernel_id, int n_tiles, size_t smem,
-                            cudaStream_t stream, const float* u,
-                            const float* v, const float* h, const float* vals,
-                            long long ld_vals, int n_fields, int f_lo,
-                            int f_n, const int* pstart, const int* pcount,
-                            float* out, int K, int R, float offset, float psx,
-                            float psy, float norm3d, float inv_sf, float lim2,
-                            const float* cheb, int n_cheb) {
-#define AST_LAUNCH(ID)                                                      \
-  launch_one<ID, INTEG>(n_tiles, smem, stream, u, v, h, vals, ld_vals,      \
-                        n_fields, f_lo, f_n, pstart, pcount, out, K, R,     \
-                        offset, psx, psy, norm3d, inv_sf, lim2, cheb, n_cheb)
-  if constexpr (INTEG) {
-    return AST_LAUNCH(0);  // the integrated weight ignores KID
-  } else {
-    switch (kernel_id) {
-      case 0: return AST_LAUNCH(0);
-      case 1: return AST_LAUNCH(1);
-      case 2: return AST_LAUNCH(2);
-      case 3: return AST_LAUNCH(3);
-      case 4: return AST_LAUNCH(4);
-      default: return cudaErrorInvalidValue;
-    }
-  }
-#undef AST_LAUNCH
 }
 
 }  // namespace
@@ -252,33 +114,29 @@ int deposit2d_launch(const float* u, const float* v, const float* h,
   if (n_fields < 1 || n_fields > kMaxFields || n_cheb > kMaxCheb || R <= 0 ||
       K <= 0)
     return cudaErrorInvalidValue;
-  int dev = 0, smem_optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&smem_optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  int smem_optin = 0;
+  cudaError_t err = ast::smem_optin(&smem_optin);
   if (err != cudaSuccess) return err;
   const size_t plane_bytes = (size_t)R * kLanes * sizeof(float);
   const size_t fixed = kMaxCheb * sizeof(float);
   int group = (int)(((size_t)smem_optin - fixed) / plane_bytes);
   if (group < 1) return cudaErrorInvalidConfiguration;
   if (group > n_fields) group = n_fields;
-  // lim2: squared normalised support (q2 >= lim2 is an exact zero)
-  const float lim2 = integrated ? 1.0f : support_factor * support_factor;
-  const float inv_sf = 1.0f / support_factor;
+  const Footprint p = ast::make_footprint(K, R, offset, psx, psy, norm3d,
+                                          support_factor, integrated);
   cudaStream_t s = (cudaStream_t)stream;
   for (int f_lo = 0; f_lo < n_fields; f_lo += group) {
-    int f_n = n_fields - f_lo < group ? n_fields - f_lo : group;
-    size_t smem = fixed + f_n * plane_bytes;
-    err = integrated
-              ? dispatch_kernel<true>(kernel_id, n_tiles, smem, s, u, v, h,
-                                      vals, ld_vals, n_fields, f_lo, f_n,
-                                      pstart, pcount, out, K, R, offset, psx,
-                                      psy, norm3d, inv_sf, lim2, cheb, n_cheb)
-              : dispatch_kernel<false>(kernel_id, n_tiles, smem, s, u, v, h,
-                                       vals, ld_vals, n_fields, f_lo, f_n,
-                                       pstart, pcount, out, K, R, offset, psx,
-                                       psy, norm3d, inv_sf, lim2, cheb, n_cheb);
+    const int f_n = n_fields - f_lo < group ? n_fields - f_lo : group;
+    const size_t smem = fixed + f_n * plane_bytes;
+    err = ast::dispatch_footprint(kernel_id, integrated, [&](auto kid, auto integ) {
+      auto kern = deposit2d_kernel<decltype(kid)::value, decltype(integ)::value>;
+      cudaError_t e = ast::allow_smem(kern, smem);
+      if (e != cudaSuccess) return e;
+      kern<<<n_tiles, kThreads, smem, s>>>(u, v, h, vals, ld_vals, n_fields,
+                                           f_lo, f_n, pstart, pcount, out, p,
+                                           cheb, n_cheb);
+      return cudaGetLastError();
+    });
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;

@@ -229,6 +229,21 @@ def deposit_tiles_plain(
     return out.view(n_tiles, n_fields * R, S)
 
 
+_CONSTS: dict = {}
+
+
+def device_const(values: Sequence, dtype: torch.dtype, device) -> Tensor:
+    """A small constant tensor on ``device``, made once per process and
+    reused. A copy from pageable host memory to the device synchronises the
+    host with the device, so a render meant to run without host syncs must
+    not make one per call."""
+    key = (tuple(values), dtype, str(torch.device(device)))
+    t = _CONSTS.get(key)
+    if t is None:
+        t = _CONSTS[key] = torch.tensor(key[0], dtype=dtype, device=device)
+    return t
+
+
 def _check_cuda_inputs(u, v, h, values, pstart, pcount) -> None:
     dev = u.device
     for name, a in (("u", u), ("v", v), ("h", h)):
@@ -290,10 +305,7 @@ def deposit_tiles(
         return out
     lib, _ = _build.load()
     integrated = projection == "integrated"
-    cheb = (
-        torch.tensor(integrated_kernel_chebyshev(kernel), dtype=torch.float32, device=u.device)
-        if integrated else None
-    )
+    cheb = device_const(integrated_kernel_chebyshev(kernel), torch.float32, u.device) if integrated else None
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
         code = lib.deposit2d_launch(

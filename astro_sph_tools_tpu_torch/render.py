@@ -18,6 +18,7 @@ import torch
 from .data_structures.particle_types import CoordinateAxes, ParticleType
 from .io.snapshot import SnapshotBase
 from .ops.deposit import MapSpec, deposit_2d
+from .ops.deposit_coherent import deposit_2d_coherent
 from .ops.deposit_tiled import deposit_2d_auto
 from .utils.profiling import PhaseTimer
 
@@ -64,15 +65,12 @@ def render_map_stack(
 
     engine: ``"pallas"`` (default) is the sorted tile engine with the
     hand-written CUDA deposit kernel (``ops/deposit_tiled.py``; the name is
-    kept from the JAX package); ``"xla"`` is the plain torch stencil engine
+    kept from the JAX package); ``"coherent"`` is the coherent-order engine
+    for snapshot-ordered particles (``ops/deposit_coherent.py``, at most 4
+    fields per pass); ``"xla"`` is the plain torch stencil engine
     (``ops/deposit.py``).
     """
-    if engine == "coherent":
-        raise NotImplementedError(
-            "engine='coherent' is not ported to the torch package yet "
-            "(ROADMAP queue 1, item 4: the coherent engine)"
-        )
-    if engine not in ("pallas", "xla"):
+    if engine not in ("pallas", "coherent", "xla"):
         raise ValueError(f"Unknown engine {engine!r} (pallas | coherent | xla)")
     device = torch.device(device)
     timer = PhaseTimer(device)
@@ -136,8 +134,9 @@ def render_map_stack(
     )
 
     with timer.phase("deposit"):
-        if engine == "pallas":
-            maps = deposit_2d_auto(
+        if engine in ("pallas", "coherent"):
+            render = deposit_2d_auto if engine == "pallas" else deposit_2d_coherent
+            maps = render(
                 pos[:, i], pos[:, j], h, values, spec, kernel=kernel,
                 projection=projection, device=device,
             )

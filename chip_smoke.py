@@ -6,21 +6,34 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU:
     python3 chip_smoke.py                # every phase
     python3 chip_smoke.py --phases 0,1,2 # a subset, for debugging
 
-It drives the port's main path — the adaptive-h sorted tile engine behind
-``render_map_stack`` — on particles generated in memory from a seed, and
-fails (non-zero exit) if any phase fails:
+It drives the port's two main paths — the adaptive-h sorted tile engine
+behind ``render_map_stack`` and the coherent-order engine (synced and
+zero-sync fused) — on particles generated in memory from a seed, and fails
+(non-zero exit) if any phase fails:
 
 0. device: torch version, card name and power limit (nvidia-smi);
-1. build: compile the CUDA deposit kernel from ``csrc/deposit2d.cu``;
-2. kernel vs plain torch version on the card, for every level
-   K in {8, 16, 32, 64} x F in {2, 5} x projection, on a 1024^2 map with
-   2^18 particles whose h lies inside the level;
-3. main path: ``deposit_2d_auto`` on 2^26 Morton-ordered clustered
+1. build: compile every CUDA kernel library (``csrc/deposit2d.cu``,
+   ``csrc/coherent.cu``), one nvcc per source, all started together;
+2. sorted-engine deposit kernel vs its plain torch version on the card, for
+   every level K in {8, 16, 32, 64} x F in {2, 5} x projection, on a 1024^2
+   map with 2^18 particles whose h lies inside the level;
+3. sorted main path: ``deposit_2d_auto`` on 2^26 Morton-ordered clustered
    particles with adaptive h, 1024^2 periodic map, 2 fields; checks the
    kernel launch count, finiteness, mass conservation in the integrated
    projection, and agreement with the plain version on a 2^22 subset;
 4. ``render_map_stack`` at 1024^2 on an in-memory snapshot;
-5. host-f64 quality path against the f64 oracle of ``tests/oracles.py``.
+5. host-f64 quality path against the f64 oracle of ``tests/oracles.py``;
+6. row-prep kernel vs its plain version, bit for bit, on phase 3's
+   particles, on 2^22 of them shuffled (most rows heavy) and on a
+   non-periodic map with every 131st particle off the extent;
+7. coherent deposit kernel vs its plain version on the layout of phase 3's
+   particles, F in {1, 2, 4} x projection;
+8. coherent main path at 2^26 (phase 3's particles): ``deposit_2d_coherent``
+   and, with capacities from its layout, ``deposit_2d_coherent_fused``
+   (the latter once more under ``torch.cuda.set_sync_debug_mode("error")``),
+   both against the sorted engine; the three engines' warm walls; an
+   overflowing fused render must report ``ok`` False;
+9. ``render_map_stack(engine="coherent")`` against ``engine="pallas"``.
 
 Every phase prints one JSON line; the kernels' summary line and the card's
 ``nvidia-smi`` line come before the last line, which is
@@ -205,14 +218,15 @@ def phase_build():
     from astro_sph_tools_tpu_torch import _build
 
     t0 = time.perf_counter()
-    _, info = _build.load()
-    ptxas = [ln.strip() for ln in info.log.splitlines() if "registers" in ln or "Compiling entry" in ln]
-    emit({
-        "phase": "build", "seconds": round(time.perf_counter() - t0, 3),
-        "nvcc_seconds": round(info.seconds, 3), "built": info.built,
-        "library": os.path.relpath(str(info.path), ROOT), "flags": " ".join(_build.NVCC_FLAGS),
-        "ptxas": ptxas,
-    })
+    libs = _build.load_all()
+    for name, (_, info) in libs.items():
+        ptxas = [ln.strip() for ln in info.log.splitlines() if "registers" in ln or "Compiling entry" in ln]
+        emit({
+            "phase": "build", "library": os.path.relpath(str(info.path), ROOT),
+            "nvcc_seconds": round(info.seconds, 3), "built": info.built,
+            "flags": " ".join(_build.NVCC_FLAGS), "ptxas": ptxas,
+        })
+    emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3), "libraries": sorted(libs)})
 
 
 def _level_inputs(torch, cfg, lo_s, hi_s, n_fields, n, spec, seed, device):
@@ -272,18 +286,24 @@ def phase_kernels(torch, device, n: int = 1 << 18):
     return cases
 
 
-def phase_main(torch, device, n_log2: int):
+def main_particles(torch, device, n_log2: int):
+    """Phase 3's particle set (shared by phases 3, 4 and 6-9)."""
+    box = 25.0
+    t0 = time.perf_counter()
+    x, y, h, m, t = clustered_particles(1 << n_log2, box, 1024, seed=7, device=device)
+    torch.cuda.synchronize()
+    return (x, y, h, m, t, box), time.perf_counter() - t0
+
+
+def phase_main(torch, device, particles, gen_s):
     from astro_sph_tools_tpu_torch.ops import MapSpec, deposit_2d_auto, deposit_tiled, tile_particles
     from astro_sph_tools_tpu_torch.ops.deposit_tiled import _tile_ranges, deposit_tiles
 
-    n = 1 << n_log2
-    box = 25.0
+    x, y, h, m, t, box = particles
+    n = x.shape[0]
+    n_log2 = n.bit_length() - 1
     spec = MapSpec(shape=(1024, 1024), extent=(0.0, box, 0.0, box), periodic_wrap=True)
-    t0 = time.perf_counter()
-    x, y, h, m, t = clustered_particles(n, box, 1024, seed=7, device=device)
     fields = torch.stack([m, m * t])
-    torch.cuda.synchronize()
-    gen_s = time.perf_counter() - t0
 
     # the main path, once, with the launch count reset just before it
     deposit_tiles.launches = 0
@@ -338,7 +358,7 @@ def phase_main(torch, device, n_log2: int):
     }
     emit(out)
     check(rel <= REL_TOL, f"main path disagrees with the plain version on {sub} particles: {rel}")
-    return out, (x, y, h, m, t, box)
+    return out
 
 
 def memory_snapshot(x, y, h, m, t, box):
@@ -430,9 +450,221 @@ def phase_quality(torch, device):
     check(rel <= REL_TOL, f"quality path off the f64 oracle: {rel}")
 
 
+def _coherent_module():
+    import importlib
+
+    # ops/__init__ exports a function named like the module
+    return importlib.import_module("astro_sph_tools_tpu_torch.ops.deposit_coherent")
+
+
+def phase_prep(torch, device, particles):
+    """Kernel #3 (row prep) vs its plain version: bit for bit."""
+    from astro_sph_tools_tpu_torch.ops import MapSpec
+    from astro_sph_tools_tpu_torch.ops.coherent_prep import _prep_rows, prep_rows, prep_rows_plain
+
+    TC = _coherent_module()
+    x, y, h, m, t, box = particles
+    n = x.shape[0]
+    g = torch.Generator(device=device)
+    g.manual_seed(13)
+    sub = min(n, 1 << 22)
+    perm = torch.randperm(sub, generator=g, device=device)
+    off = min(n, 1 << 24)
+    xo, yo = x[:off].clone(), y[:off].clone()
+    xo[::131] -= 2.0 * box  # off the extent, to the left
+    yo[65::131] += 2.0 * box  # and above it
+    periodic = MapSpec(shape=(1024, 1024), extent=(0.0, box, 0.0, box), periodic_wrap=True)
+    flat = MapSpec(shape=(1024, 1024), extent=(0.0, box, 0.0, box), periodic_wrap=False)
+    cases = [
+        ("coherent_order", periodic, x, y, h, torch.stack([m, m * t])),
+        ("shuffled", periodic, x[:sub][perm], y[:sub][perm], h[:sub][perm], torch.stack([m[:sub][perm], t[:sub][perm]])),
+        ("off_extent", flat, xo, yo, h[:off], torch.stack([m[:off], m[:off] * t[:off]])),
+    ]
+    out = []
+    for name, spec, cx, cy, ch, cv in cases:
+        cx, cy, ch, cv = (a.contiguous() for a in (cx, cy, ch, cv))
+        st = TC._setup(spec, "cubic_spline", TC.PALLAS_LEVELS, TC._D_MAX)
+        packed, aux = prep_rows(cx, cy, ch, cv, spec)
+        ref_packed, ref_aux = prep_rows_plain(cx, cy, ch, cv, st)
+        torch.cuda.synchronize()
+        bad_packed = int((packed != ref_packed).sum())
+        bad_aux = int((aux != ref_aux).sum())
+        err = max(float((packed - ref_packed).abs().max()), float((aux - ref_aux).abs().max()))
+        d = TC._D_MAX
+        heavy = int((aux[:, d + 2] > 0.5).sum())
+        n_rows = aux.shape[0]
+        case = {
+            "phase": "prep_vs_plain", "case": name, "n": cx.shape[0], "periodic": spec.periodic_wrap,
+            "mismatched_packed": bad_packed, "mismatched_aux": bad_aux, "max_abs_err": err,
+            "ms": cuda_ms(lambda: _prep_rows(cx, cy, ch, cv, st), 5),
+            "plain_ms": cuda_ms(lambda: prep_rows_plain(cx, cy, ch, cv, st), 5),
+            "heavy_rows": heavy, "coherent_fraction": 1.0 - heavy / n_rows,
+        }
+        if bad_packed or bad_aux:  # where they differ, for the record
+            idx = torch.nonzero(packed != ref_packed)[:5].tolist()
+            case["first_packed_mismatches"] = [
+                [i, float(packed[tuple(i)]), float(ref_packed[tuple(i)])] for i in idx
+            ]
+            idx = torch.nonzero(aux != ref_aux)[:5].tolist()
+            case["first_aux_mismatches"] = [[i, float(aux[tuple(i)]), float(ref_aux[tuple(i)])] for i in idx]
+        emit(case)
+        check(bad_packed == 0 and bad_aux == 0, f"row-prep kernel differs from its plain version: {name}")
+        out.append(case)
+    return out
+
+
+def phase_coherent_kernel(torch, device, particles):
+    """Kernel #2 (coherent deposit) vs its plain version on the main path's layout."""
+    from astro_sph_tools_tpu_torch.ops import MapSpec, tile_particles_coherent
+
+    TC = _coherent_module()
+    x, y, h, m, t, box = particles
+    spec = MapSpec(shape=(1024, 1024), extent=(0.0, box, 0.0, box), periodic_wrap=True)
+    all_fields = [m, m * t, t, 2.0 * m]
+    out = []
+    for n_fields in (1, 2, 4):
+        lay = tile_particles_coherent(x, y, h, torch.stack(all_fields[:n_fields]), spec, device=device)
+        g0 = lay.geom0
+        tr = torch.arange(g0.n_tiles, dtype=torch.int32, device=device)
+        per_tile = torch.searchsorted(lay.cand_tile, tr, right=True) - torch.searchsorted(lay.cand_tile, tr)
+        for projection in ("kernel3d", "integrated"):
+            kw = dict(n_fields=n_fields, n_tiles=g0.n_tiles, cfg=g0.cfg, kernel="cubic_spline",
+                      projection=projection, psx=box / 1024, psy=box / 1024, offset=spec.sample_offset)
+            args = (lay.packed, lay.cand_tile, lay.cand_row)
+            got = TC.deposit_coherent_tiles(*args, **kw)
+            ref = TC.deposit_coherent_tiles_plain(*args, **kw)
+            torch.cuda.synchronize()
+            err, rel = rel_err(got, ref)
+            case = {
+                "phase": "coherent_kernel_vs_plain", "F": n_fields, "projection": projection,
+                "n_candidates": lay.n_cand, "n_tiles": g0.n_tiles,
+                "max_candidates_per_tile": int(per_tile.max()),
+                "mean_candidates_per_tile": lay.n_cand / g0.n_tiles,
+                "max_abs_err": err, "rel_err": rel,
+                "ms": cuda_ms(lambda: TC.deposit_coherent_tiles(*args, **kw), 5),
+                "plain_ms": cuda_ms(lambda: TC.deposit_coherent_tiles_plain(*args, **kw), 3),
+            }
+            emit(case)
+            check(bool(torch.isfinite(got).all()), f"non-finite coherent kernel output {case}")
+            check(rel <= REL_TOL, f"coherent kernel disagrees with its plain version: {case}")
+            out.append(case)
+        del lay
+    return out
+
+
+def phase_coherent(torch, device, particles):
+    """The coherent main path at full size, synced and fused."""
+    from astro_sph_tools_tpu_torch.ops import (
+        CoherentCaps, MapSpec, caps_from_layout, deposit_2d_auto, deposit_2d_coherent,
+        deposit_2d_coherent_fused, deposit_coherent, tile_particles_coherent,
+    )
+    from astro_sph_tools_tpu_torch.ops.coherent_prep import prep_rows
+    from astro_sph_tools_tpu_torch.ops.deposit_tiled import deposit_tiles
+
+    TC = _coherent_module()
+    x, y, h, m, t, box = particles
+    n = x.shape[0]
+    spec = MapSpec(shape=(1024, 1024), extent=(0.0, box, 0.0, box), periodic_wrap=True)
+    fields = torch.stack([m, m * t])
+    torch.cuda.reset_peak_memory_stats()
+
+    # the coherent main path, once, with every launch count reset just before it
+    deposit_tiles.launches = prep_rows.launches = TC.deposit_coherent_tiles.launches = 0
+    img = deposit_2d_coherent(x, y, h, fields, spec, device=device)
+    torch.cuda.synchronize()
+    launches = {
+        "coherent_prep": prep_rows.launches,
+        "coherent_deposit": TC.deposit_coherent_tiles.launches,
+        "deposit2d": deposit_tiles.launches,
+    }
+    lay = tile_particles_coherent(x, y, h, fields, spec, device=device)
+    caps = caps_from_layout(lay)
+    deposit_tiles.launches = prep_rows.launches = TC.deposit_coherent_tiles.launches = 0
+    img_f, ok = deposit_2d_coherent_fused(x, y, h, fields, spec, caps, device=device)
+    torch.cuda.synchronize()
+    fused_launches = {
+        "coherent_prep": prep_rows.launches,
+        "coherent_deposit": TC.deposit_coherent_tiles.launches,
+        "deposit2d": deposit_tiles.launches,
+    }
+    ok_first = bool(ok)
+    # zero host syncs: a synchronising call inside raises in this mode
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        img_f2, ok2 = deposit_2d_coherent_fused(x, y, h, fields, spec, caps, device=device)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    ref = deposit_2d_auto(x, y, h, fields, spec, device=device)
+    err_s, rel_s = rel_err(img, ref)
+    err_f, rel_f = rel_err(img_f, ref)
+    err_f2, rel_f2 = rel_err(img_f2, ref)
+
+    integ = deposit_2d_coherent(x, y, h, fields, spec, projection="integrated", device=device)
+    px = box / 1024
+    mass = float(m.double().sum())
+    mass_err = abs(float(integ[0].double().sum()) * px * px - mass) / mass
+
+    wall_sync = wall_s(lambda: deposit_2d_coherent(x, y, h, fields, spec, device=device), 3)
+    wall_fused = wall_s(lambda: deposit_2d_coherent_fused(x, y, h, fields, spec, caps, device=device), 3)
+    wall_sorted = wall_s(lambda: deposit_2d_auto(x, y, h, fields, spec, device=device), 3)
+    layout_s = wall_s(lambda: tile_particles_coherent(x, y, h, fields, spec, device=device), 3)
+    deposit_s = wall_s(lambda: deposit_coherent(lay), 3)
+    busy_ms, prof_wall_ms = device_busy_ms(
+        lambda: deposit_2d_coherent_fused(x, y, h, fields, spec, caps, device=device)
+    )
+
+    sub = 1 << min(22, n.bit_length() - 1)
+    tiny = CoherentCaps(b0=4096, bucket_caps=tuple(0 for _ in range(12)), level_caps=(0, 0, 0, 0))
+    _, ok_tiny = deposit_2d_coherent_fused(x[:sub], y[:sub], h[:sub], fields[:, :sub], spec, tiny, device=device)
+    ok_tiny = bool(ok_tiny)
+
+    out = {
+        "phase": "coherent_path", "n": n, "map": [1024, 1024], "fields": 2,
+        "launches_synced": launches, "launches_fused": fused_launches,
+        "ok": ok_first, "ok_sync_debug_run": bool(ok2), "overflow_ok": ok_tiny,
+        "synced_vs_sorted_rel_err": rel_s, "fused_vs_sorted_rel_err": rel_f,
+        "fused_sync_debug_vs_sorted_rel_err": rel_f2, "max_abs_err": max(err_s, err_f, err_f2),
+        "integrated_mass_rel_err": mass_err,
+        "wall_s_coherent_synced": wall_sync, "wall_s_coherent_fused": wall_fused,
+        "wall_s_sorted": wall_sorted, "deposits_per_s_fused": n / wall_fused,
+        "layout_s": layout_s, "deposit_s": deposit_s,
+        "fused_profiled_wall_ms": prof_wall_ms, "fused_device_busy_ms": busy_ms,
+        "fused_device_idle_share": None if busy_ms is None else 1.0 - busy_ms / prof_wall_ms,
+        "stats": lay.stats, "caps": {"b0": caps.b0, "bucket_caps": caps.bucket_caps, "level_caps": caps.level_caps},
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    emit(out)
+    check(all(v > 0 for v in launches.values()), f"a kernel of the coherent path was not launched: {launches}")
+    check(all(v > 0 for v in fused_launches.values()), f"a kernel of the fused path was not launched: {fused_launches}")
+    check(ok_first and bool(ok2), "fused render reported overflow with capacities from its own layout")
+    check(not ok_tiny, "fused render with tiny capacities reported ok")
+    for name, a in (("synced", img), ("fused", img_f), ("integrated", integ)):
+        check(tuple(a.shape) == (2, 1024, 1024) and bool(torch.isfinite(a).all()), f"bad {name} map")
+    check(max(rel_s, rel_f, rel_f2) <= REL_TOL, f"coherent maps off the sorted engine: {rel_s}, {rel_f}, {rel_f2}")
+    check(mass_err < MASS_TOL, f"integrated coherent map mass error {mass_err}")
+    return out
+
+
+def phase_render_coherent(torch, device, particles):
+    from astro_sph_tools_tpu_torch import render_map_stack
+
+    snap = memory_snapshot(*particles)
+    kw = dict(fields=("density", "temperature"), resolution=1024, device=device)
+    got = render_map_stack(snap, engine="coherent", **kw)
+    ref = render_map_stack(snap, engine="pallas", **kw)
+    errs = {name: rel_err(got[name], ref[name])[1] for name in ("surface_density", "mass_weighted_temperature")}
+    emit({"phase": "render_map_stack_coherent", "maps": sorted(got.keys()), "rel_err_vs_pallas": errs,
+          "timings": got.timings, "timings_pallas": ref.timings})
+    check(max(errs.values()) <= REL_TOL, f"render_map_stack(engine='coherent') off engine='pallas': {errs}")
+
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phases", default="0,1,2,3,4,5", help="comma-separated phases to run")
+    parser.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9", help="comma-separated phases to run")
+    parser.add_argument("--log2n", type=int, default=MAIN_LOG2N, help="log2 of the main path's particle count")
     args = parser.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -449,27 +681,61 @@ def main() -> None:
 
     from astro_sph_tools_tpu_torch.ops.deposit_tiled import deposit_tiles
 
-    if 1 in phases or phases & {2, 3, 4, 5}:
+    if phases - {0}:
         phase_build()
     cases = phase_kernels(torch, device) if 2 in phases else []
-    main_out, particles = phase_main(torch, device, MAIN_LOG2N) if phases & {3, 4} else (None, None)
+    particles, gen_s = main_particles(torch, device, args.log2n) if phases & {3, 4, 6, 7, 8, 9} else (None, 0.0)
+    main_out = phase_main(torch, device, particles, gen_s) if 3 in phases else None
     if 4 in phases:
         phase_render(torch, device, particles)
-    del particles
     if 5 in phases:
         phase_quality(torch, device)
+    prep_cases = phase_prep(torch, device, particles) if 6 in phases else []
+    coh_cases = phase_coherent_kernel(torch, device, particles) if 7 in phases else []
+    coh_out = phase_coherent(torch, device, particles) if 8 in phases else None
+    if 9 in phases:
+        phase_render_coherent(torch, device, particles)
+    del particles
 
-    ref_case = next((c for c in cases if (c["K"], c["F"], c["projection"]) == (8, 2, "kernel3d")), None)
-    emit({"kernels": [{
-        "name": "deposit2d",
-        "route": "cuda",
-        "source": "astro_sph_tools_tpu_torch/csrc/deposit2d.cu",
-        "replaces": "astro_sph_tools_tpu/ops/deposit_pallas.py:129",
-        "launches": main_out["launches"] if main_out else deposit_tiles.launches,
-        "max_abs_err": max((c["max_abs_err"] for c in cases), default=None),
-        "ms": ref_case["ms"] if ref_case else None,
-        "plain_ms": ref_case["plain_ms"] if ref_case else None,
-    }]})
+    def pick(rows, **match):
+        return next((c for c in rows if all(c[k] == v for k, v in match.items())), None)
+
+    ref_case = pick(cases, K=8, F=2, projection="kernel3d")
+    prep_case = pick(prep_cases, case="coherent_order")
+    coh_case = pick(coh_cases, F=2, projection="kernel3d")
+    launches = coh_out["launches_synced"] if coh_out else {}
+    emit({"kernels": [
+        {
+            "name": "deposit2d",
+            "route": "cuda",
+            "source": "astro_sph_tools_tpu_torch/csrc/deposit2d.cu",
+            "replaces": "astro_sph_tools_tpu/ops/deposit_pallas.py:129",
+            "launches": main_out["launches"] if main_out else deposit_tiles.launches,
+            "max_abs_err": max((c["max_abs_err"] for c in cases), default=None),
+            "ms": ref_case["ms"] if ref_case else None,
+            "plain_ms": ref_case["plain_ms"] if ref_case else None,
+        },
+        {
+            "name": "coherent_prep",
+            "route": "cuda",
+            "source": "astro_sph_tools_tpu_torch/csrc/coherent.cu",
+            "replaces": "astro_sph_tools_tpu/ops/coherent_prep_pallas.py:104",
+            "launches": launches.get("coherent_prep"),
+            "max_abs_err": max((c["max_abs_err"] for c in prep_cases), default=None),
+            "ms": prep_case["ms"] if prep_case else None,
+            "plain_ms": prep_case["plain_ms"] if prep_case else None,
+        },
+        {
+            "name": "coherent_deposit",
+            "route": "cuda",
+            "source": "astro_sph_tools_tpu_torch/csrc/coherent.cu",
+            "replaces": "astro_sph_tools_tpu/ops/deposit_coherent.py:660",
+            "launches": launches.get("coherent_deposit"),
+            "max_abs_err": max((c["max_abs_err"] for c in coh_cases), default=None),
+            "ms": coh_case["ms"] if coh_case else None,
+            "plain_ms": coh_case["plain_ms"] if coh_case else None,
+        },
+    ]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }})

@@ -91,10 +91,25 @@ def test_render_map_stack_matches_jax(snap_path, engine):
 
 
 def test_render_rejects_unported_engine(snap_path):
-    with pytest.raises(NotImplementedError, match="coherent"):
-        t_render(SnapshotEAGLE(snap_path), engine="coherent", device="cpu")
     with pytest.raises(ValueError, match="Unknown engine"):
         t_render(SnapshotEAGLE(snap_path), engine="scatter", device="cpu")
+    # the coherent engine carries at most 4 fields per pass, as in JAX
+    with pytest.raises(ValueError, match="at most 4 fields"):
+        t_render(SnapshotEAGLE(snap_path), fields=("density", "mass", "temperature", "metallicity",
+                                                  "velocity_los"), engine="coherent", device="cpu")
+
+
+@pytest.mark.parametrize("fields", [("density",), ("density", "temperature", "velocity_los")])
+def test_render_map_stack_coherent_matches_pallas(snap_path, fields):
+    """engine="coherent" renders the maps of engine="pallas" (the port's
+    sorted engine, held against JAX above)."""
+    snap = SnapshotEAGLE(snap_path)
+    got = t_render(snap, fields=fields, resolution=64, engine="coherent", device="cpu")
+    ref = t_render(snap, fields=fields, resolution=64, engine="pallas", device="cpu")
+    assert set(got.keys()) == set(ref.keys())
+    for name in got.keys():
+        if not name.startswith("mean_"):
+            assert rel_err(got[name], ref[name]) <= 1e-5, name
 
 
 def test_port_imports_neither_jax_nor_h5py():
@@ -102,6 +117,8 @@ def test_port_imports_neither_jax_nor_h5py():
         "import sys\n"
         "import astro_sph_tools_tpu_torch, astro_sph_tools_tpu_torch.render\n"
         "import astro_sph_tools_tpu_torch.tools, astro_sph_tools_tpu_torch.ops\n"
+        "import astro_sph_tools_tpu_torch.ops.coherent_prep, astro_sph_tools_tpu_torch._build\n"
+        "from astro_sph_tools_tpu_torch.ops import deposit_2d_coherent_fused, tile_particles_coherent\n"
         "import astro_sph_tools_tpu_torch.io.snapshot\n"
         "print(sorted(m for m in ('jax', 'h5py', 'astro_sph_tools_tpu') if m in sys.modules))\n"
     )
