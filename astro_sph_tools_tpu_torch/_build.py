@@ -1,10 +1,11 @@
 """Build and load the package's CUDA kernel libraries.
 
 Every ``csrc/<name>.cu`` holds kernels with a plain C interface (today
-``deposit2d.cu``, the sorted engine's deposit, and ``coherent.cu``, the
-coherent engine's row prep and deposit; both include
-``csrc/deposit_common.cuh``). At first use each source is compiled by
-``nvcc`` for Hopper (``sm_90a``) into its own shared library under
+``deposit2d.cu``, the sorted engine's deposit; ``coherent.cu``, the
+coherent engine's row prep and deposit; ``sightlines.cu``, the sightline
+columns and spectra; all include ``csrc/deposit_common.cuh``). At first
+use each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into its
+own shared library under
 ``_build/``, named by a hash of the source, of every ``csrc/*.cuh`` it
 includes (directly or through another header) and of the flags, and loaded
 with ``ctypes``. A build that fails, or a machine without ``nvcc``, raises
@@ -70,6 +71,27 @@ _SIGNATURES = {
             _P,  # cudaStream_t
         ],
         "coherent_prep_param_counts": [ctypes.POINTER(_I), ctypes.POINTER(_I)],
+    },
+    "sightlines": {
+        "sightline_columns_launch": [
+            _P, _LL, _I,  # packed channel rows, row stride, n_fields
+            _P, _P, _P, _P, _I,  # rx, ry (n_blocks, 8), lo, hi (n_blocks, 10), n_blocks
+            _P,  # out (n_blocks, 8, F)
+            _I, _F, _F,  # periodic, Lx, Ly
+            _I, _I, _F, _F,  # kernel id, integrated, norm_3d, support_factor
+            _P, _I,  # chebyshev coefficients, count
+            _P,  # cudaStream_t
+        ],
+        "sightline_spectra_launch": [
+            _P, _LL,  # packed channel rows, row stride
+            _P, _P, _P, _P, _I,  # rx, ry (n_blocks, 32), lo, hi (n_blocks, 10), n_blocks
+            _P, _I, _P,  # v_centres, n_bins, out (n_blocks, 32, n_bins)
+            _I, _F, _F, _F,  # periodic, Lx, Ly, support_factor
+            _P, _I,  # chebyshev coefficients, count
+            _I, _F, _I,  # wrap velocities, v_box, n_images
+            _I, _F,  # voigt, voigt_k
+            _P,  # cudaStream_t
+        ],
     },
 }
 

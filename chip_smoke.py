@@ -6,14 +6,16 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU:
     python3 chip_smoke.py                # every phase
     python3 chip_smoke.py --phases 0,1,2 # a subset, for debugging
 
-It drives the port's two main paths — the adaptive-h sorted tile engine
-behind ``render_map_stack`` and the coherent-order engine (synced and
-zero-sync fused) — on particles generated in memory from a seed, and fails
-(non-zero exit) if any phase fails:
+It drives the port's main paths — the adaptive-h sorted tile engine behind
+``render_map_stack``, the coherent-order engine (synced and zero-sync fused)
+and the sightline columns and absorption spectra of BASELINE config 4 — on
+particles generated in memory from a seed, and fails (non-zero exit) if any
+phase fails:
 
 0. device: torch version, card name and power limit (nvidia-smi);
 1. build: compile every CUDA kernel library (``csrc/deposit2d.cu``,
-   ``csrc/coherent.cu``), one nvcc per source, all started together;
+   ``csrc/coherent.cu``, ``csrc/sightlines.cu``), one nvcc per source, all
+   started together;
 2. sorted-engine deposit kernel vs its plain torch version on the card, for
    every level K in {8, 16, 32, 64} x F in {2, 5} x projection, on a 1024^2
    map with 2^18 particles whose h lies inside the level;
@@ -33,7 +35,18 @@ zero-sync fused) — on particles generated in memory from a seed, and fails
    (the latter once more under ``torch.cuda.set_sync_debug_mode("error")``),
    both against the sorted engine; the three engines' warm walls; an
    overflowing fused render must report ``ok`` False;
-9. ``render_map_stack(engine="coherent")`` against ``engine="pallas"``.
+9. ``render_map_stack(engine="coherent")`` against ``engine="pallas"``;
+10. sightline column kernel (``csrc/sightlines.cu``) vs its plain version on
+    the fused layout of the config-4 particles (below) and 2048 rays,
+    {kernel3d, integrated} x {periodic, open} x F in {1, 5};
+11. spectra kernel vs its plain version, 256 rays, 512 bins, {gaussian,
+    voigt (H I Lya)} x {periodic, open};
+12. the config-4 path at full size: 10^4 random rays through 10^7 clustered
+    gas particles in a periodic 25 cMpc box at z = 0.5 —
+    ``column_integrate_pallas`` and ``absorption_spectra_pallas`` (512 bins,
+    Gaussian and Voigt); launch counts, finiteness, warm walls, the device's
+    busy share, and agreement with the binned engines on 256 rays and with
+    the dense spectra engine on a 2^20-particle subset.
 
 Every phase prints one JSON line; the kernels' summary line and the card's
 ``nvidia-smi`` line come before the last line, which is
@@ -55,6 +68,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 REL_TOL = 1e-5  # kernel vs plain and vs oracle: max|a - b| <= 1e-5 * max|b|
 MASS_TOL = 5e-3  # integrated projection mass conservation
 MAIN_LOG2N = 26  # main path: 2^26 particles (EAGLE Ref-L0025N0376's 376^3 gas fits)
+PATH_TOL = 2e-5  # whole-engine f32 runs (fused vs binned/dense oracles): twice REL_TOL
+SIGHT_N = 10_000_000  # config 4: 10^7 gas particles ...
+SIGHT_RAYS = 10_000  # ... and 10^4 rays (BASELINE.json config 4)
+SIGHT_BOX = 25.0  # cMpc, periodic
+GAMMA_LYA = 6.265e8  # H I Lya damping rate, 1/s
 
 
 def emit(obj) -> None:
@@ -660,11 +678,266 @@ def phase_render_coherent(torch, device, particles):
     check(max(errs.values()) <= REL_TOL, f"render_map_stack(engine='coherent') off engine='pallas': {errs}")
 
 
+# ---------------------------------------------------------------------------
+# config 4: sightline columns and absorption spectra
+# ---------------------------------------------------------------------------
+
+
+def sightline_particles(torch, device, n: int, box: float, seed: int):
+    """Clustered gas particles in a periodic 3D box, drawn as
+    ``clustered_particles`` draws its 2D ones: a blob-mixture density on a
+    64^3 cell grid (point masses smoothed with periodic FFT Gaussians at
+    three scales), cells sampled by density, uniform within a cell. h
+    follows the local density (1.2 mean spacings at the mean density,
+    ``(rho / mean)^(-1/3)``) with a lognormal scatter; v_pec, T and the
+    masses are drawn per particle with a ``torch.Generator``. Returns
+    (pos (n, 3), h, m, v_pec, T) on ``device``, f32."""
+    grid = 64
+    rng = np.random.default_rng(seed)
+    dens = np.zeros((grid, grid, grid))
+    f = np.fft.fftfreq(grid)
+    k2 = f[:, None, None] ** 2 + f[None, :, None] ** 2 + f[None, None, :] ** 2
+    for n_blobs, sig_cells in ((3000, 1.0), (6000, 2.0), (2000, 4.0)):
+        idx = rng.integers(0, grid, (3, n_blobs))
+        point = np.zeros((grid, grid, grid))
+        np.add.at(point, tuple(idx), np.exp(rng.normal(0.0, 1.0, n_blobs)))
+        dens += np.real(np.fft.ifftn(np.fft.fftn(point) * np.exp(-2.0 * (np.pi * sig_cells) ** 2 * k2)))
+    dens = np.maximum(dens, 0.0) ** 1.5
+    dens = (dens + 0.02 * dens.mean()).reshape(-1)
+    cum = np.cumsum(dens / dens.sum())
+
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    cell = torch.searchsorted(
+        torch.as_tensor(cum, dtype=torch.float32, device=device),
+        torch.rand(n, generator=g, device=device),
+    ).clamp_(0, grid ** 3 - 1)
+    cw = box / grid
+    ijk = torch.stack([cell // (grid * grid), (cell // grid) % grid, cell % grid], dim=1).float()
+    pos = (ijk + torch.rand((n, 3), generator=g, device=device)) * cw
+    rho = torch.as_tensor(dens / dens.mean(), dtype=torch.float32, device=device)[cell]
+    del cell, ijk
+    h = 1.2 * (box / n ** (1.0 / 3.0)) * rho ** (-1.0 / 3.0)
+    h = torch.clamp(h * torch.exp(0.25 * torch.randn(n, generator=g, device=device)), 0.005, 1.5)
+    m = 1.81e6 * (0.9 + 0.2 * torch.rand(n, generator=g, device=device))
+    v_pec = 100.0 * torch.randn(n, generator=g, device=device)
+    T = 10.0 ** torch.clamp(4.3 + 0.6 * torch.randn(n, generator=g, device=device), 3.5, 7.0)
+    return pos, h, m, v_pec, T
+
+
+def sightline_setup(torch, device, n: int):
+    """Phase 10-12's particles, rays and cosmology (z = 0.5)."""
+    from astro_sph_tools_tpu_torch.data_structures import Cosmology
+
+    t0 = time.perf_counter()
+    pos, h, m, v_pec, T = sightline_particles(torch, device, n, SIGHT_BOX, seed=17)
+    torch.cuda.synchronize()
+    rng = np.random.default_rng(8)
+    rx = rng.uniform(0.0, SIGHT_BOX, SIGHT_RAYS)
+    ry = rng.uniform(0.0, SIGHT_BOX, SIGHT_RAYS)
+    cosmo = Cosmology.from_redshift(0.5, 0.6777, 0.04825)
+    return {"pos": pos, "h": h, "m": m, "v_pec": v_pec, "T": T, "rx": rx, "ry": ry,
+            "cosmology": cosmo, "generate_s": time.perf_counter() - t0}
+
+
+def phase_columns_kernel(torch, device, sl, n_rays: int = 2048):
+    """Kernel #4 vs its plain version on the fused layout of the config-4
+    particles."""
+    from astro_sph_tools_tpu_torch.ops.sightlines_fused import (
+        _columns_layout, columns_tiles, columns_tiles_plain,
+    )
+
+    pos, h, m, T, v = sl["pos"], sl["h"], sl["m"], sl["T"], sl["v_pec"]
+    fields5 = torch.stack([m, m * T, m * v, h, T], dim=1)
+    rx, ry = sl["rx"][:n_rays], sl["ry"][:n_rays]
+    out = []
+    for periodic in (True, False):
+        for n_fields in (1, 5):
+            lay, _, _ = _columns_layout(
+                pos[:, 0], pos[:, 1], h, fields5[:, :n_fields], rx, ry, kernel="cubic_spline",
+                periodic_box=SIGHT_BOX if periodic else None, device=device,
+            )
+            args = (lay.packed, lay.rx, lay.ry, lay.lo, lay.hi)
+            spans = (lay.hi - lay.lo).clamp_min(0).sum(dim=1)
+            for projection in ("kernel3d", "integrated"):
+                kw = dict(n_fields=n_fields, kernel="cubic_spline", projection=projection,
+                          periodic=lay.periodic, Lx=lay.Lx, Ly=lay.Ly)
+                got = columns_tiles(*args, **kw)
+                ref = columns_tiles_plain(*args, **kw)
+                torch.cuda.synchronize()
+                err, rel = rel_err(got, ref)
+                case = {
+                    "phase": "columns_kernel_vs_plain", "projection": projection, "periodic": periodic,
+                    "F": n_fields, "n": pos.shape[0], "n_rays": n_rays, "n_blocks": lay.n_blocks,
+                    "n_levels": len(lay.rorders), "pairs_scanned": int(spans.sum()) * 8,
+                    "max_span_particles": int(spans.max()), "max_abs_err": err, "rel_err": rel,
+                    "ms": cuda_ms(lambda: columns_tiles(*args, **kw), 5),
+                    "plain_ms": cuda_ms(lambda: columns_tiles_plain(*args, **kw), 3),
+                }
+                emit(case)
+                check(bool(torch.isfinite(got).all()), f"non-finite column kernel output {case}")
+                check(rel <= REL_TOL, f"column kernel disagrees with its plain version: {case}")
+                out.append(case)
+            del lay, args
+    return out
+
+
+def phase_spectra_kernel(torch, device, sl, n_rays: int = 256, n_bins: int = 512):
+    """Kernel #5 vs its plain version on the fused layout of the config-4
+    particles."""
+    from astro_sph_tools_tpu_torch.ops.spectra import _resolve_profile
+    from astro_sph_tools_tpu_torch.ops.spectra_fused import _spectra_layout, spectra_tiles, spectra_tiles_plain
+
+    out = []
+    for periodic in (True, False):
+        for profile in ("gaussian", "voigt"):
+            lay, vc, v_box, n_images = _spectra_layout(
+                sl["pos"], sl["h"], sl["m"], sl["v_pec"], sl["T"], sl["rx"][:n_rays], sl["ry"][:n_rays],
+                cosmology=sl["cosmology"], box_size=SIGHT_BOX, atomic_weight=1.008, n_bins=n_bins,
+                kernel="cubic_spline", periodic=periodic, profile=profile, device=device,
+            )
+            vc_t = torch.as_tensor(vc, device=device)
+            args = (lay.packed, lay.rx, lay.ry, lay.lo, lay.hi, vc_t)
+            kw = dict(kernel="cubic_spline", periodic=lay.periodic, Lx=lay.Lx, Ly=lay.Ly, v_box=v_box,
+                      n_images=n_images, profile=profile,
+                      voigt_k=_resolve_profile(profile, GAMMA_LYA, 1215.67))
+            got = spectra_tiles(*args, **kw)
+            ref = spectra_tiles_plain(*args, **kw)
+            torch.cuda.synchronize()
+            err, rel = rel_err(got, ref)
+            spans = (lay.hi - lay.lo).clamp_min(0).sum(dim=1)
+            case = {
+                "phase": "spectra_kernel_vs_plain", "profile": profile, "periodic": periodic,
+                "n": sl["pos"].shape[0], "n_rays": n_rays, "n_bins": n_bins, "n_blocks": lay.n_blocks,
+                "n_levels": len(lay.rorders), "velocity_images": n_images,
+                "particles_scanned": int(spans.sum()), "max_abs_err": err, "rel_err": rel,
+                "ms": cuda_ms(lambda: spectra_tiles(*args, **kw), 3),
+                "plain_ms": cuda_ms(lambda: spectra_tiles_plain(*args, **kw), 1),
+            }
+            emit(case)
+            check(bool(torch.isfinite(got).all()), f"non-finite spectra kernel output {case}")
+            check(rel <= REL_TOL, f"spectra kernel disagrees with its plain version: {case}")
+            out.append(case)
+            del lay, args
+    return out
+
+
+def phase_sightlines(torch, device, sl, n_check: int = 256, n_bins: int = 512):
+    """The config-4 path at full size: columns and spectra (Gaussian and
+    Voigt) through the fused engines."""
+    from astro_sph_tools_tpu_torch.ops import (
+        absorption_spectra, absorption_spectra_binned, absorption_spectra_pallas, column_integrate_binned,
+        column_integrate_pallas,
+    )
+    from astro_sph_tools_tpu_torch.ops.sightlines_fused import _columns_layout, columns_tiles
+    from astro_sph_tools_tpu_torch.ops.spectra import _resolve_profile
+    from astro_sph_tools_tpu_torch.ops.spectra_fused import _spectra_layout, spectra_tiles
+
+    pos, h, m, v, T, rx, ry = (sl[k] for k in ("pos", "h", "m", "v_pec", "T", "rx", "ry"))
+    x, y = pos[:, 0].contiguous(), pos[:, 1].contiguous()
+    cosmo = sl["cosmology"]
+    n, n_rays = pos.shape[0], rx.shape[0]
+    cols_fn = lambda: column_integrate_pallas(x, y, h, m, rx, ry, periodic_box=SIGHT_BOX, device=device)
+    spec_kw = dict(cosmology=cosmo, box_size=SIGHT_BOX, n_bins=n_bins, device=device)
+    voigt_kw = dict(profile="voigt", gamma=GAMMA_LYA)
+    gauss_fn = lambda: absorption_spectra_pallas(pos, h, m, v, T, rx, ry, **spec_kw)
+    voigt_fn = lambda: absorption_spectra_pallas(pos, h, m, v, T, rx, ry, **spec_kw, **voigt_kw)
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path, once, with both launch counts reset just before it
+    columns_tiles.launches = spectra_tiles.launches = 0
+    cols = cols_fn()
+    tau_g, vc = gauss_fn()
+    tau_v, _ = voigt_fn()
+    torch.cuda.synchronize()
+    launches = {"sightline_columns": columns_tiles.launches, "sightline_spectra": spectra_tiles.launches}
+
+    for name, a, shape in (("columns", cols, (n_rays,)), ("gaussian", tau_g, (n_rays, n_bins)),
+                           ("voigt", tau_v, (n_rays, n_bins))):
+        check(tuple(a.shape) == shape and bool(torch.isfinite(a).all()), f"bad {name} output {tuple(a.shape)}")
+    check(float(cols.min()) >= 0.0 and float(cols.max()) > 0.0, "column densities empty or negative")
+
+    walls = {
+        "columns": wall_s(cols_fn, 3),
+        "spectra_gaussian": wall_s(gauss_fn, 3),
+        "spectra_voigt": wall_s(voigt_fn, 3),
+    }
+    busy_cols, prof_cols = device_busy_ms(cols_fn)
+    busy_g, prof_g = device_busy_ms(gauss_fn)
+    busy_v, prof_v = device_busy_ms(voigt_fn)
+
+    # the walls split: layout (device sort + host ray schedule) and kernel
+    col_layout = lambda: _columns_layout(x, y, h, m, rx, ry, kernel="cubic_spline", periodic_box=SIGHT_BOX,
+                                         device=device)
+    spec_layout = lambda prof: _spectra_layout(
+        pos, h, m, v, T, rx, ry, cosmology=cosmo, box_size=SIGHT_BOX, atomic_weight=1.008, n_bins=n_bins,
+        kernel="cubic_spline", periodic=True, profile=prof, device=device)
+    layout_s = {"columns": wall_s(col_layout, 3), "spectra": wall_s(lambda: spec_layout("gaussian"), 3)}
+    lay = col_layout()[0]
+    kernel_ms = {"columns": cuda_ms(lambda: columns_tiles(
+        lay.packed, lay.rx, lay.ry, lay.lo, lay.hi, n_fields=1, kernel="cubic_spline",
+        projection="integrated", periodic=True, Lx=lay.Lx, Ly=lay.Ly), 3)}
+    for prof in ("gaussian", "voigt"):
+        lay, vc_np, v_box, n_img = spec_layout(prof)
+        vc_t = torch.as_tensor(vc_np, device=device)
+        kernel_ms[f"spectra_{prof}"] = cuda_ms(lambda: spectra_tiles(
+            lay.packed, lay.rx, lay.ry, lay.lo, lay.hi, vc_t, kernel="cubic_spline", periodic=True,
+            Lx=lay.Lx, Ly=lay.Ly, v_box=v_box, n_images=n_img, profile=prof,
+            voigt_k=_resolve_profile(prof, GAMMA_LYA, 1215.67)), 3)
+    del lay
+
+    # the velocity integral of each spectrum is its column (unit-integral
+    # profiles; bins cover the box's velocity extent)
+    dv = float(vc[1] - vc[0])
+    live = cols > 1e-3 * cols.max()
+    flux_err = float(((tau_g.sum(dim=1) * dv - cols).abs() / cols)[live].max())
+
+    # oracles: the binned engines on the first n_check rays, the dense
+    # spectra engine on a 2^20-particle subset
+    rs = slice(0, n_check)
+    errs = {}
+    ref = column_integrate_binned(x, y, h, m, rx[rs], ry[rs], periodic_box=SIGHT_BOX, device=device)
+    errs["columns_vs_binned"] = rel_err(cols[rs], ref)
+    for name, tau, kw in (("gaussian", tau_g, {}), ("voigt", tau_v, voigt_kw)):
+        ref, _ = absorption_spectra_binned(pos, h, m, v, T, rx[rs], ry[rs], **spec_kw, **kw)
+        errs[f"{name}_vs_binned"] = rel_err(tau[rs], ref)
+        sub = 1 << 20
+        got, _ = absorption_spectra_pallas(pos[:sub], h[:sub], m[:sub], v[:sub], T[:sub], rx[rs], ry[rs],
+                                           **spec_kw, **kw)
+        ref, _ = absorption_spectra(pos[:sub], h[:sub], m[:sub], v[:sub], T[:sub], rx[rs], ry[rs],
+                                    **spec_kw, **kw)
+        errs[f"{name}_vs_dense_2^20"] = rel_err(got, ref)
+    out = {
+        "phase": "sightlines_path", "n": n, "n_rays": n_rays, "n_bins": n_bins, "box_cMpc": SIGHT_BOX,
+        "redshift": cosmo.redshift, "generate_s": sl["generate_s"], "launches": launches,
+        "wall_s": walls, "rays_per_s_columns": n_rays / walls["columns"], "layout_s": layout_s,
+        "kernel_ms": kernel_ms,
+        "profiled_wall_ms": {"columns": prof_cols, "spectra_gaussian": prof_g, "spectra_voigt": prof_v},
+        "device_busy_ms": {"columns": busy_cols, "spectra_gaussian": busy_g, "spectra_voigt": busy_v},
+        "device_idle_share": {
+            k: (None if b is None else 1.0 - b / w)
+            for k, b, w in (("columns", busy_cols, prof_cols), ("spectra_gaussian", busy_g, prof_g),
+                            ("spectra_voigt", busy_v, prof_v))
+        },
+        "h_range": [float(h.min()), float(h.max())],
+        "column_flux_rel_err": flux_err,
+        "max_abs_err": max(e for e, _ in errs.values()),
+        "rel_err": {k: r for k, (_, r) in errs.items()},
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    emit(out)
+    check(all(c > 0 for c in launches.values()), f"a sightline kernel was not launched: {launches}")
+    check(flux_err < 2e-2, f"spectra lose their columns: {flux_err}")
+    bad = {k: r for k, (_, r) in errs.items() if not r <= PATH_TOL}
+    check(not bad, f"config-4 path off its oracles: {bad}")
+    return out
+
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9", help="comma-separated phases to run")
+    parser.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12", help="comma-separated phases to run")
     parser.add_argument("--log2n", type=int, default=MAIN_LOG2N, help="log2 of the main path's particle count")
+    parser.add_argument("--sight-n", type=int, default=SIGHT_N, help="gas particles of phases 10-12")
     args = parser.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -696,6 +969,15 @@ def main() -> None:
     if 9 in phases:
         phase_render_coherent(torch, device, particles)
     del particles
+    torch.cuda.empty_cache()
+    from astro_sph_tools_tpu_torch.ops.sightlines_fused import columns_tiles
+    from astro_sph_tools_tpu_torch.ops.spectra_fused import spectra_tiles
+
+    sl = sightline_setup(torch, device, args.sight_n) if phases & {10, 11, 12} else None
+    col_cases = phase_columns_kernel(torch, device, sl) if 10 in phases else []
+    spec_cases = phase_spectra_kernel(torch, device, sl) if 11 in phases else []
+    sight_out = phase_sightlines(torch, device, sl) if 12 in phases else None
+    del sl
 
     def pick(rows, **match):
         return next((c for c in rows if all(c[k] == v for k, v in match.items())), None)
@@ -704,6 +986,11 @@ def main() -> None:
     prep_case = pick(prep_cases, case="coherent_order")
     coh_case = pick(coh_cases, F=2, projection="kernel3d")
     launches = coh_out["launches_synced"] if coh_out else {}
+    col_case = pick(col_cases, projection="integrated", periodic=True, F=1)
+    spec_case = pick(spec_cases, profile="gaussian", periodic=True)
+    sight_launches = sight_out["launches"] if sight_out else {
+        "sightline_columns": columns_tiles.launches, "sightline_spectra": spectra_tiles.launches,
+    }
     emit({"kernels": [
         {
             "name": "deposit2d",
@@ -734,6 +1021,26 @@ def main() -> None:
             "max_abs_err": max((c["max_abs_err"] for c in coh_cases), default=None),
             "ms": coh_case["ms"] if coh_case else None,
             "plain_ms": coh_case["plain_ms"] if coh_case else None,
+        },
+        {
+            "name": "sightline_columns",
+            "route": "cuda",
+            "source": "astro_sph_tools_tpu_torch/csrc/sightlines.cu",
+            "replaces": "astro_sph_tools_tpu/ops/sightlines_pallas.py:368",
+            "launches": sight_launches["sightline_columns"],
+            "max_abs_err": max((c["max_abs_err"] for c in col_cases), default=None),
+            "ms": col_case["ms"] if col_case else None,
+            "plain_ms": col_case["plain_ms"] if col_case else None,
+        },
+        {
+            "name": "sightline_spectra",
+            "route": "cuda",
+            "source": "astro_sph_tools_tpu_torch/csrc/sightlines.cu",
+            "replaces": "astro_sph_tools_tpu/ops/spectra_pallas.py:70",
+            "launches": sight_launches["sightline_spectra"],
+            "max_abs_err": max((c["max_abs_err"] for c in spec_cases), default=None),
+            "ms": spec_case["ms"] if spec_case else None,
+            "plain_ms": spec_case["plain_ms"] if spec_case else None,
         },
     ]})
     emit({"ok": True, "device": {

@@ -120,6 +120,9 @@ def test_port_imports_neither_jax_nor_h5py():
         "import astro_sph_tools_tpu_torch.ops.coherent_prep, astro_sph_tools_tpu_torch._build\n"
         "from astro_sph_tools_tpu_torch.ops import deposit_2d_coherent_fused, tile_particles_coherent\n"
         "import astro_sph_tools_tpu_torch.io.snapshot\n"
+        "import astro_sph_tools_tpu_torch.ops.sightlines, astro_sph_tools_tpu_torch.ops.sightlines_fused\n"
+        "import astro_sph_tools_tpu_torch.ops.spectra, astro_sph_tools_tpu_torch.ops.spectra_fused\n"
+        "import astro_sph_tools_tpu_torch.scripts.sightlines_cli, astro_sph_tools_tpu_torch.utils.console\n"
         "print(sorted(m for m in ('jax', 'h5py', 'astro_sph_tools_tpu') if m in sys.modules))\n"
     )
     out = subprocess.run(
