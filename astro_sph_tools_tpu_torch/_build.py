@@ -3,7 +3,8 @@
 Every ``csrc/<name>.cu`` holds kernels with a plain C interface (today
 ``deposit2d.cu``, the sorted engine's deposit; ``coherent.cu``, the
 coherent engine's row prep and deposit; ``sightlines.cu``, the sightline
-columns and spectra; all include ``csrc/deposit_common.cuh``). At first
+columns and spectra; ``deposit3d.cu``, the 3D voxel deposit; all include
+``csrc/deposit_common.cuh``). At first
 use each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into its
 own shared library under
 ``_build/``, named by a hash of the source, of every ``csrc/*.cuh`` it
@@ -90,6 +91,18 @@ _SIGNATURES = {
             _P, _I,  # chebyshev coefficients, count
             _I, _F, _I,  # wrap velocities, v_box, n_images
             _I, _F,  # voigt, voigt_k
+            _P,  # cudaStream_t
+        ],
+    },
+    "deposit3d": {
+        "deposit3d_launch": [
+            _P, _P, _P, _P, _P, _LL, _I,  # u, v, w, h, values, values row stride, n_fields
+            _P, _P, _P, _I,  # item tile, first particle, particle count; n_items
+            _P,  # out (F, nz, ny, nx), added into
+            _I, _I, _I, _I, _I, _I,  # K, TZ, TY, TX, tiles per x row, tiles per y column
+            _I, _I, _I, _I, _I, _I,  # nz, ny, nx, periodic x, y, z
+            _F, _F, _F, _F,  # offset, psx, psy, psz
+            _I, _F, _F,  # kernel id, norm_3d, support_factor
             _P,  # cudaStream_t
         ],
     },

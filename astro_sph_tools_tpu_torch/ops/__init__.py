@@ -1,8 +1,9 @@
-"""Device-side operations: the 2D deposit engines, sightlines and spectra.
+"""Device-side operations: the 2D and 3D deposit engines, sightlines and spectra.
 
 Counterpart: ``astro_sph_tools_tpu/ops/__init__.py`` (the ported slices: the
 plain torch stencil engine, the sorted tile engine, the coherent-order
-engine, and the sightline column and absorption-spectra engines). As in
+engine, the sightline column and absorption-spectra engines, and the 3D
+voxel engines). As in
 the JAX package, the exported function ``deposit_coherent`` shadows the
 module of the same name: import the module with
 ``importlib.import_module("astro_sph_tools_tpu_torch.ops.deposit_coherent")``."""
@@ -30,6 +31,16 @@ from .deposit_tiled import (
     tile_particles,
     tiled_particles_from_arrays,
 )
+from .grid3d import GridSpec, deposit_3d
+from .grid3d_tiled import (
+    PALLAS_3D_LEVELS,
+    Pallas3DConfig,
+    Tiled3DParticles,
+    deposit_3d_auto,
+    deposit_3d_pallas,
+    deposit_3d_tiled,
+    tile_particles_3d,
+)
 from .sightlines import column_integrate, column_integrate_binned, los_profiles
 from .sightlines_fused import column_integrate_pallas
 from .spectra import (
@@ -44,9 +55,13 @@ from .spectra_fused import absorption_spectra_pallas
 __all__ = [
     "CoherentCaps",
     "CoherentLayout",
+    "GridSpec",
     "MapSpec",
+    "PALLAS_3D_LEVELS",
     "PALLAS_LEVELS",
+    "Pallas3DConfig",
     "PallasDepositConfig",
+    "Tiled3DParticles",
     "TiledParticles",
     "absorption_spectra",
     "absorption_spectra_binned",
@@ -62,6 +77,10 @@ __all__ = [
     "deposit_2d_coherent_fused",
     "deposit_2d_fixed_h",
     "deposit_2d_pallas",
+    "deposit_3d",
+    "deposit_3d_auto",
+    "deposit_3d_pallas",
+    "deposit_3d_tiled",
     "deposit_coherent",
     "deposit_tiled",
     "deposit_tiles",
@@ -70,6 +89,7 @@ __all__ = [
     "doppler_parameter_kms",
     "los_profiles",
     "tile_particles",
+    "tile_particles_3d",
     "tile_particles_coherent",
     "tiled_particles_from_arrays",
     "voigt_damping_kms",

@@ -1,0 +1,568 @@
+"""Tiled 3D voxel deposit: adaptive-h cubes through a hand-written CUDA kernel.
+
+Counterpart: ``astro_sph_tools_tpu/ops/grid3d_pallas.py`` (BASELINE config
+3). The pipeline and its values are the JAX engine's; its TPU workarounds
+are gone:
+
+1. **Assign**: each particle gets a footprint level (by ``support_factor *
+   h`` in voxels of the smallest edge; levels K = 4/8/16 of
+   :data:`PALLAS_3D_LEVELS`) and a tile of that level's (TZ, TY, TX)
+   tiling, by its *centre*, with TILE-LOCAL voxel coordinates (relative to
+   the tile's box origin, ``tile * T - K/2`` per axis). Particles outside an
+   open extent are clipped into the edge tiles; oversize particles keep
+   global voxel coordinates.
+2. **Sort**: one ``torch.sort`` of the composite key ``level * 2^22 +
+   tile`` and one permutation gather. No power-of-two padding and no slack:
+   eager PyTorch reuses nothing compiled, so arrays keep their real length.
+3. **Deposit**: per populated level, :func:`deposit_3d_tiles` adds the
+   level's particles into the (F, nz, ny, nx) cube — the CUDA kernel
+   ``csrc/deposit3d.cu`` on a CUDA tensor, the plain torch version
+   :func:`deposit_3d_tiles_plain` on a CPU tensor. Each block accumulates a
+   tile's box in shared memory and flushes it into the cube with atomic
+   adds, wrapping periodic axes and dropping off-grid voxels of open ones:
+   this takes the place of the TPU's halo'd tile stack and its 27-band
+   overlap-add, so peak memory stays near the cube itself.
+4. **Oversize** stragglers (footprint beyond the K = 16 level) go through
+   the plain stencil engine (``ops/grid3d.py::deposit_3d``) on the same
+   device.
+
+Not ported (TPU-only): the SMEM/HBM budget adaptation of the tile heights,
+the packed schedule words and 8-channel packing, and the compile caches.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import _build
+from ..kernels.splines import get_kernel
+from .deposit_tiled import _LEVEL_STRIDE, _tile_ranges
+from .grid3d import GridSpec, _per_axis, deposit_3d
+
+Tensor = torch.Tensor
+
+_PRECISIONS_3D = ("f32", "bf16", "bf16x2")
+_MAX_FIELDS_3D = 4
+# particles of one tile that one thread block takes: a dense tile is split
+# over several blocks, whose atomic flushes add up
+_ITEM_PARTICLES = 256
+
+
+def _check_precision_3d(precision: str) -> str:
+    if precision not in _PRECISIONS_3D:
+        raise ValueError(f"unknown precision {precision!r}; expected f32 | bf16 | bf16x2")
+    return precision
+
+
+@dataclass(frozen=True)
+class Pallas3DConfig:
+    """Static geometry of one 3D footprint level (name kept from the JAX
+    package). A tile holds (TZ, TY, TX) output voxels; its box adds a
+    margin of K/2 voxels on each side."""
+
+    K: int  # voxel window per axis = max footprint diameter + slack
+    TZ: int = 8
+    TY: int = 8
+    TX: int = 8
+
+    @property
+    def M(self) -> int:
+        return self.K // 2
+
+    @property
+    def box(self) -> tuple[int, int, int]:
+        """(z, y, x) voxels of a tile's box."""
+        return (self.TZ + self.K, self.TY + self.K, self.TX + self.K)
+
+    @property
+    def max_s_vox(self) -> float:
+        """Largest support radius (voxels) this level hosts: 2s + 2 <= K."""
+        return (self.K - 2) / 2
+
+
+# 8^3-voxel tiles at every level: the K = 16 box is 24^3 voxels, 54 KiB a
+# field, so four fields (216 KiB) fit one block's shared memory
+PALLAS_3D_LEVELS: tuple[Pallas3DConfig, ...] = (
+    Pallas3DConfig(K=4),
+    Pallas3DConfig(K=8),
+    Pallas3DConfig(K=16),
+)
+
+
+@dataclass(frozen=True)
+class _Geometry3D:
+    cfg: Pallas3DConfig
+    ntx: int
+    nty: int
+    ntz: int
+
+    @property
+    def n_tiles(self) -> int:
+        return self.ntx * self.nty * self.ntz
+
+
+def _geometry_3d(cfg: Pallas3DConfig, shape) -> _Geometry3D:
+    """Tiles cover each axis (the last one may overhang the grid; the
+    flush wraps or drops what lies past it), so every level tiles every
+    grid, periodic or not."""
+    nz, ny, nx = shape
+    g = _Geometry3D(
+        cfg=cfg,
+        ntx=-(-nx // cfg.TX),
+        nty=-(-ny // cfg.TY),
+        ntz=-(-nz // cfg.TZ),
+    )
+    # composite sort keys are level * _LEVEL_STRIDE + tile: a level whose
+    # tile count reaches the stride would alias into the next level's keys
+    if g.n_tiles >= _LEVEL_STRIDE:
+        raise ValueError(
+            f"{g.n_tiles} tiles at the K={cfg.K} level exceed the "
+            f"composite-key stride ({_LEVEL_STRIDE}); grid the cube in sub-extents"
+        )
+    return g
+
+
+# ---------------------------------------------------------------------------
+# The per-level kernel: tile-sorted particles -> the cube
+# ---------------------------------------------------------------------------
+
+
+def _tile_origins(tile: Tensor, geom: _Geometry3D) -> tuple[Tensor, Tensor, Tensor]:
+    """Global voxel index of each tile's box origin, per axis (z, y, x)."""
+    cfg = geom.cfg
+    t = tile.to(torch.int64)
+    tz = t // (geom.nty * geom.ntx)
+    rem = t - tz * (geom.nty * geom.ntx)
+    ty = rem // geom.ntx
+    tx = rem - ty * geom.ntx
+    return tz * cfg.TZ - cfg.M, ty * cfg.TY - cfg.M, tx * cfg.TX - cfg.M
+
+
+def deposit_3d_tiles_plain(
+    u: Tensor, v: Tensor, w: Tensor, h: Tensor, values: Tensor,
+    pstart: Tensor, pcount: Tensor, grid: Tensor,
+    *,
+    geom: _Geometry3D,
+    kernel: str,
+    periodic,
+    psx: float,
+    psy: float,
+    psz: float,
+    offset: float,
+) -> Tensor:
+    """Plain torch version of :func:`deposit_3d_tiles`: the same inputs and
+    the same sums added into ``grid`` (F, nz, ny, nx), evaluated with tensor
+    operations over blocks of particles (each particle's K^3 window, masked
+    to its support and its tile's box). A block's temporaries hold 2^22
+    elements on the CPU, 2^25 on a GPU."""
+    cfg = geom.cfg
+    K = cfg.K
+    BZ, BY, BX = cfg.box
+    per_x, per_y, per_z = _per_axis(periodic)
+    dev = u.device
+    n_fields = values.shape[0]
+    nz, ny, nx = grid.shape[1:]
+    kspec = get_kernel(kernel)
+    lim2 = kspec.support_factor**2
+    grid_flat = grid.view(n_fields, -1)
+    counts = pcount.to(torch.int64)
+    total = int(counts.sum())
+    if not total:
+        return grid
+    tile_of = torch.repeat_interleave(torch.arange(pstart.shape[0], device=dev), counts)
+    seg0 = torch.repeat_interleave(torch.cumsum(counts, 0) - counts, counts)
+    idx = torch.repeat_interleave(pstart.to(torch.int64), counts) + (torch.arange(total, device=dev) - seg0)
+    ks = torch.arange(K, dtype=torch.int64, device=dev)
+    step = max(1, (1 << (22 if dev.type == "cpu" else 25)) // (K**3 * max(1, n_fields)))
+
+    def axis(c: Tensor, origin: Tensor, B: int, n_ax: int, per: bool, scale: Tensor):
+        """Window voxels (P, K) of one axis: normalised offsets, in-box and
+        in-grid mask, global index."""
+        j = (torch.floor(c - offset + 0.5).to(torch.int64) - K // 2)[:, None] + ks[None, :]
+        d = ((j.to(torch.float32) + offset) - c[:, None]) * scale[:, None]
+        g = origin[:, None] + j
+        ok = (j >= 0) & (j < B)
+        if per:
+            g = torch.remainder(g, n_ax)
+        else:
+            ok = ok & (g >= 0) & (g < n_ax)
+            g = torch.clamp(g, 0, n_ax - 1)
+        return d, ok, g
+
+    for c0 in range(0, total, step):
+        sel = idx[c0:c0 + step]
+        oz, oy, ox = _tile_origins(tile_of[c0:c0 + step], geom)
+        ul, vl, wl, hl = u[sel], v[sel], w[sel], h[sel]
+        # per-particle factors; h <= 0 gives exactly 0
+        inv_h = torch.where(hl > 0.0, 1.0 / hl, 0.0)
+        val_scale = (kspec.norm_3d * inv_h) * (inv_h * inv_h)
+        vals_eff = values[:, sel] * val_scale  # (F, P)
+        dz, okz, gz = axis(wl, oz, BZ, nz, per_z, psz * inv_h)
+        dy, oky, gy = axis(vl, oy, BY, ny, per_y, psy * inv_h)
+        dx, okx, gx = axis(ul, ox, BX, nx, per_x, psx * inv_h)
+        q2 = (
+            (dz * dz)[:, :, None, None] + (dy * dy)[:, None, :, None]
+        ) + (dx * dx)[:, None, None, :]  # (P, Kz, Ky, Kx)
+        ok = (q2 < lim2) & okz[:, :, None, None] & oky[:, None, :, None] & okx[:, None, None, :]
+        wgt = torch.where(ok, kspec.shape_q(torch.sqrt(q2)), 0.0)
+        flat = ((gz[:, :, None, None] * ny + gy[:, None, :, None]) * nx + gx[:, None, None, :]).reshape(-1)
+        for f in range(n_fields):
+            grid_flat[f].index_add_(0, flat, (wgt * vals_eff[f][:, None, None, None]).reshape(-1))
+    return grid
+
+
+def _work_items(pstart: Tensor, pcount: Tensor) -> tuple[Tensor, Tensor, Tensor]:
+    """(tile, first particle, particle count) int32 per thread block: each
+    non-empty tile split into runs of at most ``_ITEM_PARTICLES``. One host
+    sync (the item count)."""
+    dev = pstart.device
+    counts = pcount.to(torch.int64)
+    n_items = (counts + (_ITEM_PARTICLES - 1)) // _ITEM_PARTICLES
+    total = int(n_items.sum())
+    tile = torch.repeat_interleave(torch.arange(pstart.shape[0], device=dev), n_items, output_size=total)
+    first_item = torch.cumsum(n_items, 0) - n_items
+    k = (torch.arange(total, device=dev) - first_item[tile]) * _ITEM_PARTICLES
+    start = pstart.to(torch.int64)[tile] + k
+    count = torch.clamp(counts[tile] - k, max=_ITEM_PARTICLES)
+    return tile.to(torch.int32), start.to(torch.int32), count.to(torch.int32)
+
+
+def _check_cuda_inputs(u, v, w, h, values, pstart, pcount, grid) -> None:
+    dev = u.device
+    n = u.shape[0]
+    for name, a in (("u", u), ("v", v), ("w", w), ("h", h)):
+        if a.dtype != torch.float32 or a.device != dev or a.ndim != 1 or not a.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 1-D float32 tensor on {dev}")
+        if a.shape[0] != n:
+            raise ValueError(f"{name} has {a.shape[0]} entries, u has {n}")
+    if (
+        values.dtype != torch.float32 or values.device != dev or values.ndim != 2
+        or values.shape[1] != n or values.stride(1) != 1
+    ):
+        raise ValueError(f"values must be a (F, {n}) float32 tensor on {dev} with unit column stride")
+    if not 1 <= values.shape[0] <= _MAX_FIELDS_3D:
+        raise ValueError(f"the 3D deposit kernel takes 1..{_MAX_FIELDS_3D} fields, got {values.shape[0]}")
+    for name, a in (("pstart", pstart), ("pcount", pcount)):
+        if a.dtype != torch.int32 or a.device != dev or a.ndim != 1 or not a.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 1-D int32 tensor on {dev}")
+    if pstart.shape != pcount.shape:
+        raise ValueError("pstart and pcount differ in length")
+    if (
+        grid.dtype != torch.float32 or grid.device != dev or grid.ndim != 4
+        or grid.shape[0] != values.shape[0] or not grid.is_contiguous()
+    ):
+        raise ValueError(f"grid must be a contiguous ({values.shape[0]}, nz, ny, nx) float32 tensor on {dev}")
+    if n >= 2**31:
+        raise ValueError("the 3D deposit kernel indexes particles with int32")
+
+
+def deposit_3d_tiles(
+    u: Tensor, v: Tensor, w: Tensor, h: Tensor, values: Tensor,
+    pstart: Tensor, pcount: Tensor, grid: Tensor,
+    *,
+    geom: _Geometry3D,
+    kernel: str,
+    periodic,
+    psx: float,
+    psy: float,
+    psz: float,
+    offset: float,
+) -> Tensor:
+    """Add one level's particles into the cube ``grid`` (F, nz, ny, nx) f32,
+    in place, and return it:
+
+        grid[f, z, y, x] += sum_i val_f(i) * norm_3d / h_i^3 * shape_q(|r_i| / h_i)
+
+    over the voxel centres inside particle i's support (and inside its K^3
+    window and its tile's box). ``u, v, w, h`` (n,) and ``values`` (F, n) are
+    the level's tile-sorted particles in tile-local voxel coordinates; tile
+    t owns ``[pstart[t], pstart[t] + pcount[t])``. Periodic axes (a bool, or
+    an (x, y, z) tuple) wrap; open axes drop off-grid voxels. h <= 0
+    contributes nothing.
+
+    On a CUDA tensor this launches the hand-written kernel
+    ``csrc/deposit3d.cu`` (built at first use) and raises if the build or
+    the launch fails; on a CPU tensor it runs :func:`deposit_3d_tiles_plain`.
+    The kernel sums in f32 FMA arithmetic whatever ``precision=`` the caller
+    chose.
+    """
+    args = dict(geom=geom, kernel=kernel, periodic=periodic, psx=psx, psy=psy, psz=psz, offset=offset)
+    if u.device.type == "cpu":
+        return deposit_3d_tiles_plain(u, v, w, h, values, pstart, pcount, grid, **args)
+    if u.device.type != "cuda":
+        raise ValueError(f"no 3D deposit kernel for device {u.device}")
+    _check_cuda_inputs(u, v, w, h, values, pstart, pcount, grid)
+    item_tile, item_start, item_count = _work_items(pstart, pcount)
+    n_items = item_tile.shape[0]
+    if n_items == 0:
+        return grid
+    kspec = get_kernel(kernel)
+    cfg = geom.cfg
+    nz, ny, nx = grid.shape[1:]
+    per_x, per_y, per_z = _per_axis(periodic)
+    lib, _ = _build.load("deposit3d")
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream(u.device).cuda_stream
+        code = lib.deposit3d_launch(
+            u.data_ptr(), v.data_ptr(), w.data_ptr(), h.data_ptr(), values.data_ptr(),
+            values.stride(0), values.shape[0],
+            item_tile.data_ptr(), item_start.data_ptr(), item_count.data_ptr(), n_items,
+            grid.data_ptr(),
+            cfg.K, cfg.TZ, cfg.TY, cfg.TX, geom.ntx, geom.nty,
+            nz, ny, nx, int(per_x), int(per_y), int(per_z),
+            float(offset), float(psx), float(psy), float(psz),
+            kspec.kernel_id, float(kspec.norm_3d), float(kspec.support_factor),
+            stream,
+        )
+    if code != 0:
+        raise RuntimeError(f"deposit3d kernel launch failed: {lib.cuda_error_string(code).decode()} ({code})")
+    deposit_3d_tiles.launches += 1
+    return grid
+
+
+#: kernel launches made by :func:`deposit_3d_tiles` in this process (CUDA only)
+deposit_3d_tiles.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Inputs and assignment
+# ---------------------------------------------------------------------------
+
+
+def _as_field_matrix_3d(values, device) -> tuple[Tensor, bool]:
+    if not isinstance(values, Tensor):
+        values = np.asarray(values)
+    values = torch.as_tensor(values, dtype=torch.float32, device=device)
+    single = values.ndim == 1
+    if single:
+        values = values[None, :]
+    if values.shape[0] > _MAX_FIELDS_3D:
+        raise ValueError("3D pallas deposit supports at most 4 fields per pass")
+    return values.contiguous(), single
+
+
+def _f32(a, device) -> Tensor:
+    return torch.as_tensor(a if isinstance(a, Tensor) else np.asarray(a), dtype=torch.float32, device=device)
+
+
+def _voxel_coords(pos: Tensor, spec: GridSpec) -> tuple[Tensor, Tensor, Tensor]:
+    """f32 voxel-space (u, v, w) = (x, y, z) coordinates, wrapped into the
+    grid on periodic axes."""
+    nz, ny, nx = spec.shape
+    x0, x1, y0, y1, z0, z1 = (float(e) for e in spec.extent)
+    u = (pos[:, 0] - x0) / ((x1 - x0) / nx)
+    v = (pos[:, 1] - y0) / ((y1 - y0) / ny)
+    w = (pos[:, 2] - z0) / ((z1 - z0) / nz)
+    if spec.periodic_wrap:
+        u = torch.remainder(u, nx)
+        v = torch.remainder(v, ny)
+        w = torch.remainder(w, nz)
+    return u, v, w
+
+
+def _multi_level_assign_3d(u, v, w, s_vox, bounds, geoms):
+    """(level, tile id, tile-LOCAL voxel coords) per particle under each
+    level's geometry. Oversize particles keep GLOBAL voxel coordinates
+    (tile 0) so the dense route can recover world positions."""
+    n_levels = len(bounds)
+    level = torch.full(u.shape, n_levels, dtype=torch.int32, device=u.device)
+    for li in range(n_levels - 1, -1, -1):
+        level = torch.where(s_vox <= bounds[li], li, level)
+    tile = torch.zeros(u.shape, dtype=torch.int32, device=u.device)
+    u_loc, v_loc, w_loc = u, v, w
+    for li, g in enumerate(geoms):
+        cfg = g.cfg
+        txi = torch.clamp((u / cfg.TX).to(torch.int32), 0, g.ntx - 1)
+        tyi = torch.clamp((v / cfg.TY).to(torch.int32), 0, g.nty - 1)
+        tzi = torch.clamp((w / cfg.TZ).to(torch.int32), 0, g.ntz - 1)
+        sel = level == li
+        tile = torch.where(sel, (tzi * g.nty + tyi) * g.ntx + txi, tile)
+        u_loc = torch.where(sel, u - (txi * cfg.TX - cfg.M), u_loc)
+        v_loc = torch.where(sel, v - (tyi * cfg.TY - cfg.M), v_loc)
+        w_loc = torch.where(sel, w - (tzi * cfg.TZ - cfg.M), w_loc)
+    return level, tile, u_loc, v_loc, w_loc
+
+
+def _level_args(geom: _Geometry3D, spec: GridSpec, kernel: str) -> dict:
+    nz, ny, nx = spec.shape
+    x0, x1, y0, y1, z0, z1 = spec.extent
+    return dict(
+        geom=geom, kernel=kernel, periodic=spec.periodic_wrap,
+        psx=(x1 - x0) / nx, psy=(y1 - y0) / ny, psz=(z1 - z0) / nz,
+        offset=spec.sample_offset,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Single-level entry point
+# ---------------------------------------------------------------------------
+
+
+def deposit_3d_pallas(
+    pos, h, values, spec: GridSpec,
+    *,
+    kernel: str = "cubic_spline",
+    precision: str = "bf16x2",
+    level: Optional[Pallas3DConfig] = None,
+    device="cuda",
+) -> Tensor:
+    """Single-level tiled 3D deposit (name kept from the JAX package):
+    (nz, ny, nx) or (F, nz, ny, nx) on ``device``.
+
+    Footprints must fit the level (``support_factor * h / voxel <=
+    level.max_s_vox``); use :func:`deposit_3d_auto` for mixed footprints.
+    """
+    cfg = level or PALLAS_3D_LEVELS[0]
+    _check_precision_3d(precision)
+    get_kernel(kernel)
+    device = torch.device(device)
+    geom = _geometry_3d(cfg, spec.shape)
+    values, single = _as_field_matrix_3d(values, device)
+    u, v, w = _voxel_coords(_f32(pos, device), spec)
+    _, tile, u_loc, v_loc, w_loc = _multi_level_assign_3d(u, v, w, torch.zeros_like(u), (np.inf,), (geom,))
+    tile_sorted, perm = torch.sort(tile, stable=True)
+    pstart, pcount = _tile_ranges(tile_sorted, geom.n_tiles)
+    grid = torch.zeros((values.shape[0], *spec.shape), dtype=torch.float32, device=device)
+    deposit_3d_tiles(
+        u_loc[perm], v_loc[perm], w_loc[perm], _f32(h, device)[perm], values[:, perm].contiguous(),
+        pstart, pcount, grid, **_level_args(geom, spec, kernel),
+    )
+    return grid[0] if single else grid
+
+
+# ---------------------------------------------------------------------------
+# Multi-level layout (Tiled3DParticles)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class Tiled3DParticles:
+    """Device-resident multi-level 3D tile-sorted layout, built once by
+    :func:`tile_particles_3d`. Arrays hold exactly the real particles,
+    (level, tile)-sorted."""
+
+    spec: GridSpec
+    kernel: str
+    geoms: tuple  # per populated level: (_Geometry3D, lo, count)
+    sorted_u: Tensor  # (N,) tile-local voxel coords; global for oversize
+    sorted_v: Tensor
+    sorted_w: Tensor
+    sorted_h: Tensor
+    sorted_values: Tensor  # (F, N)
+    sorted_tile: Tensor  # (N,) int32 tile id within the particle's own level
+    n_sorted: int
+    n_oversize: int  # trailing segment routed to the plain stencil engine
+    n_valid: int
+
+    @property
+    def n_fields(self) -> int:
+        return self.sorted_values.shape[0]
+
+
+def tile_particles_3d(
+    pos, h, values, spec: GridSpec,
+    *,
+    kernel: str = "cubic_spline",
+    levels: tuple[Pallas3DConfig, ...] = PALLAS_3D_LEVELS,
+    device="cuda",
+) -> Tiled3DParticles:
+    """Build the multi-level 3D layout on ``device`` with one sort of the
+    composite key ``level * 2^22 + tile``. The only host sync is the
+    handful of per-level counts. ``values`` is (F, N) or (N,), F <= 4."""
+    kspec = get_kernel(kernel)
+    device = torch.device(device)
+    values, _ = _as_field_matrix_3d(values, device)
+    geoms = [_geometry_3d(cfg, spec.shape) for cfg in levels]
+    bounds = tuple(g.cfg.max_s_vox for g in geoms)
+    pos = _f32(pos, device)
+    h = _f32(h, device)
+    n_valid = int(h.shape[0])
+    u, v, w = _voxel_coords(pos, spec)
+    s_vox = kspec.support_factor * h / min(spec.voxel_size)
+    level, tile, u_loc, v_loc, w_loc = _multi_level_assign_3d(u, v, w, s_vox, bounds, geoms)
+    key = level * _LEVEL_STRIDE + tile
+    del u, v, w, s_vox, level, tile
+
+    sorted_key, perm = torch.sort(key, stable=True)
+    del key
+    su, sv, sw = u_loc[perm], v_loc[perm], w_loc[perm]
+    del u_loc, v_loc, w_loc
+    sh = h[perm]
+    s_values = values[:, perm].contiguous()
+    lv = torch.arange(len(geoms) + 2, dtype=sorted_key.dtype, device=device) * _LEVEL_STRIDE
+    starts = torch.searchsorted(sorted_key, lv).tolist()  # host sync: a few ints
+    counts = [starts[i + 1] - starts[i] for i in range(len(geoms) + 1)]
+    s_tile = torch.remainder(sorted_key, _LEVEL_STRIDE).to(torch.int32)
+
+    level_meta = []
+    lo = 0
+    for li, g in enumerate(geoms):
+        if counts[li] > 0:
+            level_meta.append((g, lo, counts[li]))
+        lo += counts[li]
+    return Tiled3DParticles(
+        spec=spec, kernel=kernel, geoms=tuple(level_meta),
+        sorted_u=su, sorted_v=sv, sorted_w=sw, sorted_h=sh, sorted_values=s_values,
+        sorted_tile=s_tile, n_sorted=int(sorted_key.shape[0]),
+        n_oversize=counts[len(geoms)], n_valid=n_valid,
+    )
+
+
+def deposit_3d_tiled(
+    tp: Tiled3DParticles,
+    *,
+    precision: str = "bf16x2",
+) -> Tensor:
+    """Render the adaptive-h voxel cube from a :class:`Tiled3DParticles`
+    layout, on the layout's device: (F, nz, ny, nx). Every populated level
+    goes through :func:`deposit_3d_tiles`; oversize stragglers through the
+    plain stencil engine on the same device. ``precision`` is validated; the
+    sums are f32 throughout."""
+    _check_precision_3d(precision)
+    nz, ny, nx = tp.spec.shape
+    dev = tp.sorted_u.device
+    grid = torch.zeros((tp.n_fields, nz, ny, nx), dtype=torch.float32, device=dev)
+    for geom, lo, count in tp.geoms:
+        sl = slice(lo, lo + count)
+        pstart, pcount = _tile_ranges(tp.sorted_tile[sl], geom.n_tiles)
+        deposit_3d_tiles(
+            tp.sorted_u[sl], tp.sorted_v[sl], tp.sorted_w[sl], tp.sorted_h[sl],
+            tp.sorted_values[:, sl], pstart, pcount, grid,
+            **_level_args(geom, tp.spec, tp.kernel),
+        )
+
+    if tp.n_oversize:
+        # oversize stragglers live at the end of the sorted layout with
+        # global voxel coordinates; recover world coordinates
+        x0, x1, y0, y1, z0, z1 = tp.spec.extent
+        sl = slice(tp.n_sorted - tp.n_oversize, tp.n_sorted)
+        pos = torch.stack([
+            tp.sorted_u[sl] * ((x1 - x0) / nx) + x0,
+            tp.sorted_v[sl] * ((y1 - y0) / ny) + y0,
+            tp.sorted_w[sl] * ((z1 - z0) / nz) + z0,
+        ], dim=1)
+        cube = deposit_3d(pos, tp.sorted_h[sl], tp.sorted_values[:, sl].T, tp.spec, kernel=tp.kernel, device=dev)
+        grid += cube.permute(3, 0, 1, 2)
+    return grid
+
+
+def deposit_3d_auto(
+    pos, h, values, spec: GridSpec,
+    *,
+    kernel: str = "cubic_spline",
+    precision: str = "bf16x2",
+    device="cuda",
+) -> Tensor:
+    """Adaptive-h 3D deposit: level/tile partition (one sort), one kernel
+    launch per populated footprint level, oversize stragglers routed to the
+    plain stencil engine. ``values`` is (N,) or (F, N), F <= 4. Returns
+    (nz, ny, nx) or (F, nz, ny, nx) on ``device``."""
+    _check_precision_3d(precision)
+    values, single = _as_field_matrix_3d(values, device)
+    tp = tile_particles_3d(pos, h, values, spec, kernel=kernel, device=device)
+    total = deposit_3d_tiled(tp, precision=precision)
+    return total[0] if single else total

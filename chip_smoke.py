@@ -3,19 +3,19 @@
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
-    python3 chip_smoke.py                # every phase
+    python3 chip_smoke.py                # phases 0-14
     python3 chip_smoke.py --phases 0,1,2 # a subset, for debugging
 
 It drives the port's main paths — the adaptive-h sorted tile engine behind
-``render_map_stack``, the coherent-order engine (synced and zero-sync fused)
-and the sightline columns and absorption spectra of BASELINE config 4 — on
-particles generated in memory from a seed, and fails (non-zero exit) if any
-phase fails:
+``render_map_stack``, the coherent-order engine (synced and zero-sync fused),
+the sightline columns and absorption spectra of BASELINE config 4 and the 3D
+voxel deposit of BASELINE config 3 — on particles generated in memory from a
+seed, and fails (non-zero exit) if any phase fails:
 
 0. device: torch version, card name and power limit (nvidia-smi);
 1. build: compile every CUDA kernel library (``csrc/deposit2d.cu``,
-   ``csrc/coherent.cu``, ``csrc/sightlines.cu``), one nvcc per source, all
-   started together;
+   ``csrc/coherent.cu``, ``csrc/sightlines.cu``, ``csrc/deposit3d.cu``), one
+   nvcc per source, all started together;
 2. sorted-engine deposit kernel vs its plain torch version on the card, for
    every level K in {8, 16, 32, 64} x F in {2, 5} x projection, on a 1024^2
    map with 2^18 particles whose h lies inside the level;
@@ -46,17 +46,37 @@ phase fails:
     ``column_integrate_pallas`` and ``absorption_spectra_pallas`` (512 bins,
     Gaussian and Voigt); launch counts, finiteness, warm walls, the device's
     busy share, and agreement with the binned engines on 256 rays and with
-    the dense spectra engine on a 2^20-particle subset.
+    the dense spectra engine on a 2^20-particle subset;
+13. 3D voxel deposit kernel (``csrc/deposit3d.cu``) vs its plain version,
+    every level K in {4, 8, 16} x F in {1, 4} x {periodic, open}, on a 256^3
+    grid with 2^18 particles whose h lies inside the level;
+14. the config-3 path at full size: ``deposit_3d_auto`` on 2^24 clustered
+    particles (the JAX package's ``benchmarks/voxel3d_bench.py`` generator,
+    h capped at 3.5 voxels so that every particle fits the K = 16 level),
+    512^3 periodic cube over 25 cMpc, F = 4 (m and m * v); launch count, no
+    oversize particle, finiteness, agreement with the plain stencil engine
+    on a 2^20 subset, the oversize route at 64^3, warm walls split into
+    layout and kernel, the device's busy share, peak memory; and each
+    level's kernel launch against its plain version on the full-size layout;
+15. (only when named in ``--phases``) tile-geometry A/B of kernel #6 on
+    phase 14's particles: the K = 8 and K = 16 levels' kernel times at 8^3
+    (the default), (16, 16, 8) and 16^3 tiles, F = 1 and 4, each held
+    against the default's cube.
 
 Every phase prints one JSON line; the kernels' summary line and the card's
 ``nvidia-smi`` line come before the last line, which is
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``. Each kernel's ``bound_ms`` is the least
+time the card could take for the same work on that case's inputs: the larger
+of the bytes it must move (each input read once, each output written once)
+over the memory rate and its FP32 operations over the FP32 rate, at the
+H100 SXM data-sheet peaks below.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -73,6 +93,12 @@ SIGHT_N = 10_000_000  # config 4: 10^7 gas particles ...
 SIGHT_RAYS = 10_000  # ... and 10^4 rays (BASELINE.json config 4)
 SIGHT_BOX = 25.0  # cMpc, periodic
 GAMMA_LYA = 6.265e8  # H I Lya damping rate, 1/s
+VOX_LOG2N = 24  # config 3: 2^24 = 16.8M particles ...
+VOX_GRID = 512  # ... on a 512^3 periodic cube (BASELINE.json config 3)
+VOX_BOX = 25.0  # cMpc
+# H100 SXM data-sheet peaks (dense, at 700 W), for bound_ms
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_PER_S = 67e12
 
 
 def emit(obj) -> None:
@@ -132,6 +158,37 @@ def device_busy_ms(fn) -> tuple:
         if e.device_type == torch.autograd.DeviceType.CUDA
     )
     return (busy_us / 1e3 if busy_us > 0 else None), wall_ms
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def pair_ops(n_fields: int, projection: str = "kernel3d") -> int:
+    """FP32 operations per (particle, sample point) pair inside a support,
+    counted from the kernels' arithmetic: the offsets and q^2 (6), sqrt and
+    the spline polynomial (6) or, for the line-integrated kernel, the
+    44-step Clenshaw recurrence (3 each) and its argument (8); one
+    multiply-add per field."""
+    return (12 if projection == "kernel3d" else 140) + 2 * n_fields
+
+
+def support_points(h, support_factor: float, cell: float, dim: int) -> float:
+    """Expected number of sample points (pixels, voxels) inside the particles'
+    supports: a disc or ball of radius s = support_factor * h / cell holds
+    pi s^2 or 4/3 pi s^3 lattice points on average over its sub-cell
+    offset."""
+    s = support_factor * h.double() / cell
+    return float((math.pi * s * s if dim == 2 else (4.0 / 3.0) * math.pi * s ** 3).sum())
+
+
+def bound(moved_bytes: float, ops: float) -> dict:
+    """Least time on the card for ``moved_bytes`` and ``ops`` FP32
+    operations, and which of the two sets it."""
+    t_bytes = moved_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FP32_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": moved_bytes, "bound_ops": ops}
 
 
 def rel_err(got, ref) -> tuple[float, float]:
@@ -296,6 +353,8 @@ def phase_kernels(torch, device, n: int = 1 << 18):
                     "n": n, "n_tiles": geom.n_tiles,
                     "max_pcount": int(args[5].max()), "max_abs_err": err,
                     "rel_err": rel, "ms": ms, "plain_ms": plain_ms,
+                    **bound(nbytes(*args, got), support_points(args[2], 2.0, 25.0 / 1024, 2)
+                            * pair_ops(n_fields, projection)),
                 }
                 emit({"phase": "kernel_vs_plain", **case})
                 check(bool(torch.isfinite(got).all()), f"non-finite kernel output {case}")
@@ -517,6 +576,8 @@ def phase_prep(torch, device, particles):
             "ms": cuda_ms(lambda: _prep_rows(cx, cy, ch, cv, st), 5),
             "plain_ms": cuda_ms(lambda: prep_rows_plain(cx, cy, ch, cv, st), 5),
             "heavy_rows": heavy, "coherent_fraction": 1.0 - heavy / n_rows,
+            # assignment arithmetic: about 40 operations a particle
+            **bound(nbytes(cx, cy, ch, cv, packed, aux), 40.0 * cx.shape[0]),
         }
         if bad_packed or bad_aux:  # where they differ, for the record
             idx = torch.nonzero(packed != ref_packed)[:5].tolist()
@@ -561,6 +622,7 @@ def phase_coherent_kernel(torch, device, particles):
                 "max_abs_err": err, "rel_err": rel,
                 "ms": cuda_ms(lambda: TC.deposit_coherent_tiles(*args, **kw), 5),
                 "plain_ms": cuda_ms(lambda: TC.deposit_coherent_tiles_plain(*args, **kw), 3),
+                **bound(nbytes(*args, got), support_points(h, 2.0, box / 1024, 2) * pair_ops(n_fields, projection)),
             }
             emit(case)
             check(bool(torch.isfinite(got).all()), f"non-finite coherent kernel output {case}")
@@ -750,6 +812,8 @@ def phase_columns_kernel(torch, device, sl, n_rays: int = 2048):
     pos, h, m, T, v = sl["pos"], sl["h"], sl["m"], sl["T"], sl["v_pec"]
     fields5 = torch.stack([m, m * T, m * v, h, T], dim=1)
     rx, ry = sl["rx"][:n_rays], sl["ry"][:n_rays]
+    # expected (ray, particle) pairs inside a support, rays uniform over the box
+    hits = support_points(h, 2.0, 1.0, 2) * n_rays / SIGHT_BOX**2
     out = []
     for periodic in (True, False):
         for n_fields in (1, 5):
@@ -773,6 +837,7 @@ def phase_columns_kernel(torch, device, sl, n_rays: int = 2048):
                     "max_span_particles": int(spans.max()), "max_abs_err": err, "rel_err": rel,
                     "ms": cuda_ms(lambda: columns_tiles(*args, **kw), 5),
                     "plain_ms": cuda_ms(lambda: columns_tiles_plain(*args, **kw), 3),
+                    **bound(nbytes(*args, got), hits * pair_ops(n_fields, projection)),
                 }
                 emit(case)
                 check(bool(torch.isfinite(got).all()), f"non-finite column kernel output {case}")
@@ -788,6 +853,7 @@ def phase_spectra_kernel(torch, device, sl, n_rays: int = 256, n_bins: int = 512
     from astro_sph_tools_tpu_torch.ops.spectra import _resolve_profile
     from astro_sph_tools_tpu_torch.ops.spectra_fused import _spectra_layout, spectra_tiles, spectra_tiles_plain
 
+    hits = support_points(sl["h"], 2.0, 1.0, 2) * n_rays / SIGHT_BOX**2
     out = []
     for periodic in (True, False):
         for profile in ("gaussian", "voigt"):
@@ -813,6 +879,9 @@ def phase_spectra_kernel(torch, device, sl, n_rays: int = 256, n_bins: int = 512
                 "particles_scanned": int(spans.sum()), "max_abs_err": err, "rel_err": rel,
                 "ms": cuda_ms(lambda: spectra_tiles(*args, **kw), 3),
                 "plain_ms": cuda_ms(lambda: spectra_tiles_plain(*args, **kw), 1),
+                # each hit's profile at every bin and image: ~10 operations
+                # for a Gaussian, ~60 for the Voigt fit, plus the tau FMA
+                **bound(nbytes(*args, got), hits * n_bins * n_images * (12 if profile == "gaussian" else 62)),
             }
             emit(case)
             check(bool(torch.isfinite(got).all()), f"non-finite spectra kernel output {case}")
@@ -933,11 +1002,261 @@ def phase_sightlines(torch, device, sl, n_check: int = 256, n_bins: int = 512):
     return out
 
 
+# ---------------------------------------------------------------------------
+# config 3: the 3D voxel deposit
+# ---------------------------------------------------------------------------
+
+
+def _voxel_level_inputs(torch, cfg, lo_s, hi_s, n_fields, n, spec, seed, device):
+    """Tile-sorted tile-local inputs of one 3D level, h inside (lo_s, hi_s]
+    voxels; positions reach 2 % past each face of the box (wrapped on a
+    periodic grid, clipped into the edge tiles on an open one)."""
+    from astro_sph_tools_tpu_torch.ops.deposit_tiled import _tile_ranges
+    from astro_sph_tools_tpu_torch.ops.grid3d_tiled import _geometry_3d, _multi_level_assign_3d, _voxel_coords
+
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    box = spec.extent[1]
+    vox = box / spec.shape[2]
+    pos = (1.04 * torch.rand((n, 3), generator=g, device=device) - 0.02) * box
+    s_vox = lo_s + (hi_s - lo_s) * (1.0 - torch.rand(n, generator=g, device=device))
+    h = s_vox * vox / 2.0
+    vals = 0.5 + 1.5 * torch.rand((n_fields, n), generator=g, device=device)
+    geom = _geometry_3d(cfg, spec.shape)
+    u, v, w = _voxel_coords(pos, spec)
+    _, tile, ul, vl, wl = _multi_level_assign_3d(u, v, w, torch.zeros_like(u), (math.inf,), (geom,))
+    tile, perm = torch.sort(tile, stable=True)
+    pstart, pcount = _tile_ranges(tile, geom.n_tiles)
+    return geom, (ul[perm], vl[perm], wl[perm], h[perm], vals[:, perm].contiguous(), pstart, pcount)
+
+
+def phase_voxel_kernel(torch, device, n: int = 1 << 18, npix: int = 256):
+    """Kernel #6 (3D voxel deposit) vs its plain version, every level."""
+    from astro_sph_tools_tpu_torch.ops import PALLAS_3D_LEVELS, GridSpec
+    from astro_sph_tools_tpu_torch.ops.grid3d_tiled import _level_args, deposit_3d_tiles, deposit_3d_tiles_plain
+
+    bounds = [0.05] + [cfg.max_s_vox for cfg in PALLAS_3D_LEVELS]
+    vox = VOX_BOX / npix
+    out = []
+    for li, cfg in enumerate(PALLAS_3D_LEVELS):
+        for n_fields in (1, 4):
+            for periodic in (True, False):
+                spec = GridSpec(shape=(npix,) * 3, extent=(0.0, VOX_BOX) * 3, periodic_wrap=periodic)
+                geom, args = _voxel_level_inputs(
+                    torch, cfg, bounds[li], bounds[li + 1], n_fields, n, spec,
+                    seed=200 + 10 * li + n_fields + 5 * periodic, device=device,
+                )
+                kw = _level_args(geom, spec, "cubic_spline")
+                got = torch.zeros((n_fields, *spec.shape), device=device)
+                ref = torch.zeros_like(got)
+                deposit_3d_tiles(*args, got, **kw)
+                deposit_3d_tiles_plain(*args, ref, **kw)
+                torch.cuda.synchronize()
+                err, rel = rel_err(got, ref)
+                case = {
+                    "phase": "voxel_kernel_vs_plain", "K": cfg.K, "F": n_fields, "periodic": periodic,
+                    "grid": [npix] * 3, "n": n, "n_tiles": geom.n_tiles,
+                    "max_pcount": int(args[6].max()), "max_abs_err": err, "rel_err": rel,
+                    "ms": cuda_ms(lambda: deposit_3d_tiles(*args, got, **kw), 5),
+                    "plain_ms": cuda_ms(lambda: deposit_3d_tiles_plain(*args, ref, **kw), 3),
+                    **bound(nbytes(*args, got), support_points(args[3], 2.0, vox, 3) * pair_ops(n_fields)),
+                }
+                emit(case)
+                check(bool(torch.isfinite(got).all()), f"non-finite 3D kernel output {case}")
+                check(rel <= REL_TOL, f"3D kernel disagrees with its plain version: {case}")
+                out.append(case)
+                del got, ref, args
+    return out
+
+
+def voxel_particles(torch, device, n: int, box: float, seed: int):
+    """The JAX package's ``benchmarks/voxel3d_bench.py::build_particles``
+    with a ``torch.Generator``: 60 % of the particles in 256 Gaussian blobs
+    (sigma 1-5 % of the box), 40 % uniform; lognormal h (median 0.15 % of
+    the box in blobs, 0.6 % outside, sigma_ln 0.35). Adds m ~ U(0.5, 2) and
+    v ~ N(0, 100 km/s) per axis. Returns (pos (n, 3), h, m, v (n, 3))."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    n_blob = int(0.6 * n)
+    n_bg = n - n_blob
+    n_groups = 256
+    centres = torch.rand((n_groups, 3), generator=g, device=device) * box
+    sigma = (0.01 + 0.04 * torch.rand(n_groups, generator=g, device=device)) * box
+    gidx = torch.randint(0, n_groups, (n_blob,), generator=g, device=device)
+    pos_blob = centres[gidx] + torch.randn((n_blob, 3), generator=g, device=device) * sigma[gidx][:, None]
+    pos_bg = torch.rand((n_bg, 3), generator=g, device=device) * box
+    pos = torch.remainder(torch.cat([pos_blob, pos_bg]), box)
+    del pos_blob, pos_bg, gidx
+    h = torch.exp(torch.cat([
+        math.log(0.0015 * box) + 0.35 * torch.randn(n_blob, generator=g, device=device),
+        math.log(0.006 * box) + 0.35 * torch.randn(n_bg, generator=g, device=device),
+    ]))
+    m = 0.5 + 1.5 * torch.rand(n, generator=g, device=device)
+    v = 100.0 * torch.randn((n, 3), generator=g, device=device)
+    return pos, h, m, v
+
+
+def phase_voxel(torch, device, n_log2: int):
+    """The config-3 path at full size: ``deposit_3d_auto`` into 512^3 x 4."""
+    from astro_sph_tools_tpu_torch.ops import GridSpec, deposit_3d, deposit_3d_auto, deposit_3d_tiled, tile_particles_3d
+    from astro_sph_tools_tpu_torch.ops.deposit_tiled import _tile_ranges
+    from astro_sph_tools_tpu_torch.ops.grid3d_tiled import _level_args, deposit_3d_tiles, deposit_3d_tiles_plain
+
+    n = 1 << n_log2
+    ng = VOX_GRID
+    vox = VOX_BOX / ng
+    spec = GridSpec(shape=(ng,) * 3, extent=(0.0, VOX_BOX) * 3, periodic_wrap=True)
+    t0 = time.perf_counter()
+    pos, h, m, v = voxel_particles(torch, device, n, VOX_BOX, seed=11)
+    # max_s_vox(K = 16) / support_factor: every particle fits the K = 16 level
+    h = torch.clamp(h, max=3.5 * vox)
+    fields = torch.stack([m, m * v[:, 0], m * v[:, 1], m * v[:, 2]])
+    del v
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path, once, with the launch count reset just before it
+    deposit_3d_tiles.launches = 0
+    cube = deposit_3d_auto(pos, h, fields, spec, device=device)
+    torch.cuda.synchronize()
+    launches = deposit_3d_tiles.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    check(tuple(cube.shape) == (4, ng, ng, ng), f"output shape {tuple(cube.shape)}")
+    check(bool(torch.isfinite(cube).all()), "non-finite cube")
+    mass_ratio = float(cube[0].double().sum()) * vox**3 / float(m.double().sum())
+    del cube
+
+    # each level's kernel against its plain version at full size (dense
+    # tiles split over many blocks), then its time
+    tp = tile_particles_3d(pos, h, fields, spec, device=device)
+    levels = []
+    for geom, lo, count in tp.geoms:
+        sl = slice(lo, lo + count)
+        pstart, pcount = _tile_ranges(tp.sorted_tile[sl], geom.n_tiles)
+        args = (tp.sorted_u[sl], tp.sorted_v[sl], tp.sorted_w[sl], tp.sorted_h[sl], tp.sorted_values[:, sl],
+                pstart, pcount)
+        got = torch.zeros((4, ng, ng, ng), device=device)
+        ref = torch.zeros_like(got)
+        kw = _level_args(geom, spec, "cubic_spline")
+        deposit_3d_tiles(*args, got, **kw)
+        plain_ms = cuda_ms(lambda: deposit_3d_tiles_plain(*args, ref, **kw), 1)
+        err_l, rel_l = rel_err(got, ref)
+        del ref
+        levels.append({
+            "K": geom.cfg.K, "count": count, "share": count / n, "n_tiles": geom.n_tiles,
+            "occupied_tiles": int((pcount > 0).sum()), "max_pcount": int(pcount.max()),
+            "max_abs_err": err_l, "rel_err": rel_l, "plain_ms": plain_ms,
+            "kernel_ms": cuda_ms(lambda: deposit_3d_tiles(*args, got, **kw), 3),
+            **bound(nbytes(*args, got), support_points(args[3], 2.0, vox, 3) * pair_ops(4)),
+        })
+        del got, args
+    check(tp.n_oversize == 0, f"{tp.n_oversize} oversize particles on the config-3 path")
+    check(launches >= len(tp.geoms) > 0, f"{launches} kernel launches for {len(tp.geoms)} levels")
+
+    auto = lambda: deposit_3d_auto(pos, h, fields, spec, device=device)
+    wall = wall_s(auto, 3)
+    layout_s = wall_s(lambda: tile_particles_3d(pos, h, fields, spec, device=device), 3)
+    deposit_s = wall_s(lambda: deposit_3d_tiled(tp), 3)
+    busy_ms, prof_wall_ms = device_busy_ms(auto)
+    n_oversize = tp.n_oversize
+    del tp
+
+    # the plain stencil engine on a strided 2^20 subset (blobs and background)
+    stride = max(1, n >> 20)
+    ps, hs, fs = pos[::stride].contiguous(), h[::stride].contiguous(), fields[:, ::stride].contiguous()
+    got = deposit_3d_auto(ps, hs, fs, spec, device=device)
+    ref = deposit_3d(ps, hs, fs.T, spec, device=device).permute(3, 0, 1, 2)
+    err, rel = rel_err(got, ref)
+    del got, ref
+
+    # the oversize route: 64^3, some footprints past the K = 16 level
+    g = torch.Generator(device=device)
+    g.manual_seed(12)
+    small = GridSpec(shape=(64,) * 3, extent=(0.0, VOX_BOX) * 3, periodic_wrap=True)
+    pv = VOX_BOX / 64
+    po = torch.rand((20000, 3), generator=g, device=device) * VOX_BOX
+    ho = pv * 10.0 ** (-0.7 + 1.4 * torch.rand(20000, generator=g, device=device))  # s up to 10 voxels
+    fo = torch.stack([fields[0, :20000], fields[1, :20000]])
+    n_over = tile_particles_3d(po, ho, fo, small, device=device).n_oversize
+    got = deposit_3d_auto(po, ho, fo, small, device=device)
+    ref = deposit_3d(po, ho, fo.T, small, device=device).permute(3, 0, 1, 2)
+    err_o, rel_o = rel_err(got, ref)
+
+    out = {
+        "phase": "voxel_path", "n": n, "grid": [ng] * 3, "box_cMpc": VOX_BOX, "fields": 4,
+        "h_cap_voxels": 3.5, "generate_s": gen_s, "launches": launches, "levels": levels,
+        "n_oversize": n_oversize, "wall_s": wall, "layout_s": layout_s, "deposit_s": deposit_s,
+        "deposits_per_s": n / wall, "profiled_wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
+        "device_idle_share": None if busy_ms is None else 1.0 - busy_ms / prof_wall_ms,
+        "density_mass_ratio": mass_ratio, "peak_mem_gb": peak_gb,
+        "plain_subset_n": ps.shape[0], "plain_subset_max_abs_err": err, "plain_subset_rel_err": rel,
+        "oversize_case": {"grid": [64] * 3, "n": 20000, "n_oversize": n_over, "max_abs_err": err_o,
+                          "rel_err": rel_o},
+    }
+    emit(out)
+    for lv in levels:
+        check(lv["rel_err"] <= REL_TOL, f"3D kernel disagrees with its plain version at full size: {lv}")
+    check(rel <= PATH_TOL, f"config-3 path off the plain stencil engine on {ps.shape[0]} particles: {rel}")
+    check(n_over > 0, "the oversize case has no oversize particle")
+    check(rel_o <= PATH_TOL, f"oversize route off the plain stencil engine: {rel_o}")
+    return out
+
+
+def phase_voxel_tiles(torch, device, n_log2: int):
+    """Kernel #6's time per level under other tile geometries, on phase 14's
+    particles (the same layout code, only the level's (TZ, TY, TX) differs)."""
+    from astro_sph_tools_tpu_torch.ops import PALLAS_3D_LEVELS, GridSpec, Pallas3DConfig, tile_particles_3d
+    from astro_sph_tools_tpu_torch.ops.deposit_tiled import _tile_ranges
+    from astro_sph_tools_tpu_torch.ops.grid3d_tiled import _level_args, deposit_3d_tiles
+
+    ng = VOX_GRID
+    vox = VOX_BOX / ng
+    spec = GridSpec(shape=(ng,) * 3, extent=(0.0, VOX_BOX) * 3, periodic_wrap=True)
+    pos, h, m, v = voxel_particles(torch, device, 1 << n_log2, VOX_BOX, seed=11)
+    h = torch.clamp(h, max=3.5 * vox)
+    fields = torch.stack([m, m * v[:, 0], m * v[:, 1], m * v[:, 2]])
+    del v
+    out = []
+    for li in (1, 2):
+        ref = None
+        for tiles in ((8, 8, 8), (16, 16, 8), (16, 16, 16)):
+            levels = list(PALLAS_3D_LEVELS)
+            levels[li] = Pallas3DConfig(K=levels[li].K, TZ=tiles[0], TY=tiles[1], TX=tiles[2])
+            tp = tile_particles_3d(pos, h, fields, spec, levels=tuple(levels), device=device)
+            geom, lo, count = next(g for g in tp.geoms if g[0].cfg.K == levels[li].K)
+            sl = slice(lo, lo + count)
+            pstart, pcount = _tile_ranges(tp.sorted_tile[sl], geom.n_tiles)
+            kw = _level_args(geom, spec, "cubic_spline")
+            case = {"phase": "voxel_tile_ab", "K": geom.cfg.K, "tiles_zyx": list(tiles), "count": count,
+                    "n_tiles": geom.n_tiles, "max_pcount": int(pcount.max())}
+            for n_fields in (1, 4):
+                args = (tp.sorted_u[sl], tp.sorted_v[sl], tp.sorted_w[sl], tp.sorted_h[sl],
+                        tp.sorted_values[:n_fields, sl], pstart, pcount)
+                grid = torch.zeros((n_fields, ng, ng, ng), device=device)
+                deposit_3d_tiles(*args, grid, **kw)
+                torch.cuda.synchronize()
+                if n_fields == 4:
+                    if ref is None:
+                        ref = grid.clone()
+                    case["rel_err_vs_8^3"] = rel_err(grid, ref)[1]
+                case[f"ms_F{n_fields}"] = cuda_ms(lambda: deposit_3d_tiles(*args, grid, **kw), 3)
+                del grid, args
+            emit(case)
+            check(case["rel_err_vs_8^3"] <= REL_TOL, f"tile geometries disagree: {case}")
+            out.append(case)
+            del tp
+        del ref
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12", help="comma-separated phases to run")
+    parser.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14",
+                        help="comma-separated phases to run (15 only when named)")
     parser.add_argument("--log2n", type=int, default=MAIN_LOG2N, help="log2 of the main path's particle count")
     parser.add_argument("--sight-n", type=int, default=SIGHT_N, help="gas particles of phases 10-12")
+    parser.add_argument("--vox-log2n", type=int, default=VOX_LOG2N, help="log2 of phase 14's particle count")
     args = parser.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -951,8 +1270,6 @@ def main() -> None:
     torch.cuda.set_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-
-    from astro_sph_tools_tpu_torch.ops.deposit_tiled import deposit_tiles
 
     if phases - {0}:
         phase_build()
@@ -970,17 +1287,28 @@ def main() -> None:
         phase_render_coherent(torch, device, particles)
     del particles
     torch.cuda.empty_cache()
-    from astro_sph_tools_tpu_torch.ops.sightlines_fused import columns_tiles
-    from astro_sph_tools_tpu_torch.ops.spectra_fused import spectra_tiles
-
     sl = sightline_setup(torch, device, args.sight_n) if phases & {10, 11, 12} else None
     col_cases = phase_columns_kernel(torch, device, sl) if 10 in phases else []
     spec_cases = phase_spectra_kernel(torch, device, sl) if 11 in phases else []
     sight_out = phase_sightlines(torch, device, sl) if 12 in phases else None
     del sl
+    torch.cuda.empty_cache()
+    vox_cases = phase_voxel_kernel(torch, device) if 13 in phases else []
+    vox_out = phase_voxel(torch, device, args.vox_log2n) if 14 in phases else None
+    if 15 in phases:
+        phase_voxel_tiles(torch, device, args.vox_log2n)
 
     def pick(rows, **match):
         return next((c for c in rows if all(c[k] == v for k, v in match.items())), None)
+
+    def bound_keys(case):
+        """The case's bound; no single PyTorch call computes any of these
+        kernels' functions, so no library time."""
+        return {
+            "bound_ms": case["bound_ms"] if case else None,
+            "bound_by": case["bound_by"] if case else None,
+            "library_ms": None,
+        }
 
     ref_case = pick(cases, K=8, F=2, projection="kernel3d")
     prep_case = pick(prep_cases, case="coherent_order")
@@ -988,19 +1316,19 @@ def main() -> None:
     launches = coh_out["launches_synced"] if coh_out else {}
     col_case = pick(col_cases, projection="integrated", periodic=True, F=1)
     spec_case = pick(spec_cases, profile="gaussian", periodic=True)
-    sight_launches = sight_out["launches"] if sight_out else {
-        "sightline_columns": columns_tiles.launches, "sightline_spectra": spectra_tiles.launches,
-    }
+    vox_case = pick(vox_cases, K=8, F=4, periodic=True)
+    sight_launches = sight_out["launches"] if sight_out else {}
     emit({"kernels": [
         {
             "name": "deposit2d",
             "route": "cuda",
             "source": "astro_sph_tools_tpu_torch/csrc/deposit2d.cu",
             "replaces": "astro_sph_tools_tpu/ops/deposit_pallas.py:129",
-            "launches": main_out["launches"] if main_out else deposit_tiles.launches,
+            "launches": main_out["launches"] if main_out else None,
             "max_abs_err": max((c["max_abs_err"] for c in cases), default=None),
             "ms": ref_case["ms"] if ref_case else None,
             "plain_ms": ref_case["plain_ms"] if ref_case else None,
+            **bound_keys(ref_case),
         },
         {
             "name": "coherent_prep",
@@ -1011,6 +1339,7 @@ def main() -> None:
             "max_abs_err": max((c["max_abs_err"] for c in prep_cases), default=None),
             "ms": prep_case["ms"] if prep_case else None,
             "plain_ms": prep_case["plain_ms"] if prep_case else None,
+            **bound_keys(prep_case),
         },
         {
             "name": "coherent_deposit",
@@ -1021,26 +1350,41 @@ def main() -> None:
             "max_abs_err": max((c["max_abs_err"] for c in coh_cases), default=None),
             "ms": coh_case["ms"] if coh_case else None,
             "plain_ms": coh_case["plain_ms"] if coh_case else None,
+            **bound_keys(coh_case),
         },
         {
             "name": "sightline_columns",
             "route": "cuda",
             "source": "astro_sph_tools_tpu_torch/csrc/sightlines.cu",
             "replaces": "astro_sph_tools_tpu/ops/sightlines_pallas.py:368",
-            "launches": sight_launches["sightline_columns"],
+            "launches": sight_launches.get("sightline_columns"),
             "max_abs_err": max((c["max_abs_err"] for c in col_cases), default=None),
             "ms": col_case["ms"] if col_case else None,
             "plain_ms": col_case["plain_ms"] if col_case else None,
+            **bound_keys(col_case),
         },
         {
             "name": "sightline_spectra",
             "route": "cuda",
             "source": "astro_sph_tools_tpu_torch/csrc/sightlines.cu",
             "replaces": "astro_sph_tools_tpu/ops/spectra_pallas.py:70",
-            "launches": sight_launches["sightline_spectra"],
+            "launches": sight_launches.get("sightline_spectra"),
             "max_abs_err": max((c["max_abs_err"] for c in spec_cases), default=None),
             "ms": spec_case["ms"] if spec_case else None,
             "plain_ms": spec_case["plain_ms"] if spec_case else None,
+            **bound_keys(spec_case),
+        },
+        {
+            "name": "deposit3d",
+            "route": "cuda",
+            "source": "astro_sph_tools_tpu_torch/csrc/deposit3d.cu",
+            "replaces": "astro_sph_tools_tpu/ops/grid3d_pallas.py:129",
+            "launches": vox_out["launches"] if vox_out else None,
+            "max_abs_err": max((c["max_abs_err"] for c in vox_cases + (vox_out["levels"] if vox_out else [])),
+                               default=None),
+            "ms": vox_case["ms"] if vox_case else None,
+            "plain_ms": vox_case["plain_ms"] if vox_case else None,
+            **bound_keys(vox_case),
         },
     ]})
     emit({"ok": True, "device": {
