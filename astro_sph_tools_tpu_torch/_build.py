@@ -3,8 +3,9 @@
 Every ``csrc/<name>.cu`` holds kernels with a plain C interface (today
 ``deposit2d.cu``, the sorted engine's deposit; ``coherent.cu``, the
 coherent engine's row prep and deposit; ``sightlines.cu``, the sightline
-columns and spectra; ``deposit3d.cu``, the 3D voxel deposit; all include
-``csrc/deposit_common.cuh``). At first
+columns and spectra; ``deposit3d.cu``, the 3D voxel deposit, these four
+including ``csrc/deposit_common.cuh``; ``layout_shear.cu``, the gang append
+of the random-order grouping). At first
 use each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into its
 own shared library under
 ``_build/``, named by a hash of the source, of every ``csrc/*.cuh`` it
@@ -103,6 +104,12 @@ _SIGNATURES = {
             _I, _I, _I, _I, _I, _I,  # nz, ny, nx, periodic x, y, z
             _F, _F, _F, _F,  # offset, psx, psy, psz
             _I, _F, _F,  # kernel id, norm_3d, support_factor
+            _P,  # cudaStream_t
+        ],
+    },
+    "layout_shear": {
+        "append_gangs_launch": [
+            _P, _P, _P, _I, _I,  # src gangs, dst gangs, schedule (n_sub, 3), n_sub, channels
             _P,  # cudaStream_t
         ],
     },

@@ -15,6 +15,8 @@ its values are the JAX engine's; its TPU workarounds are gone:
    and one permutation gather of (u, v, h, values, perm) — in place of the
    TPU's multi-operand ``lax.sort``. No size-class padding and no slack:
    eager PyTorch reuses nothing compiled, so arrays keep their real length.
+   ``layout="shear"`` groups by the same (compact) key with the two-pass
+   layout of :mod:`.layout_shear` instead, pad slots included.
 3. **Deposit**: per populated level, :func:`deposit_tiles` fills the
    (n_tiles, F*R, 128) extended tile accumulators — the CUDA kernel
    ``csrc/deposit2d.cu`` on a CUDA tensor, the plain torch version
@@ -612,6 +614,21 @@ def _level_geometries(spec: MapSpec, levels) -> list[Optional[_LevelGeometry]]:
     return geoms
 
 
+def _assign_setup(spec: MapSpec, levels):
+    """(geometry per level or None, each level's footprint bound, the
+    per-level geometry tuples of :func:`_multi_level_assign`)."""
+    geoms = _level_geometries(spec, levels)
+    bounds = tuple((g.cfg.max_s_pix if g is not None else -1.0) for g in geoms)
+    geom_tuples = (
+        tuple(g.n_tiles_x if g else 1 for g in geoms),
+        tuple(g.cfg.TY if g else 1 for g in geoms),
+        tuple(g.tx if g else 1 for g in geoms),
+        tuple(g.n_tiles_y if g else 1 for g in geoms),
+        tuple(g.cfg.M if g else 0 for g in geoms),
+    )
+    return geoms, bounds, geom_tuples
+
+
 def tile_particles(
     x, y, h, values, spec: MapSpec,
     *,
@@ -628,49 +645,56 @@ def tile_particles(
     composite key so every level's segment is internally tile-sorted. The
     only host sync is the handful of per-level counts.
 
-    ``layout``: ``"auto"`` and ``"sort"`` sort the composite key. The JAX
-    package's ``"shear"`` grouping is not ported (ROADMAP queue 1, item 11).
+    ``layout`` picks the grouping on the device path: ``"sort"`` (and
+    ``"auto"``) sort the composite key; ``"shear"`` groups with the two-pass
+    row-sort / band-sort / gang-append layout (:mod:`.layout_shear`, CUDA
+    kernel ``csrc/layout_shear.cu``), whose level segments carry
+    interleaved zero-value pad slots that the counts, ``n_sorted`` and
+    ``n_oversize`` include (pads re-gather as 0 in :meth:`with_values`).
+    Host-f64 coordinates keep the sort whatever ``layout`` says.
     """
-    if layout == "shear":
-        raise NotImplementedError(
-            "layout='shear' is not ported to the torch package yet "
-            "(ROADMAP queue 1, item 11: random-order bucketing)"
-        )
-    if layout not in ("auto", "sort"):
-        raise ValueError(f"unknown layout {layout!r}; expected 'auto' or 'sort'")
+    if layout not in ("auto", "sort", "shear"):
+        raise ValueError(f"unknown layout {layout!r}; expected 'auto', 'sort' or 'shear'")
     kspec = get_kernel(kernel)
     device = torch.device(device)
     values, _ = _as_field_matrix(values, device)
-    geoms = _level_geometries(spec, levels)
-    bounds = tuple((g.cfg.max_s_pix if g is not None else -1.0) for g in geoms)
-    geom_tuples = (
-        tuple(g.n_tiles_x if g else 1 for g in geoms),
-        tuple(g.cfg.TY if g else 1 for g in geoms),
-        tuple(g.tx if g else 1 for g in geoms),
-        tuple(g.n_tiles_y if g else 1 for g in geoms),
-        tuple(g.cfg.M if g else 0 for g in geoms),
-    )
+    geoms, bounds, geom_tuples = _assign_setup(spec, levels)
     xs, ys = _coords(x, y, device)
     h = torch.as_tensor(h if isinstance(h, Tensor) else np.asarray(h), dtype=torch.float32)
     n_valid = int(h.shape[0])
-    # s_pix from the f32 smoothing lengths, in the coordinates' precision
-    s_pix = kspec.support_factor * h.to(xs.device, xs.dtype) / min(spec.pixel_size)
-    u, v = _pixel_coords(xs, ys, spec)
-    level, tile, u_loc, v_loc = _multi_level_assign(u, v, s_pix, bounds, *geom_tuples)
-    key = (level * _LEVEL_STRIDE + tile).to(device)
-    del s_pix, u, v, level, tile
+    if layout == "shear" and not _is_host_f64(x):
+        from .layout_shear import shear_tile_sort  # late import: it imports this module
 
-    sorted_key, perm = torch.sort(key, stable=True)
-    del key
-    su = u_loc.to(torch.float32).to(device)[perm]
-    sv = v_loc.to(torch.float32).to(device)[perm]
-    del u_loc, v_loc
-    sh = h.to(device)[perm]
-    s_values = values[:, perm].contiguous()
-    lv = torch.arange(len(geoms) + 2, dtype=sorted_key.dtype, device=device) * _LEVEL_STRIDE
-    starts = torch.searchsorted(sorted_key, lv).tolist()  # host sync: a few ints
-    counts = [starts[i + 1] - starts[i] for i in range(len(geoms) + 1)]
-    s_tile = torch.remainder(sorted_key, _LEVEL_STRIDE).to(torch.int32)
+        assign, level_n_tiles = _shear_assign(spec, kspec.support_factor, geoms, bounds, geom_tuples)
+        s_tile, su, sv, sh, s_values, perm, counts = shear_tile_sort(
+            None, None, None, h.to(device), values, raw_xy=(xs, ys), assign=assign,
+            level_stride=_LEVEL_STRIDE, level_n_tiles=level_n_tiles,
+            n_fields=values.shape[0], need_perm=need_perm, n_valid=n_valid,
+        )
+        # the counts include the interleaved pad slots: the data region is
+        # their total, not the input length
+        counts = counts.tolist()  # host sync: a few ints
+        perm = None if perm is None else perm.long()
+    else:
+        # s_pix from the f32 smoothing lengths, in the coordinates' precision
+        s_pix = kspec.support_factor * h.to(xs.device, xs.dtype) / min(spec.pixel_size)
+        u, v = _pixel_coords(xs, ys, spec)
+        level, tile, u_loc, v_loc = _multi_level_assign(u, v, s_pix, bounds, *geom_tuples)
+        key = (level * _LEVEL_STRIDE + tile).to(device)
+        del s_pix, u, v, level, tile
+
+        sorted_key, perm = torch.sort(key, stable=True)
+        del key
+        su = u_loc.to(torch.float32).to(device)[perm]
+        sv = v_loc.to(torch.float32).to(device)[perm]
+        del u_loc, v_loc
+        sh = h.to(device)[perm]
+        s_values = values[:, perm].contiguous()
+        lv = torch.arange(len(geoms) + 2, dtype=sorted_key.dtype, device=device) * _LEVEL_STRIDE
+        starts = torch.searchsorted(sorted_key, lv).tolist()  # host sync: a few ints
+        counts = [starts[i + 1] - starts[i] for i in range(len(geoms) + 1)]
+        s_tile = torch.remainder(sorted_key, _LEVEL_STRIDE).to(torch.int32)
+        perm = perm if need_perm else None
 
     level_meta = []
     lo = 0
@@ -682,10 +706,28 @@ def tile_particles(
     return TiledParticles(
         spec=spec, kernel=kernel, geoms=tuple(level_meta),
         sorted_u=su, sorted_v=sv, sorted_h=sh, sorted_values=s_values,
-        sorted_tile=s_tile, perm=perm if need_perm else None,
-        n_sorted=int(sorted_key.shape[0]), n_oversize=counts[len(geoms)],
+        sorted_tile=s_tile, perm=perm,
+        n_sorted=sum(counts), n_oversize=counts[len(geoms)],
         n_valid=n_valid,
     )
+
+
+def _shear_assign(spec: MapSpec, support_factor: float, geoms, bounds, geom_tuples):
+    """The fine (level, tile) assignment of the shear layout: an
+    ``assign(x, y, h)`` returning the COMPACT key ``bases[level] + tile``
+    (the oversize key last) and the tile-local coordinates, by the sorted
+    engine's own ``_pixel_coords`` and ``_multi_level_assign``; and the
+    per-level tile counts (0 for a level that cannot tile the map)."""
+    level_n_tiles = tuple((g.n_tiles if g is not None else 0) for g in geoms)
+    key_bases = tuple(int(b) for b in np.concatenate([[0], np.cumsum(level_n_tiles)]))
+
+    def assign(x, y, h):
+        u, v = _pixel_coords(x, y, spec)
+        s_pix = support_factor * h / min(spec.pixel_size)
+        level, tile, u_loc, v_loc = _multi_level_assign(u, v, s_pix, bounds, *geom_tuples)
+        return device_const(key_bases, torch.int32, x.device)[level] + tile, u_loc, v_loc
+
+    return assign, level_n_tiles
 
 
 def tiled_particles_from_arrays(

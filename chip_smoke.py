@@ -3,19 +3,20 @@
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
-    python3 chip_smoke.py                # phases 0-14
+    python3 chip_smoke.py                # phases 0-14, 16-17
     python3 chip_smoke.py --phases 0,1,2 # a subset, for debugging
 
 It drives the port's main paths — the adaptive-h sorted tile engine behind
 ``render_map_stack``, the coherent-order engine (synced and zero-sync fused),
-the sightline columns and absorption spectra of BASELINE config 4 and the 3D
-voxel deposit of BASELINE config 3 — on particles generated in memory from a
-seed, and fails (non-zero exit) if any phase fails:
+the sightline columns and absorption spectra of BASELINE config 4, the 3D
+voxel deposit of BASELINE config 3 and the random-order path (shear grouping,
+``deposit_2d_bucketed``) — on particles generated in memory from a seed, and
+fails (non-zero exit) if any phase fails:
 
 0. device: torch version, card name and power limit (nvidia-smi);
 1. build: compile every CUDA kernel library (``csrc/deposit2d.cu``,
-   ``csrc/coherent.cu``, ``csrc/sightlines.cu``, ``csrc/deposit3d.cu``), one
-   nvcc per source, all started together;
+   ``csrc/coherent.cu``, ``csrc/sightlines.cu``, ``csrc/deposit3d.cu``,
+   ``csrc/layout_shear.cu``), one nvcc per source, all started together;
 2. sorted-engine deposit kernel vs its plain torch version on the card, for
    every level K in {8, 16, 32, 64} x F in {2, 5} x projection, on a 1024^2
    map with 2^18 particles whose h lies inside the level;
@@ -61,7 +62,25 @@ seed, and fails (non-zero exit) if any phase fails:
 15. (only when named in ``--phases``) tile-geometry A/B of kernel #6 on
     phase 14's particles: the K = 8 and K = 16 levels' kernel times at 8^3
     (the default), (16, 16, 8) and 16^3 tiles, F = 1 and 4, each held
-    against the default's cube.
+    against the default's cube;
+16. gang-append kernel (``csrc/layout_shear.cu``, kernel #7) vs its plain
+    version, bit for bit on every destination gang, on stage A's output for
+    (a) the coarse 128 x 2-cell grouping of phase 17's particles, (b) their
+    fine 1024^2 level/tile key space, (c) one key, (d) runs of mostly one
+    record; kernel, plain and ``torch.index_select`` times and bounds;
+17. the random-order path at 2^27 (``--rand-log2n``): phase 3's density
+    field, h and fields with every particle in an iid random cell (the JAX
+    package's ``benchmarks/northstar_proxy.py --order random``), 1024^2
+    periodic, 2 fields, through ``deposit_2d_bucketed`` (the slice's main
+    path: launch counts), ``tile_particles(layout="shear")`` +
+    ``deposit_tiled``, ``deposit_2d_auto`` and ``deposit_2d_coherent``;
+    every map against the sorted engine's, integrated-map mass, warm walls,
+    the bucketed wall split into stage A, append, cleanup and coherent
+    render, run counts and pad shares, coherent row statistics before and
+    after bucketing, the device's busy share and peak memory; and, on the
+    stream the bucketing feeds the coherent engine, the row-prep kernel (bit
+    for bit), the coherent deposit kernel and the sorted-engine kernel on
+    each routed tail level, each against its plain version.
 
 Every phase prints one JSON line; the kernels' summary line and the card's
 ``nvidia-smi`` line come before the last line, which is
@@ -96,6 +115,7 @@ GAMMA_LYA = 6.265e8  # H I Lya damping rate, 1/s
 VOX_LOG2N = 24  # config 3: 2^24 = 16.8M particles ...
 VOX_GRID = 512  # ... on a 512^3 periodic cube (BASELINE.json config 3)
 VOX_BOX = 25.0  # cMpc
+RAND_LOG2N = 27  # phases 16-17: 2^27 shuffled particles (northstar_proxy.py --order random)
 # H100 SXM data-sheet peaks (dense, at 700 W), for bound_ms
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
@@ -217,11 +237,14 @@ def _morton_order_2d(bits: int) -> np.ndarray:
     return rank.reshape(-1)
 
 
-def clustered_particles(n: int, box: float, npix: int, seed: int, device):
-    """Morton-ordered clustered particles with density-correlated lognormal
-    h (median ~0.5 px, clipped into the K=64 level), as the JAX package's
+def clustered_particles(n: int, box: float, npix: int, seed: int, device, order: str = "morton"):
+    """Clustered particles with density-correlated lognormal h (median ~0.5
+    px, clipped into the K=64 level), as the JAX package's
     ``benchmarks/northstar_proxy.py::build_particles`` draws them, with a
-    ``torch.Generator`` for the per-particle draws. Returns x, y, h, m, T."""
+    ``torch.Generator`` for the per-particle draws. ``order="morton"``
+    sweeps the cells along the Morton curve (snapshot-like order);
+    ``order="random"`` draws each particle's cell iid from the same density
+    (inverse CDF), the incoherent worst case. Returns x, y, h, m, T."""
     import torch
 
     bits = 8
@@ -249,7 +272,10 @@ def clustered_particles(n: int, box: float, npix: int, seed: int, device):
 
     g = torch.Generator(device=device)
     g.manual_seed(seed)
-    u01 = (torch.arange(n, dtype=torch.float32, device=device) + 0.5) / n
+    if order == "random":
+        u01 = torch.rand(n, generator=g, device=device)
+    else:
+        u01 = (torch.arange(n, dtype=torch.float32, device=device) + 0.5) / n
     step = torch.searchsorted(torch.as_tensor(cum, dtype=torch.float32, device=device), u01)
     step = torch.clamp(step, 0, n_cells - 1)
     cell = torch.as_tensor(cell_seq, device=device)[step]
@@ -534,12 +560,48 @@ def _coherent_module():
     return importlib.import_module("astro_sph_tools_tpu_torch.ops.deposit_coherent")
 
 
-def phase_prep(torch, device, particles):
-    """Kernel #3 (row prep) vs its plain version: bit for bit."""
-    from astro_sph_tools_tpu_torch.ops import MapSpec
+def _prep_vs_plain(torch, name, spec, cx, cy, ch, cv):
+    """One case of kernel #3 (row prep) vs its plain version, bit for bit,
+    on whole 2048-lane rows."""
     from astro_sph_tools_tpu_torch.ops.coherent_prep import _prep_rows, prep_rows, prep_rows_plain
 
     TC = _coherent_module()
+    cx, cy, ch, cv = (a.contiguous() for a in (cx, cy, ch, cv))
+    st = TC._setup(spec, "cubic_spline", TC.PALLAS_LEVELS, TC._D_MAX)
+    packed, aux = prep_rows(cx, cy, ch, cv, spec)
+    ref_packed, ref_aux = prep_rows_plain(cx, cy, ch, cv, st)
+    torch.cuda.synchronize()
+    bad_packed = int((packed != ref_packed).sum())
+    bad_aux = int((aux != ref_aux).sum())
+    err = max(float((packed - ref_packed).abs().max()), float((aux - ref_aux).abs().max()))
+    d = TC._D_MAX
+    heavy = int((aux[:, d + 2] > 0.5).sum())
+    n_rows = aux.shape[0]
+    case = {
+        "phase": "prep_vs_plain", "case": name, "n": cx.shape[0], "periodic": spec.periodic_wrap,
+        "mismatched_packed": bad_packed, "mismatched_aux": bad_aux, "max_abs_err": err,
+        "ms": cuda_ms(lambda: _prep_rows(cx, cy, ch, cv, st), 5),
+        "plain_ms": cuda_ms(lambda: prep_rows_plain(cx, cy, ch, cv, st), 5),
+        "heavy_rows": heavy, "coherent_fraction": 1.0 - heavy / n_rows,
+        # assignment arithmetic: about 40 operations a particle
+        **bound(nbytes(cx, cy, ch, cv, packed, aux), 40.0 * cx.shape[0]),
+    }
+    if bad_packed or bad_aux:  # where they differ, for the record
+        idx = torch.nonzero(packed != ref_packed)[:5].tolist()
+        case["first_packed_mismatches"] = [
+            [i, float(packed[tuple(i)]), float(ref_packed[tuple(i)])] for i in idx
+        ]
+        idx = torch.nonzero(aux != ref_aux)[:5].tolist()
+        case["first_aux_mismatches"] = [[i, float(aux[tuple(i)]), float(ref_aux[tuple(i)])] for i in idx]
+    emit(case)
+    check(bad_packed == 0 and bad_aux == 0, f"row-prep kernel differs from its plain version: {name}")
+    return case
+
+
+def phase_prep(torch, device, particles):
+    """Kernel #3 (row prep) vs its plain version: bit for bit."""
+    from astro_sph_tools_tpu_torch.ops import MapSpec
+
     x, y, h, m, t, box = particles
     n = x.shape[0]
     g = torch.Generator(device=device)
@@ -557,78 +619,92 @@ def phase_prep(torch, device, particles):
         ("shuffled", periodic, x[:sub][perm], y[:sub][perm], h[:sub][perm], torch.stack([m[:sub][perm], t[:sub][perm]])),
         ("off_extent", flat, xo, yo, h[:off], torch.stack([m[:off], m[:off] * t[:off]])),
     ]
-    out = []
-    for name, spec, cx, cy, ch, cv in cases:
-        cx, cy, ch, cv = (a.contiguous() for a in (cx, cy, ch, cv))
-        st = TC._setup(spec, "cubic_spline", TC.PALLAS_LEVELS, TC._D_MAX)
-        packed, aux = prep_rows(cx, cy, ch, cv, spec)
-        ref_packed, ref_aux = prep_rows_plain(cx, cy, ch, cv, st)
-        torch.cuda.synchronize()
-        bad_packed = int((packed != ref_packed).sum())
-        bad_aux = int((aux != ref_aux).sum())
-        err = max(float((packed - ref_packed).abs().max()), float((aux - ref_aux).abs().max()))
-        d = TC._D_MAX
-        heavy = int((aux[:, d + 2] > 0.5).sum())
-        n_rows = aux.shape[0]
-        case = {
-            "phase": "prep_vs_plain", "case": name, "n": cx.shape[0], "periodic": spec.periodic_wrap,
-            "mismatched_packed": bad_packed, "mismatched_aux": bad_aux, "max_abs_err": err,
-            "ms": cuda_ms(lambda: _prep_rows(cx, cy, ch, cv, st), 5),
-            "plain_ms": cuda_ms(lambda: prep_rows_plain(cx, cy, ch, cv, st), 5),
-            "heavy_rows": heavy, "coherent_fraction": 1.0 - heavy / n_rows,
-            # assignment arithmetic: about 40 operations a particle
-            **bound(nbytes(cx, cy, ch, cv, packed, aux), 40.0 * cx.shape[0]),
-        }
-        if bad_packed or bad_aux:  # where they differ, for the record
-            idx = torch.nonzero(packed != ref_packed)[:5].tolist()
-            case["first_packed_mismatches"] = [
-                [i, float(packed[tuple(i)]), float(ref_packed[tuple(i)])] for i in idx
-            ]
-            idx = torch.nonzero(aux != ref_aux)[:5].tolist()
-            case["first_aux_mismatches"] = [[i, float(aux[tuple(i)]), float(ref_aux[tuple(i)])] for i in idx]
-        emit(case)
-        check(bad_packed == 0 and bad_aux == 0, f"row-prep kernel differs from its plain version: {name}")
-        out.append(case)
-    return out
+    return [_prep_vs_plain(torch, name, spec, cx, cy, ch, cv) for name, spec, cx, cy, ch, cv in cases]
+
+
+def _coherent_vs_plain(torch, lay, spec, h, projection, plain_reps: int, **tags):
+    """Kernel #2 (coherent deposit) vs its plain version on a coherent
+    layout's candidates; ``h`` is the layout's particles' smoothing lengths
+    (for the bound)."""
+    TC = _coherent_module()
+    g0 = lay.geom0
+    n_fields = lay.n_fields
+    psy, psx = spec.pixel_size
+    tr = torch.arange(g0.n_tiles, dtype=torch.int32, device=lay.cand_tile.device)
+    per_tile = torch.searchsorted(lay.cand_tile, tr, right=True) - torch.searchsorted(lay.cand_tile, tr)
+    kw = dict(n_fields=n_fields, n_tiles=g0.n_tiles, cfg=g0.cfg, kernel="cubic_spline",
+              projection=projection, psx=psx, psy=psy, offset=spec.sample_offset)
+    args = (lay.packed, lay.cand_tile, lay.cand_row)
+    got = TC.deposit_coherent_tiles(*args, **kw)
+    ref = TC.deposit_coherent_tiles_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, ref)
+    del ref
+    case = {
+        "phase": "coherent_kernel_vs_plain", **tags, "F": n_fields, "projection": projection,
+        "n_candidates": lay.n_cand, "n_tiles": g0.n_tiles,
+        "max_candidates_per_tile": int(per_tile.max()),
+        "mean_candidates_per_tile": lay.n_cand / g0.n_tiles,
+        "max_abs_err": err, "rel_err": rel,
+        "ms": cuda_ms(lambda: TC.deposit_coherent_tiles(*args, **kw), 5),
+        "plain_ms": cuda_ms(lambda: TC.deposit_coherent_tiles_plain(*args, **kw), plain_reps),
+        **bound(nbytes(*args, got), support_points(h, 2.0, psx, 2) * pair_ops(n_fields, projection)),
+    }
+    emit(case)
+    check(bool(torch.isfinite(got).all()), f"non-finite coherent kernel output {case}")
+    check(rel <= REL_TOL, f"coherent kernel disagrees with its plain version: {case}")
+    return case
 
 
 def phase_coherent_kernel(torch, device, particles):
     """Kernel #2 (coherent deposit) vs its plain version on the main path's layout."""
     from astro_sph_tools_tpu_torch.ops import MapSpec, tile_particles_coherent
 
-    TC = _coherent_module()
     x, y, h, m, t, box = particles
     spec = MapSpec(shape=(1024, 1024), extent=(0.0, box, 0.0, box), periodic_wrap=True)
     all_fields = [m, m * t, t, 2.0 * m]
     out = []
     for n_fields in (1, 2, 4):
         lay = tile_particles_coherent(x, y, h, torch.stack(all_fields[:n_fields]), spec, device=device)
-        g0 = lay.geom0
-        tr = torch.arange(g0.n_tiles, dtype=torch.int32, device=device)
-        per_tile = torch.searchsorted(lay.cand_tile, tr, right=True) - torch.searchsorted(lay.cand_tile, tr)
         for projection in ("kernel3d", "integrated"):
-            kw = dict(n_fields=n_fields, n_tiles=g0.n_tiles, cfg=g0.cfg, kernel="cubic_spline",
-                      projection=projection, psx=box / 1024, psy=box / 1024, offset=spec.sample_offset)
-            args = (lay.packed, lay.cand_tile, lay.cand_row)
-            got = TC.deposit_coherent_tiles(*args, **kw)
-            ref = TC.deposit_coherent_tiles_plain(*args, **kw)
-            torch.cuda.synchronize()
-            err, rel = rel_err(got, ref)
-            case = {
-                "phase": "coherent_kernel_vs_plain", "F": n_fields, "projection": projection,
-                "n_candidates": lay.n_cand, "n_tiles": g0.n_tiles,
-                "max_candidates_per_tile": int(per_tile.max()),
-                "mean_candidates_per_tile": lay.n_cand / g0.n_tiles,
-                "max_abs_err": err, "rel_err": rel,
-                "ms": cuda_ms(lambda: TC.deposit_coherent_tiles(*args, **kw), 5),
-                "plain_ms": cuda_ms(lambda: TC.deposit_coherent_tiles_plain(*args, **kw), 3),
-                **bound(nbytes(*args, got), support_points(h, 2.0, box / 1024, 2) * pair_ops(n_fields, projection)),
-            }
-            emit(case)
-            check(bool(torch.isfinite(got).all()), f"non-finite coherent kernel output {case}")
-            check(rel <= REL_TOL, f"coherent kernel disagrees with its plain version: {case}")
-            out.append(case)
+            out.append(_coherent_vs_plain(torch, lay, spec, h, projection, 3))
         del lay
+    return out
+
+
+def _tail_levels_vs_plain(torch, lay, spec, **tags):
+    """Kernel #1 (sorted-engine deposit) vs its plain version on each level
+    of a coherent layout's routed tail, as the coherent render launches it."""
+    from astro_sph_tools_tpu_torch.ops.deposit_tiled import deposit_tiles, deposit_tiles_plain
+
+    TC = _coherent_module()
+    psy, psx = spec.pixel_size
+    kw = dict(kernel="cubic_spline", projection="kernel3d", psx=psx, psy=psy, offset=spec.sample_offset)
+    tu, tv, th, t_values, skey = lay.tail
+    out = []
+    for li, geom, lo, count in lay.tail_metas:
+        pstart, pcount = TC._tail_level_ranges(skey, lay.bases[li], geom, None)
+        args = (tu, tv, th, t_values, pstart, pcount)
+        got = deposit_tiles(*args, cfg=geom.cfg, **kw)
+        ref = deposit_tiles_plain(*args, cfg=geom.cfg, **kw)
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, ref)
+        del ref
+        sl = slice(lo, lo + count)
+        case = {
+            "phase": "kernel_vs_plain", **tags, "K": geom.cfg.K, "F": lay.n_fields, "projection": "kernel3d",
+            "n": count, "n_tiles": geom.n_tiles, "max_pcount": int(pcount.max()),
+            "max_abs_err": err, "rel_err": rel,
+            "ms": cuda_ms(lambda: deposit_tiles(*args, cfg=geom.cfg, **kw), 5),
+            "plain_ms": cuda_ms(lambda: deposit_tiles_plain(*args, cfg=geom.cfg, **kw), 1),
+            **bound(nbytes(tu[sl], tv[sl], th[sl], t_values[:, sl], pstart, pcount, got),
+                    support_points(th[sl], 2.0, psx, 2) * pair_ops(lay.n_fields)),
+        }
+        emit(case)
+        check(bool(torch.isfinite(got).all()), f"non-finite tail-level kernel output {case}")
+        check(rel <= REL_TOL, f"tail-level kernel disagrees with its plain version: {case}")
+        out.append(case)
+        del got
     return out
 
 
@@ -1250,13 +1326,242 @@ def phase_voxel_tiles(torch, device, n_log2: int):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the random-order path: shear grouping, kernel #7, deposit_2d_bucketed
+# ---------------------------------------------------------------------------
+
+
+def random_particles(torch, device, n_log2: int):
+    """Phase 16-17's particle set: 2^n_log2 particles with the main path's
+    density field, h and fields, each drawn in a random cell (the JAX
+    package's ``benchmarks/northstar_proxy.py --order random``)."""
+    box = 25.0
+    t0 = time.perf_counter()
+    x, y, h, m, t = clustered_particles(1 << n_log2, box, 1024, seed=7, device=device, order="random")
+    torch.cuda.synchronize()
+    return (x, y, h, m, t, box), time.perf_counter() - t0
+
+
+def _map_spec(box):
+    from astro_sph_tools_tpu_torch.ops import MapSpec
+
+    return MapSpec(shape=(1024, 1024), extent=(0.0, box, 0.0, box), periodic_wrap=True)
+
+
+def _shear_stage_a_inputs(torch, grouping: str, particles):
+    """(ops, n_keys, assign) of stage A for the coarse bucketing (as
+    ``shear_coarse_group`` feeds it) or the fine level/tile key space at
+    1024^2 (as ``tile_particles(layout="shear")`` feeds it, perm included)."""
+    from astro_sph_tools_tpu_torch.kernels.splines import get_kernel
+    from astro_sph_tools_tpu_torch.ops import PALLAS_LEVELS
+    from astro_sph_tools_tpu_torch.ops import layout_shear as LS
+    from astro_sph_tools_tpu_torch.ops.deposit_tiled import _assign_setup, _shear_assign
+
+    x, y, h, m, t, box = particles
+    spec = _map_spec(box)
+    fields = [m, m * t]
+    if grouping == "coarse":
+        assign = LS._cached_coarse_assign((0.0, box, 0.0, box), True, 2, 128)
+        return [x, y, h, *fields], 256, assign
+    assign, level_n_tiles = _shear_assign(
+        spec, get_kernel("cubic_spline").support_factor, *_assign_setup(spec, PALLAS_LEVELS)
+    )
+    perm = torch.arange(x.shape[0], dtype=torch.int32, device=x.device)
+    return [x, y, h, *fields, perm], sum(level_n_tiles) + 1, assign
+
+
+def phase_append_kernel(torch, device, particles):
+    """Kernel #7 (gang append) vs its plain version, bit for bit, on every
+    gang of the destination: (a) the coarse grouping of phase 17's input,
+    (b) its fine 1024^2 level/tile key space, (c) one key (one giant run per
+    band), (d) runs of mostly one record."""
+    from astro_sph_tools_tpu_torch.ops import layout_shear as LS
+
+    g = torch.Generator(device=device)
+    g.manual_seed(16)
+    out = []
+    for name in ("coarse", "fine", "single_key", "one_record_runs"):
+        if name in ("coarse", "fine"):
+            ops, n_keys, assign = _shear_stage_a_inputs(torch, name, particles)
+        else:
+            n, n_keys = (1 << 24, 1) if name == "single_key" else (1 << 21, 1 << 14)
+            key = torch.randint(0, n_keys, (n,), generator=g, device=device, dtype=torch.int32)
+            ops = [key] + [torch.rand(n, generator=g, device=device) for _ in range(3)]
+            assign = None
+        n = ops[0].shape[0]
+        gangs, src_gang, _, ngang, cum_ngang, cnt, cum_nsub, _, ng_t, ns_t = LS._shear_stage_a(
+            ops, n_keys=n_keys, assign=assign
+        )
+        del ops
+        n_gang, n_sub = LS._host_totals(ng_t, ns_t)
+        sched = LS._shear_schedule(src_gang, ngang, cum_ngang, cum_nsub, n_sub)
+        got = LS.append_gangs(gangs, sched, n_gang)
+        ref = LS.append_gangs_plain(gangs, sched, n_gang)
+        src_of_dst, _ = LS._gang_indices(sched, n_gang)  # the schedule is in destination order
+        lib = torch.index_select(gangs, 0, src_of_dst)
+        torch.cuda.synchronize()
+        bad = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
+        bad_lib = int((lib.view(torch.int32) != ref.view(torch.int32)).sum())
+        channels = gangs.shape[1]
+        case = {
+            "phase": "append_kernel_vs_plain", "case": name, "n": n, "n_keys": n_keys, "channels": channels,
+            "runs": int((cnt > 0).sum()), "n_gang": n_gang, "n_sub": n_sub,
+            "pad_share": n_gang * 128 / n - 1.0, "mismatched_words": bad, "mismatched_words_index_select": bad_lib,
+            "max_abs_err": float((got - ref).abs().max()) if n_gang else 0.0,
+            "ms": cuda_ms(lambda: LS.append_gangs(gangs, sched, n_gang), 5),
+            "plain_ms": cuda_ms(lambda: LS.append_gangs_plain(gangs, sched, n_gang), 5),
+            "library_ms": cuda_ms(lambda: torch.index_select(gangs, 0, src_of_dst), 5),
+            # the source gangs and the schedule read once, the destination
+            # written once (runs of one band share their boundary gangs, so
+            # with many short runs the destination outgrows the source)
+            **bound(nbytes(gangs, sched) + n_gang * channels * 128 * 4, 0.0),
+        }
+        emit(case)
+        check(bad == 0 and bad_lib == 0, f"gang append kernel differs from its plain version: {name}")
+        out.append(case)
+        del gangs, got, ref, lib, sched, src_of_dst
+    return out
+
+
+def phase_random(torch, device, particles, gen_s):
+    """The random-order path at size: ``deposit_2d_bucketed`` (the slice's
+    main path), ``tile_particles(layout="shear")`` + ``deposit_tiled``, the
+    sorted engine and the synced coherent engine, all on one shuffled input."""
+    from astro_sph_tools_tpu_torch.ops import (
+        deposit_2d_auto, deposit_2d_coherent, deposit_tiled, tile_particles, tile_particles_coherent,
+    )
+    from astro_sph_tools_tpu_torch.ops import layout_shear as LS
+    from astro_sph_tools_tpu_torch.ops.coherent_prep import prep_rows
+    from astro_sph_tools_tpu_torch.ops.deposit_tiled import deposit_tiles
+
+    TC = _coherent_module()
+    x, y, h, m, t, box = particles
+    n = x.shape[0]
+    spec = _map_spec(box)
+    fields = torch.stack([m, m * t])
+    kernels = (LS.append_gangs, deposit_tiles, prep_rows, TC.deposit_coherent_tiles)
+    names = ("append_gangs", "deposit2d", "coherent_prep", "coherent_deposit")
+
+    def reset():
+        for k in kernels:
+            k.launches = 0
+
+    def read():
+        return dict(zip(names, (k.launches for k in kernels)))
+
+    bucketed = lambda: LS.deposit_2d_bucketed(x, y, h, fields, spec, device=device)
+    shear = lambda: deposit_tiled(tile_particles(x, y, h, fields, spec, layout="shear", device=device))
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path, once, with every launch count reset just before it
+    reset()
+    img_b = bucketed()
+    torch.cuda.synchronize()
+    launches_b = read()
+    peak_b = torch.cuda.max_memory_allocated() / 2**30
+    reset()
+    tp = tile_particles(x, y, h, fields, spec, layout="shear", device=device)
+    img_s = deposit_tiled(tp)
+    torch.cuda.synchronize()
+    launches_s = read()
+    shear_layout = {"n_sorted": tp.n_sorted, "pad_share": tp.n_sorted / n - 1.0, "n_oversize": tp.n_oversize,
+                    "levels": [{"K": geom.cfg.K, "count": c} for geom, _, c in tp.geoms]}
+    del tp
+    img_sorted = deposit_2d_auto(x, y, h, fields, spec, device=device)
+    img_c = deposit_2d_coherent(x, y, h, fields, spec, device=device)
+    errs = {name: rel_err(a, img_sorted) for name, a in
+            (("bucketed", img_b), ("shear", img_s), ("coherent", img_c))}
+    for name, a in (("bucketed", img_b), ("shear", img_s), ("sorted", img_sorted), ("coherent", img_c)):
+        check(tuple(a.shape) == (2, 1024, 1024) and bool(torch.isfinite(a).all()), f"bad {name} map")
+    del img_b, img_s, img_c
+    coh_stats = tile_particles_coherent(x, y, h, fields, spec, device=device).stats
+    integ = LS.deposit_2d_bucketed(x, y, h, fields, spec, projection="integrated", device=device)
+    px = box / 1024
+    mass = float(m.double().sum())
+    mass_err = abs(float(integ[0].double().sum()) * px * px - mass) / mass
+    del integ
+
+    walls = {
+        "sorted": wall_s(lambda: deposit_2d_auto(x, y, h, fields, spec, device=device), 3),
+        "coherent_synced": wall_s(lambda: deposit_2d_coherent(x, y, h, fields, spec, device=device), 3),
+        "bucketed": wall_s(bucketed, 3),
+        "shear_layout": wall_s(shear, 3),
+    }
+    # the sorted engine's and the shear path's walls split into layout and deposit
+    layout_split = {}
+    for layout in ("sort", "shear"):
+        build = lambda: tile_particles(x, y, h, fields, spec, layout=layout, device=device)
+        tp = build()
+        layout_split[layout] = {"layout": wall_s(build, 3), "deposit": wall_s(lambda: deposit_tiled(tp), 3)}
+        del tp
+    # the bucketed wall split: stage A (with the host read of the totals),
+    # the append (schedule + kernel #7), the cleanup, the coherent render
+    ops, n_keys, assign = _shear_stage_a_inputs(torch, "coarse", particles)
+    stage_a = lambda: LS._shear_stage_a(ops, n_keys=n_keys, assign=assign)
+    a_out = stage_a()
+    gangs, src_gang, head, ngang, cum_ngang, cnt, cum_nsub, _, ng_t, ns_t = a_out
+    n_gang, n_sub = LS._host_totals(ng_t, ns_t)
+    append = lambda: LS._shear_append(gangs, src_gang, ngang, cum_ngang, cum_nsub, n_gang=n_gang, n_sub=n_sub)
+    dest = append()
+    cleanup = lambda: LS._coarse_cleanup(dest, head, ngang, cum_ngang, cnt, n_fields=2)
+    gx, gy, gh, gv = cleanup()
+    render = lambda: deposit_2d_coherent(gx, gy, gh, gv, spec, device=device)
+    split = {
+        "stage_a": wall_s(lambda: LS._host_totals(*stage_a()[8:]), 3),
+        "append": wall_s(append, 3),
+        "cleanup": wall_s(cleanup, 3),
+        "coherent_render": wall_s(render, 3),
+    }
+    coarse = {"runs": int((cnt > 0).sum()), "n_gang": n_gang, "n_sub": n_sub, "pad_share": n_gang * 128 / n - 1.0}
+    del a_out, gangs, dest, ops
+    # the path's other kernels against their plain versions on the stream
+    # the bucketing feeds them: the row prep (bit for bit), the coherent
+    # deposit on its candidates, the sorted-engine deposit on each level of
+    # its routed tail
+    cx, cy, ch, cv, _ = TC._device_inputs(gx, gy, gh, gv, spec, device)
+    stream = {"prep": _prep_vs_plain(torch, "bucketed_stream", spec, cx, cy, ch, cv)}
+    del cx, cy, ch, cv
+    lay = tile_particles_coherent(gx, gy, gh, gv, spec, device=device)
+    bucket_stats = lay.stats
+    stream["coherent_deposit"] = _coherent_vs_plain(torch, lay, spec, gh, "kernel3d", 1, case="bucketed_stream")
+    stream["tail_levels"] = _tail_levels_vs_plain(torch, lay, spec, case="bucketed_stream")
+    del lay, gx, gy, gh, gv
+    busy_ms, prof_wall_ms = device_busy_ms(bucketed)
+
+    out = {
+        "phase": "random_path", "n": n, "order": "random", "map": [1024, 1024], "fields": 2,
+        "generate_s": gen_s, "launches_bucketed": launches_b, "launches_shear": launches_s,
+        "rel_err_vs_sorted": {k: r for k, (_, r) in errs.items()},
+        "max_abs_err_vs_sorted": {k: e for k, (e, _) in errs.items()}, "integrated_mass_rel_err": mass_err,
+        "wall_s": walls, "deposits_per_s": {k: n / w for k, w in walls.items()},
+        "bucketed_split_s": split, "layout_deposit_split_s": layout_split,
+        "coarse_grouping": coarse, "shear_layout": shear_layout,
+        "coherent_stats_on_shuffled": coh_stats, "coherent_stats_after_bucketing": bucket_stats,
+        "bucketed_stream_checks": stream,
+        "bucketed_profiled_wall_ms": prof_wall_ms, "bucketed_device_busy_ms": busy_ms,
+        "bucketed_device_idle_share": None if busy_ms is None else 1.0 - busy_ms / prof_wall_ms,
+        "peak_mem_gb_bucketed": peak_b, "peak_mem_gb_phase": torch.cuda.max_memory_allocated() / 2**30,
+        "max_abs_err": max(e for e, _ in errs.values()),
+    }
+    emit(out)
+    check(launches_b["append_gangs"] > 0, f"kernel #7 not launched on the bucketed path: {launches_b}")
+    check(launches_s["append_gangs"] > 0, f"kernel #7 not launched on the shear path: {launches_s}")
+    check(all(v > 0 for v in launches_b.values()), f"a kernel of the bucketed path was not launched: {launches_b}")
+    bad = {k: r for k, (_, r) in errs.items() if not r <= REL_TOL}
+    check(not bad, f"random-order maps off the sorted engine: {bad}")
+    check(mass_err < MASS_TOL, f"integrated bucketed map mass error {mass_err}")
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14",
+    parser.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,16,17",
                         help="comma-separated phases to run (15 only when named)")
     parser.add_argument("--log2n", type=int, default=MAIN_LOG2N, help="log2 of the main path's particle count")
     parser.add_argument("--sight-n", type=int, default=SIGHT_N, help="gas particles of phases 10-12")
     parser.add_argument("--vox-log2n", type=int, default=VOX_LOG2N, help="log2 of phase 14's particle count")
+    parser.add_argument("--rand-log2n", type=int, default=RAND_LOG2N,
+                        help="log2 of phases 16-17's shuffled particle count")
     args = parser.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -1297,13 +1602,18 @@ def main() -> None:
     vox_out = phase_voxel(torch, device, args.vox_log2n) if 14 in phases else None
     if 15 in phases:
         phase_voxel_tiles(torch, device, args.vox_log2n)
+    torch.cuda.empty_cache()
+    rp, rand_gen_s = random_particles(torch, device, args.rand_log2n) if phases & {16, 17} else (None, 0.0)
+    app_cases = phase_append_kernel(torch, device, rp) if 16 in phases else []
+    rand_out = phase_random(torch, device, rp, rand_gen_s) if 17 in phases else None
+    del rp
 
     def pick(rows, **match):
         return next((c for c in rows if all(c[k] == v for k, v in match.items())), None)
 
     def bound_keys(case):
-        """The case's bound; no single PyTorch call computes any of these
-        kernels' functions, so no library time."""
+        """The case's bound; no single PyTorch call computes the functions
+        of kernels #1-#6, so no library time."""
         return {
             "bound_ms": case["bound_ms"] if case else None,
             "bound_by": case["bound_by"] if case else None,
@@ -1317,7 +1627,13 @@ def main() -> None:
     col_case = pick(col_cases, projection="integrated", periodic=True, F=1)
     spec_case = pick(spec_cases, profile="gaussian", periodic=True)
     vox_case = pick(vox_cases, K=8, F=4, periodic=True)
+    app_case = pick(app_cases, case="coarse")
     sight_launches = sight_out["launches"] if sight_out else {}
+    # phase 17's checks of kernels #1-#3 on the bucketed stream
+    stream = rand_out["bucketed_stream_checks"] if rand_out else {}
+    dep_all = cases + stream.get("tail_levels", [])
+    prep_all = prep_cases + ([stream["prep"]] if stream else [])
+    coh_all = coh_cases + ([stream["coherent_deposit"]] if stream else [])
     emit({"kernels": [
         {
             "name": "deposit2d",
@@ -1325,7 +1641,7 @@ def main() -> None:
             "source": "astro_sph_tools_tpu_torch/csrc/deposit2d.cu",
             "replaces": "astro_sph_tools_tpu/ops/deposit_pallas.py:129",
             "launches": main_out["launches"] if main_out else None,
-            "max_abs_err": max((c["max_abs_err"] for c in cases), default=None),
+            "max_abs_err": max((c["max_abs_err"] for c in dep_all), default=None),
             "ms": ref_case["ms"] if ref_case else None,
             "plain_ms": ref_case["plain_ms"] if ref_case else None,
             **bound_keys(ref_case),
@@ -1336,7 +1652,7 @@ def main() -> None:
             "source": "astro_sph_tools_tpu_torch/csrc/coherent.cu",
             "replaces": "astro_sph_tools_tpu/ops/coherent_prep_pallas.py:104",
             "launches": launches.get("coherent_prep"),
-            "max_abs_err": max((c["max_abs_err"] for c in prep_cases), default=None),
+            "max_abs_err": max((c["max_abs_err"] for c in prep_all), default=None),
             "ms": prep_case["ms"] if prep_case else None,
             "plain_ms": prep_case["plain_ms"] if prep_case else None,
             **bound_keys(prep_case),
@@ -1347,7 +1663,7 @@ def main() -> None:
             "source": "astro_sph_tools_tpu_torch/csrc/coherent.cu",
             "replaces": "astro_sph_tools_tpu/ops/deposit_coherent.py:660",
             "launches": launches.get("coherent_deposit"),
-            "max_abs_err": max((c["max_abs_err"] for c in coh_cases), default=None),
+            "max_abs_err": max((c["max_abs_err"] for c in coh_all), default=None),
             "ms": coh_case["ms"] if coh_case else None,
             "plain_ms": coh_case["plain_ms"] if coh_case else None,
             **bound_keys(coh_case),
@@ -1385,6 +1701,20 @@ def main() -> None:
             "ms": vox_case["ms"] if vox_case else None,
             "plain_ms": vox_case["plain_ms"] if vox_case else None,
             **bound_keys(vox_case),
+        },
+        {
+            "name": "append_gangs",
+            "route": "cuda",
+            "source": "astro_sph_tools_tpu_torch/csrc/layout_shear.cu",
+            "replaces": "astro_sph_tools_tpu/ops/layout_shear.py:198",
+            "launches": rand_out["launches_bucketed"]["append_gangs"] if rand_out else None,
+            "max_abs_err": max((c["max_abs_err"] for c in app_cases), default=None),
+            "ms": app_case["ms"] if app_case else None,
+            "plain_ms": app_case["plain_ms"] if app_case else None,
+            # torch.index_select over a per-destination-gang source index
+            # computes the same function in one PyTorch call
+            **bound_keys(app_case),
+            "library_ms": app_case["library_ms"] if app_case else None,
         },
     ]})
     emit({"ok": True, "device": {

@@ -216,11 +216,36 @@ def test_unknown_precision_and_unported_options_raise():
         T.deposit_tiled(tp, precision="f64")
     for p in T._PRECISIONS:  # every accepted string renders the same f32 sums
         assert torch.equal(T.deposit_tiled(tp, precision=p), T.deposit_tiled(tp))
-    with pytest.raises(NotImplementedError, match="shear"):
-        T.tile_particles(x, x, h, m, spec, layout="shear", device="cpu")
+    with pytest.raises(ValueError, match="unknown layout"):
+        T.tile_particles(x, x, h, m, spec, layout="shaer", device="cpu")
     tp_lean = T.tile_particles(x, x, h, m, spec, need_perm=False, device="cpu")
     with pytest.raises(ValueError, match="need_perm"):
         tp_lean.with_values(m)
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+def test_shear_layout_renders_as_sort_layout(periodic):
+    """tile_particles(layout="shear") renders the same map as the sort
+    layout and the f64 oracle (multi-level footprints, oversize, pad slots),
+    and re-renders new fields through its perm; host-f64 input keeps the
+    sort."""
+    rng = np.random.default_rng(91 + periodic)
+    npix = 64
+    x, y, h, m = (a.astype(np.float32) for a in mixed_particles(rng, 3000, npix, h_hi=1.2))
+    spec = MapSpec((npix, npix), (0.0, BOX, 0.0, BOX), periodic_wrap=periodic)
+    tp = T.tile_particles(x, y, h, m, spec, layout="shear", device="cpu")
+    tp_sort = T.tile_particles(x, y, h, m, spec, layout="sort", device="cpu")
+    assert tp.n_sorted > tp.n_valid == tp_sort.n_sorted == 3000  # pad slots
+    assert tp.n_oversize >= tp_sort.n_oversize > 0
+    got = T.deposit_tiled(tp)[0]
+    assert rel_err(got, T.deposit_tiled(tp_sort)[0]) <= TOL
+    ext = (0.0, BOX, 0.0, BOX)
+    assert rel_err(got, project_oracle(x, y, h, m, (npix, npix), ext, periodic=periodic)) <= TOL
+    m2 = rng.uniform(1.0, 3.0, 3000)
+    got2 = T.deposit_tiled(tp.with_values(m2))[0]
+    assert rel_err(got2, project_oracle(x, y, h, m2, (npix, npix), ext, periodic=periodic)) <= TOL
+    x64, y64 = x.astype(np.float64), y.astype(np.float64)
+    assert T.tile_particles(x64, y64, h, m, spec, layout="shear", device="cpu").n_sorted == 3000
 
 
 def test_wrapper_takes_plain_version_only_on_cpu():

@@ -124,6 +124,7 @@ def test_port_imports_neither_jax_nor_h5py():
         "import astro_sph_tools_tpu_torch.ops.spectra, astro_sph_tools_tpu_torch.ops.spectra_fused\n"
         "import astro_sph_tools_tpu_torch.scripts.sightlines_cli, astro_sph_tools_tpu_torch.utils.console\n"
         "import astro_sph_tools_tpu_torch.ops.grid3d, astro_sph_tools_tpu_torch.ops.grid3d_tiled\n"
+        "import astro_sph_tools_tpu_torch.ops.layout_shear\n"
         "from astro_sph_tools_tpu_torch.tools import GridSpec, deposit_3d, deposit_3d_auto, deposit_3d_pallas\n"
         "print(sorted(m for m in ('jax', 'h5py', 'astro_sph_tools_tpu') if m in sys.modules))\n"
     )
