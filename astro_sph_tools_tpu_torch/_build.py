@@ -98,10 +98,12 @@ _SIGNATURES = {
     "deposit3d": {
         "deposit3d_launch": [
             _P, _P, _P, _P, _P, _LL, _I,  # u, v, w, h, values, values row stride, n_fields
-            _P, _P, _P, _I,  # item tile, first particle, particle count; n_items
+            _P, _P,  # pstart, pcount per tile
+            _P, _P, _P, _I, _I, _I,  # z, y, x candidate-pair tables and their widths
+            _P, _I,  # items (n_items, 4), n_items
             _P,  # out (F, nz, ny, nx), added into
             _I, _I, _I, _I, _I, _I,  # K, TZ, TY, TX, tiles per x row, tiles per y column
-            _I, _I, _I, _I, _I, _I,  # nz, ny, nx, periodic x, y, z
+            _I, _I, _I,  # nz, ny, nx
             _F, _F, _F, _F,  # offset, psx, psy, psz
             _I, _F, _F,  # kernel id, norm_3d, support_factor
             _P,  # cudaStream_t
@@ -110,6 +112,7 @@ _SIGNATURES = {
     "layout_shear": {
         "append_gangs_launch": [
             _P, _P, _P, _I, _I,  # src gangs, dst gangs, schedule (n_sub, 3), n_sub, channels
+            _I,  # log2 of the warps per sub-run
             _P,  # cudaStream_t
         ],
     },

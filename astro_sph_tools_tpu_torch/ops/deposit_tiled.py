@@ -195,7 +195,13 @@ def deposit_tiles_plain(
         idx = torch.repeat_interleave(pstart.to(torch.int64), counts) + (
             torch.arange(total, device=dev) - seg0
         )
-        rows = torch.arange(R, dtype=torch.float32, device=dev)
+        # slots that add exactly 0 are skipped, as the kernel skips h <= 0:
+        # zero-h slots, and slots whose values are all 0 (the pad slots of
+        # the shear layouts, most of a small layout's slots)
+        live = (h[idx] > 0.0) & (values[:, idx] != 0.0).any(dim=0)
+        idx, tile_of = idx[live], tile_of[live]
+        total = idx.shape[0]
+        rows =torch.arange(R, dtype=torch.float32, device=dev)
         rows_i = torch.arange(R, dtype=torch.int64, device=dev)
         ks = torch.arange(K, dtype=torch.int32, device=dev)
         step = max(1, (1 << (22 if dev.type == "cpu" else 25)) // (R * K))
@@ -204,7 +210,7 @@ def deposit_tiles_plain(
             t = tile_of[c0:c0 + step]
             ul, vl, hl = u[sel], v[sel], h[sel]
             col0 = torch.floor(ul - offset + 0.5).to(torch.int32) - (K // 2)
-            # per-particle factors; pads carry h = 0 and give exactly 0
+            # per-particle factors
             inv_h = torch.where(hl > 0.0, 1.0 / hl, 0.0)
             if projection == "integrated":
                 inv_n = inv_h * (1.0 / kspec.support_factor)

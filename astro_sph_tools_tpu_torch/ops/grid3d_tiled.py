@@ -17,11 +17,13 @@ are gone:
 3. **Deposit**: per populated level, :func:`deposit_3d_tiles` adds the
    level's particles into the (F, nz, ny, nx) cube — the CUDA kernel
    ``csrc/deposit3d.cu`` on a CUDA tensor, the plain torch version
-   :func:`deposit_3d_tiles_plain` on a CPU tensor. Each block accumulates a
-   tile's box in shared memory and flushes it into the cube with atomic
-   adds, wrapping periodic axes and dropping off-grid voxels of open ones:
-   this takes the place of the TPU's halo'd tile stack and its 27-band
-   overlap-add, so peak memory stays near the cube itself.
+   :func:`deposit_3d_tiles_plain` on a CPU tensor. Each block owns one
+   tile's voxels of the cube and pulls into them the particles of every
+   (source tile, periodic image) whose box meets the tile
+   (:func:`_axis_pairs`, :func:`_region_items`), wrapping periodic axes and
+   dropping off-grid voxels of open ones: this takes the place of the TPU's
+   halo'd tile stack and its 27-band overlap-add, so peak memory stays near
+   the cube itself.
 4. **Oversize** stragglers (footprint beyond the K = 16 level) go through
    the plain stencil engine (``ops/grid3d.py::deposit_3d``) on the same
    device.
@@ -33,6 +35,7 @@ the packed schedule words and 8-channel packing, and the compile caches.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import lru_cache
 from typing import Optional
 
 import numpy as np
@@ -40,16 +43,18 @@ import torch
 
 from .. import _build
 from ..kernels.splines import get_kernel
-from .deposit_tiled import _LEVEL_STRIDE, _tile_ranges
+from .deposit_tiled import _LEVEL_STRIDE, _tile_ranges, device_const
 from .grid3d import GridSpec, _per_axis, deposit_3d
 
 Tensor = torch.Tensor
 
 _PRECISIONS_3D = ("f32", "bf16", "bf16x2")
 _MAX_FIELDS_3D = 4
-# particles of one tile that one thread block takes: a dense tile is split
-# over several blocks, whose atomic flushes add up
-_ITEM_PARTICLES = 256
+# candidates of one output region that one thread block takes: a denser
+# region is shared by several blocks, which add their sums with atomics
+_REGION_CANDIDATES = 2048
+# (z, y, x) candidate pairs one region may have (the kernel's shared table)
+_MAX_COMBOS = 512
 
 
 def _check_precision_3d(precision: str) -> str:
@@ -84,8 +89,8 @@ class Pallas3DConfig:
         return (self.K - 2) / 2
 
 
-# 8^3-voxel tiles at every level: the K = 16 box is 24^3 voxels, 54 KiB a
-# field, so four fields (216 KiB) fit one block's shared memory
+# 8^3-voxel tiles at every level: the kernel's block holds one tile's sums
+# (8 KiB at four fields) in shared memory
 PALLAS_3D_LEVELS: tuple[Pallas3DConfig, ...] = (
     Pallas3DConfig(K=4),
     Pallas3DConfig(K=8),
@@ -215,20 +220,92 @@ def deposit_3d_tiles_plain(
     return grid
 
 
-def _work_items(pstart: Tensor, pcount: Tensor) -> tuple[Tensor, Tensor, Tensor]:
-    """(tile, first particle, particle count) int32 per thread block: each
-    non-empty tile split into runs of at most ``_ITEM_PARTICLES``. One host
-    sync (the item count)."""
-    dev = pstart.device
-    counts = pcount.to(torch.int64)
-    n_items = (counts + (_ITEM_PARTICLES - 1)) // _ITEM_PARTICLES
-    total = int(n_items.sum())
-    tile = torch.repeat_interleave(torch.arange(pstart.shape[0], device=dev), n_items, output_size=total)
-    first_item = torch.cumsum(n_items, 0) - n_items
-    k = (torch.arange(total, device=dev) - first_item[tile]) * _ITEM_PARTICLES
-    start = pstart.to(torch.int64)[tile] + k
-    count = torch.clamp(counts[tile] - k, max=_ITEM_PARTICLES)
-    return tile.to(torch.int32), start.to(torch.int32), count.to(torch.int32)
+@lru_cache(maxsize=256)
+def _axis_pairs(n: int, T: int, M: int, periodic: bool) -> np.ndarray:
+    """Candidate (source tile, shift) pairs of every output region along one
+    axis: ``(n_t, 1 + 2 W)`` int32 rows ``[count, t_0, d_0, t_1, d_1, ...]``
+    (unused pairs ``(-1, 0)``), ``n_t = ceil(n / T)``.
+
+    Region ``t`` owns the voxels ``[t T, min(t T + T, n))``. Tile ``t'``'s
+    box holds box-local indices ``j`` in ``[0, T + 2M)`` at global voxel
+    ``t' T - M + j``, wrapped modulo ``n`` on a periodic axis. A pair is
+    listed for every periodic image of the region (shifted by ``m n``) that
+    the box meets, with the shift ``d = t' T - M - t T - m n`` that maps
+    ``j`` to the region-local index ``j + d``. Every box voxel that lands in
+    the region does so through exactly one pair, so the pairs come from the
+    geometry alone: a last tile that overhangs the grid, or a box longer than
+    a small periodic grid, needs no special case."""
+    nt = -(-n // T)
+    rows = []
+    for t in range(nt):
+        r0 = t * T
+        R = min(T, n - r0)
+        if periodic:
+            # images that some box [t' T - M, t' T + T + M) can meet
+            ms = range(-(-(-M - R - r0 + 1) // n), (nt * T + M - 1 - r0) // n + 1)
+        else:
+            ms = (0,)
+        pairs = []
+        for m in ms:
+            a = r0 + m * n
+            for t2 in range(nt):
+                if t2 * T - M < a + R and t2 * T + T + M > a:
+                    pairs.append((t2, t2 * T - M - a))
+        rows.append(pairs)
+    width = max(len(p) for p in rows)
+    tab = np.zeros((nt, 1 + 2 * width), dtype=np.int32)
+    tab[:, 1::2] = -1
+    for t, pairs in enumerate(rows):
+        tab[t, 0] = len(pairs)
+        for c, (t2, d) in enumerate(pairs):
+            tab[t, 1 + 2 * c : 3 + 2 * c] = (t2, d)
+    return tab
+
+
+def _candidate_tables(geom: _Geometry3D, shape, periodic, device) -> tuple[Tensor, Tensor, Tensor]:
+    """The (z, y, x) tables of :func:`_axis_pairs` for one level, on
+    ``device`` (uploaded once per process)."""
+    cfg = geom.cfg
+    per_x, per_y, per_z = _per_axis(periodic)
+    out = []
+    for n, T, per in zip(shape, (cfg.TZ, cfg.TY, cfg.TX), (per_z, per_y, per_x)):
+        tab = _axis_pairs(int(n), T, cfg.M, bool(per))
+        out.append(device_const(tuple(tab.ravel().tolist()), torch.int32, device).view(tab.shape))
+    return tuple(out)
+
+
+def _region_candidates(pcount: Tensor, geom: _Geometry3D, tables) -> Tensor:
+    """(n_tiles,) int64 candidate count of every output region: the particles
+    of all its (z, y, x) candidate pairs, a tile counted once per pair."""
+    tz, ty, tx = (t[:, 1::2].long() for t in tables)  # source tile per pair, -1 unused
+    pc = torch.zeros((geom.ntz + 1, geom.nty + 1, geom.ntx + 1), dtype=torch.int64, device=pcount.device)
+    pc[:-1, :-1, :-1] = pcount.view(geom.ntz, geom.nty, geom.ntx)  # index -1: the zero slot
+    s = pc[:, :, tx].sum(-1)  # (ntz + 1, nty + 1, ntx)
+    s = s[:, ty].sum(2)  # (ntz + 1, nty, ntx)
+    return s[tz].sum(1).reshape(-1)  # (ntz, nty, ntx)
+
+
+def _region_items(pcount: Tensor, geom: _Geometry3D, tables, split: int = _REGION_CANDIDATES):
+    """Thread-block work of one level: ``(items, max_candidates)``, items
+    ``(n_items, 4)`` int32 ``[region, first candidate, end candidate,
+    atomic]``. Regions without candidates get no block; the rest run
+    heaviest first, and a region with more than ``split`` candidates is
+    shared by ``ceil(count / split)`` blocks that add with atomics (flag 1).
+    One host sync (three counts)."""
+    counts = _region_candidates(pcount, geom, tables)
+    n_split = (counts + (split - 1)) // split
+    n_active, max_count, total = (int(c) for c in torch.stack(
+        [(counts > 0).sum(), counts.max(), n_split.sum()]).tolist())
+    dev = pcount.device
+    order = torch.argsort(counts, descending=True, stable=True)[:n_active]
+    n_split = n_split[order]
+    region = torch.repeat_interleave(order, n_split, output_size=total)
+    first = torch.repeat_interleave(torch.cumsum(n_split, 0) - n_split, n_split, output_size=total)
+    lo = (torch.arange(total, device=dev) - first) * split
+    hi = torch.minimum(counts[region], lo + split)
+    atomic = (torch.repeat_interleave(n_split, n_split, output_size=total) > 1).long()
+    items = torch.stack([region, lo, hi, atomic], dim=1).to(torch.int32).contiguous()
+    return items, max_count
 
 
 def _check_cuda_inputs(u, v, w, h, values, pstart, pcount, grid) -> None:
@@ -296,24 +373,29 @@ def deposit_3d_tiles(
     if u.device.type != "cuda":
         raise ValueError(f"no 3D deposit kernel for device {u.device}")
     _check_cuda_inputs(u, v, w, h, values, pstart, pcount, grid)
-    item_tile, item_start, item_count = _work_items(pstart, pcount)
-    n_items = item_tile.shape[0]
-    if n_items == 0:
+    cfg = geom.cfg
+    if 4 * values.shape[0] * cfg.TZ * cfg.TY * cfg.TX > 160 * 1024 or max(cfg.TZ, cfg.TY, cfg.TX) > 255:
+        raise ValueError(f"the 3D deposit kernel holds a tile's F x TZ x TY x TX sums in 160 KiB, got {cfg}")
+    nz, ny, nx = grid.shape[1:]
+    if max(nz, ny, nx) >= 2**15:
+        raise ValueError("the 3D deposit kernel packs voxel shifts in 16 bits: grid axes must be < 32768")
+    tables = _candidate_tables(geom, (nz, ny, nx), periodic, u.device)
+    widths = [(t.shape[1] - 1) // 2 for t in tables]
+    if widths[0] * widths[1] * widths[2] > _MAX_COMBOS:
+        raise ValueError(f"a region of this grid has more than {_MAX_COMBOS} candidate tiles: {widths}")
+    items, _ = _region_items(pcount, geom, tables)
+    if items.shape[0] == 0:
         return grid
     kspec = get_kernel(kernel)
-    cfg = geom.cfg
-    nz, ny, nx = grid.shape[1:]
-    per_x, per_y, per_z = _per_axis(periodic)
     lib, _ = _build.load("deposit3d")
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
         code = lib.deposit3d_launch(
             u.data_ptr(), v.data_ptr(), w.data_ptr(), h.data_ptr(), values.data_ptr(),
-            values.stride(0), values.shape[0],
-            item_tile.data_ptr(), item_start.data_ptr(), item_count.data_ptr(), n_items,
-            grid.data_ptr(),
-            cfg.K, cfg.TZ, cfg.TY, cfg.TX, geom.ntx, geom.nty,
-            nz, ny, nx, int(per_x), int(per_y), int(per_z),
+            values.stride(0), values.shape[0], pstart.data_ptr(), pcount.data_ptr(),
+            tables[0].data_ptr(), tables[1].data_ptr(), tables[2].data_ptr(), *widths,
+            items.data_ptr(), items.shape[0], grid.data_ptr(),
+            cfg.K, cfg.TZ, cfg.TY, cfg.TX, geom.ntx, geom.nty, nz, ny, nx,
             float(offset), float(psx), float(psy), float(psz),
             kspec.kernel_id, float(kspec.norm_3d), float(kspec.support_factor),
             stream,

@@ -169,6 +169,18 @@ def append_gangs_plain(gangs: Tensor, sched: Tensor, n_dest: int) -> Tensor:
     return dest
 
 
+def _team_log2(n_dest: int, n_sub: int, channels: int) -> int:
+    """log2 of the warps the kernel gives each sub-run: enough that a mean
+    sub-run (``n_dest / n_sub`` gangs of ``channels * 32`` float4s) leaves
+    each lane about three float4s, at most 8 warps. One-gang sub-runs at
+    C = 3 get one warp; sub-runs of a few gangs or more get eight."""
+    mean_vec = n_dest * channels * 32 / max(n_sub, 1)
+    team = 1
+    while team < 8 and team * 32 * 3 < mean_vec:
+        team *= 2
+    return team.bit_length() - 1
+
+
 def append_gangs(gangs: Tensor, sched: Tensor, n_dest: int) -> Tensor:
     """Copy every scheduled sub-run of gangs to its destination:
     ``dest[sched[j, 1] + g] = gangs[sched[j, 0] + g]`` for ``g <
@@ -203,7 +215,7 @@ def append_gangs(gangs: Tensor, sched: Tensor, n_dest: int) -> Tensor:
     with torch.cuda.device(dev):
         code = lib.append_gangs_launch(
             gangs.data_ptr(), dest.data_ptr(), sched.data_ptr(), sched.shape[0], gangs.shape[1],
-            torch.cuda.current_stream(dev).cuda_stream,
+            _team_log2(n_dest, sched.shape[0], gangs.shape[1]), torch.cuda.current_stream(dev).cuda_stream,
         )
     if code != 0:
         raise RuntimeError(f"gang append kernel launch failed: {lib.cuda_error_string(code).decode()} ({code})")

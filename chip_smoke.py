@@ -45,9 +45,10 @@ fails (non-zero exit) if any phase fails:
 12. the config-4 path at full size: 10^4 random rays through 10^7 clustered
     gas particles in a periodic 25 cMpc box at z = 0.5 —
     ``column_integrate_pallas`` and ``absorption_spectra_pallas`` (512 bins,
-    Gaussian and Voigt); launch counts, finiteness, warm walls, the device's
-    busy share, and agreement with the binned engines on 256 rays and with
-    the dense spectra engine on a 2^20-particle subset;
+    Gaussian and Voigt); launch counts, finiteness, warm walls, each
+    spectra launch's kernel time beside its bound, the device's busy share,
+    and agreement with the binned engines on 256 rays and with the dense
+    spectra engine on a 2^20-particle subset;
 13. 3D voxel deposit kernel (``csrc/deposit3d.cu``) vs its plain version,
     every level K in {4, 8, 16} x F in {1, 4} x {periodic, open}, on a 256^3
     grid with 2^18 particles whose h lies inside the level;
@@ -58,7 +59,9 @@ fails (non-zero exit) if any phase fails:
     oversize particle, finiteness, agreement with the plain stencil engine
     on a 2^20 subset, the oversize route at 64^3, warm walls split into
     layout and kernel, the device's busy share, peak memory; and each
-    level's kernel launch against its plain version on the full-size layout;
+    level's kernel launch against its plain version on the full-size layout,
+    with its work list (output regions, thread blocks, blocks of split
+    regions, the largest and the mean candidate count);
 15. (only when named in ``--phases``) tile-geometry A/B of kernel #6 on
     phase 14's particles: the K = 8 and K = 16 levels' kernel times at 8^3
     (the default), (16, 16, 8) and 16^3 tiles, F = 1 and 4, each held
@@ -923,6 +926,14 @@ def phase_columns_kernel(torch, device, sl, n_rays: int = 2048):
     return out
 
 
+def spectra_ops(hits: float, n_bins: int, n_images: int, profile: str) -> float:
+    """FP32 operations of kernel #5: each (particle, ray) hit's profile at
+    every bin and at each of its 2 n_images + 1 velocity images (k = -n..n),
+    ~10 operations for a Gaussian and ~60 for the Voigt fit, plus the tau
+    FMA. The kernel evaluates every bin; a windowed profile would do less."""
+    return hits * n_bins * (2 * n_images + 1) * (12 if profile == "gaussian" else 62)
+
+
 def phase_spectra_kernel(torch, device, sl, n_rays: int = 256, n_bins: int = 512):
     """Kernel #5 vs its plain version on the fused layout of the config-4
     particles."""
@@ -951,13 +962,11 @@ def phase_spectra_kernel(torch, device, sl, n_rays: int = 256, n_bins: int = 512
             case = {
                 "phase": "spectra_kernel_vs_plain", "profile": profile, "periodic": periodic,
                 "n": sl["pos"].shape[0], "n_rays": n_rays, "n_bins": n_bins, "n_blocks": lay.n_blocks,
-                "n_levels": len(lay.rorders), "velocity_images": n_images,
+                "n_levels": len(lay.rorders), "n_images": n_images, "velocity_images": 2 * n_images + 1,
                 "particles_scanned": int(spans.sum()), "max_abs_err": err, "rel_err": rel,
                 "ms": cuda_ms(lambda: spectra_tiles(*args, **kw), 3),
                 "plain_ms": cuda_ms(lambda: spectra_tiles_plain(*args, **kw), 1),
-                # each hit's profile at every bin and image: ~10 operations
-                # for a Gaussian, ~60 for the Voigt fit, plus the tau FMA
-                **bound(nbytes(*args, got), hits * n_bins * n_images * (12 if profile == "gaussian" else 62)),
+                **bound(nbytes(*args, got), spectra_ops(hits, n_bins, n_images, profile)),
             }
             emit(case)
             check(bool(torch.isfinite(got).all()), f"non-finite spectra kernel output {case}")
@@ -1022,6 +1031,8 @@ def phase_sightlines(torch, device, sl, n_check: int = 256, n_bins: int = 512):
     kernel_ms = {"columns": cuda_ms(lambda: columns_tiles(
         lay.packed, lay.rx, lay.ry, lay.lo, lay.hi, n_fields=1, kernel="cubic_spline",
         projection="integrated", periodic=True, Lx=lay.Lx, Ly=lay.Ly), 3)}
+    kernel_bound = {}
+    hits = support_points(h, 2.0, 1.0, 2) * n_rays / SIGHT_BOX**2
     for prof in ("gaussian", "voigt"):
         lay, vc_np, v_box, n_img = spec_layout(prof)
         vc_t = torch.as_tensor(vc_np, device=device)
@@ -1029,6 +1040,10 @@ def phase_sightlines(torch, device, sl, n_check: int = 256, n_bins: int = 512):
             lay.packed, lay.rx, lay.ry, lay.lo, lay.hi, vc_t, kernel="cubic_spline", periodic=True,
             Lx=lay.Lx, Ly=lay.Ly, v_box=v_box, n_images=n_img, profile=prof,
             voigt_k=_resolve_profile(prof, GAMMA_LYA, 1215.67)), 3)
+        # each full-size launch's bound beside its time
+        kernel_bound[f"spectra_{prof}"] = {"velocity_images": 2 * n_img + 1, **bound(
+            nbytes(lay.packed, lay.rx, lay.ry, lay.lo, lay.hi, vc_t) + n_rays * n_bins * 4,
+            spectra_ops(hits, n_bins, n_img, prof))}
     del lay
 
     # the velocity integral of each spectrum is its column (unit-integral
@@ -1056,7 +1071,7 @@ def phase_sightlines(torch, device, sl, n_check: int = 256, n_bins: int = 512):
         "phase": "sightlines_path", "n": n, "n_rays": n_rays, "n_bins": n_bins, "box_cMpc": SIGHT_BOX,
         "redshift": cosmo.redshift, "generate_s": sl["generate_s"], "launches": launches,
         "wall_s": walls, "rays_per_s_columns": n_rays / walls["columns"], "layout_s": layout_s,
-        "kernel_ms": kernel_ms,
+        "kernel_ms": kernel_ms, "kernel_bound": kernel_bound,
         "profiled_wall_ms": {"columns": prof_cols, "spectra_gaussian": prof_g, "spectra_voigt": prof_v},
         "device_busy_ms": {"columns": busy_cols, "spectra_gaussian": busy_g, "spectra_voigt": busy_v},
         "device_idle_share": {
@@ -1106,6 +1121,20 @@ def _voxel_level_inputs(torch, cfg, lo_s, hi_s, n_fields, n, spec, seed, device)
     return geom, (ul[perm], vl[perm], wl[perm], h[perm], vals[:, perm].contiguous(), pstart, pcount)
 
 
+def region_work(torch, geom, spec, pcount) -> dict:
+    """Kernel #6's work list for one level: output regions with candidates,
+    thread blocks (a region past the split is shared by several, which add
+    with atomics), and the largest and the mean candidate count."""
+    from astro_sph_tools_tpu_torch.ops.grid3d_tiled import _candidate_tables, _region_candidates, _region_items
+
+    tables = _candidate_tables(geom, spec.shape, spec.periodic_wrap, pcount.device)
+    items, max_cand = _region_items(pcount, geom, tables)
+    counts = _region_candidates(pcount, geom, tables)
+    return {"regions": int((counts > 0).sum()), "blocks": items.shape[0],
+            "split_blocks": int(items[:, 3].sum()), "max_candidates": max_cand,
+            "mean_candidates": float(counts.double().mean())}
+
+
 def phase_voxel_kernel(torch, device, n: int = 1 << 18, npix: int = 256):
     """Kernel #6 (3D voxel deposit) vs its plain version, every level."""
     from astro_sph_tools_tpu_torch.ops import PALLAS_3D_LEVELS, GridSpec
@@ -1125,6 +1154,7 @@ def phase_voxel_kernel(torch, device, n: int = 1 << 18, npix: int = 256):
                 kw = _level_args(geom, spec, "cubic_spline")
                 got = torch.zeros((n_fields, *spec.shape), device=device)
                 ref = torch.zeros_like(got)
+                work = region_work(torch, geom, spec, args[6])
                 deposit_3d_tiles(*args, got, **kw)
                 deposit_3d_tiles_plain(*args, ref, **kw)
                 torch.cuda.synchronize()
@@ -1132,7 +1162,7 @@ def phase_voxel_kernel(torch, device, n: int = 1 << 18, npix: int = 256):
                 case = {
                     "phase": "voxel_kernel_vs_plain", "K": cfg.K, "F": n_fields, "periodic": periodic,
                     "grid": [npix] * 3, "n": n, "n_tiles": geom.n_tiles,
-                    "max_pcount": int(args[6].max()), "max_abs_err": err, "rel_err": rel,
+                    "max_pcount": int(args[6].max()), **work, "max_abs_err": err, "rel_err": rel,
                     "ms": cuda_ms(lambda: deposit_3d_tiles(*args, got, **kw), 5),
                     "plain_ms": cuda_ms(lambda: deposit_3d_tiles_plain(*args, ref, **kw), 3),
                     **bound(nbytes(*args, got), support_points(args[3], 2.0, vox, 3) * pair_ops(n_fields)),
@@ -1222,6 +1252,7 @@ def phase_voxel(torch, device, n_log2: int):
         levels.append({
             "K": geom.cfg.K, "count": count, "share": count / n, "n_tiles": geom.n_tiles,
             "occupied_tiles": int((pcount > 0).sum()), "max_pcount": int(pcount.max()),
+            **region_work(torch, geom, spec, pcount),
             "max_abs_err": err_l, "rel_err": rel_l, "plain_ms": plain_ms,
             "kernel_ms": cuda_ms(lambda: deposit_3d_tiles(*args, got, **kw), 3),
             **bound(nbytes(*args, got), support_points(args[3], 2.0, vox, 3) * pair_ops(4)),

@@ -249,15 +249,183 @@ def test_other_tile_geometries_match_oracle(tiles):
     assert rel_err(got, grid3d_oracle(pos, h, m, spec.shape, EXT, periodic=True)) < TOL
 
 
-def test_work_items_split_dense_tiles():
-    per = T._ITEM_PARTICLES
-    pcount = torch.tensor([0, 2 * per + 88, 3, per, per + 1], dtype=torch.int32)
-    pstart = torch.cumsum(pcount, 0, dtype=torch.int32) - pcount
-    tile, start, count = T._work_items(pstart, pcount)
-    assert tile.tolist() == [1, 1, 1, 2, 3, 4, 4]
-    assert count.tolist() == [per, per, 88, 3, per, per, 1]
-    assert start.tolist() == [0, per, 2 * per, 2 * per + 88, 2 * per + 91, 3 * per + 91, 4 * per + 91]
-    assert tile.dtype == start.dtype == count.dtype == torch.int32
+def _brute_pairs(n, T, M, periodic):
+    """For every box voxel (tile t', box index j) that lands on the grid: the
+    region that owns it and the region-local index, by direct wrapping."""
+    nt = -(-n // T)
+    out = []
+    for t2 in range(nt):
+        for j in range(T + 2 * M):
+            g = t2 * T - M + j
+            if periodic:
+                g %= n
+            elif not 0 <= g < n:
+                continue
+            out.append((t2, j, g // T, g % T))
+    return out
+
+
+# (n, T, M, periodic): dividing and non-dividing, open and periodic, and
+# boxes longer than the grid (K = 16 on 4 and 6 voxels)
+AXIS_CASES = [(512, 8, 8, True), (20, 8, 8, True), (20, 8, 8, False), (16, 8, 8, True), (4, 8, 8, True),
+              (6, 8, 4, True), (13, 8, 2, False), (40, 16, 8, True)]
+
+
+@pytest.mark.parametrize("n,T_,M,periodic", AXIS_CASES)
+def test_axis_pairs_map_every_box_voxel_once(n, T_, M, periodic):
+    """Every box voxel that lands on the grid reaches its owning region
+    through exactly one (source tile, shift) pair, and no pair maps a box
+    voxel anywhere else. Where T divides a large grid each region has its
+    three neighbours in tile-index space; a partial edge tile's wrapped box
+    reaches regions that are not."""
+    tab = T._axis_pairs(n, T_, M, periodic)
+    nt = -(-n // T_)
+    assert tab.shape[0] == nt and tab.dtype == np.int32
+    pairs = [[tuple(tab[r, 1 + 2 * c: 3 + 2 * c]) for c in range(tab[r, 0])] for r in range(nt)]
+    for t2, j, r, loc in _brute_pairs(n, T_, M, periodic):
+        assert sum(1 for tt, d in pairs[r] if tt == t2 and j + d == loc) == 1
+    for r in range(nt):
+        R = min(T_, n - r * T_)
+        assert tab[r, 1 + 2 * tab[r, 0]:].tolist() == [-1, 0] * (tab.shape[1] // 2 - tab[r, 0])
+        for tt, d in pairs[r]:
+            for j in range(T_ + 2 * M):
+                if 0 <= j + d < R:
+                    g = tt * T_ - M + j
+                    assert (g % n if periodic else g) == r * T_ + j + d
+    if n == 512:
+        assert all(sorted(tt for tt, _ in pairs[r]) == sorted({(r - 1) % nt, r, (r + 1) % nt}) for r in range(nt))
+
+
+def test_region_items_split_dense_regions():
+    """Candidate counts per region sum each candidate tile once per pair;
+    blocks run the regions heaviest first, a region past the split is shared
+    by blocks that add with atomics, and empty regions get no block."""
+    geom = T._geometry_3d(T.PALLAS_3D_LEVELS[1], (24, 24, 24))  # 3 x 3 x 3 tiles, periodic
+    pcount = torch.zeros(27, dtype=torch.int32)
+    pcount[13] = 300  # the centre tile, past the old 256-particle split
+    pcount[0] = 5
+    tables = T._candidate_tables(geom, (24, 24, 24), True, "cpu")
+    counts = T._region_candidates(pcount, geom, tables)
+    assert counts.tolist() == [305] * 27  # 3 tiles a side: every region sees every tile once
+    items, max_count = T._region_items(pcount, geom, tables, split=128)
+    assert max_count == 305 and items.dtype == torch.int32
+    assert items.shape[0] == 27 * 3 and bool((items[:, 3] == 1).all())
+    for r in range(27):
+        mine = items[items[:, 0] == r]
+        assert mine[:, 1:3].tolist() == [[0, 128], [128, 256], [256, 305]]
+    # open 5 x 5 x 5 tiles, two busy tiles: only their neighbours get
+    # blocks, heaviest first (ties in region order)
+    geom = T._geometry_3d(T.PALLAS_3D_LEVELS[1], (40, 40, 40))
+    pcount = torch.zeros(125, dtype=torch.int32)
+    pcount[62] = 40  # tile (2, 2, 2): regions (1..3)^3
+    pcount[0] = 3  # tile (0, 0, 0): regions (0..1)^3, no wrap
+    tables = T._candidate_tables(geom, (40, 40, 40), False, "cpu")
+    items, max_count = T._region_items(pcount, geom, tables)
+    assert max_count == 43 and bool((items[:, 3] == 0).all())
+    near_62 = sorted((z * 5 + y) * 5 + x for z in (1, 2, 3) for y in (1, 2, 3) for x in (1, 2, 3))
+    near_0 = sorted((z * 5 + y) * 5 + x for z in (0, 1) for y in (0, 1) for x in (0, 1))
+    assert items[:, 0].tolist() == [31] + [r for r in near_62 if r != 31] + [r for r in near_0 if r != 31]
+    assert items[:, 2].tolist() == [43] + [40] * 26 + [3] * 7 and bool((items[:, 1] == 0).all())
+
+
+def _pull_emulated(u, v, w, h, values, pstart, pcount, grid, *, geom, kernel, periodic, psx, psy, psz, offset,
+                   split):
+    """The CUDA kernel's algorithm in torch: per block of the work list, its
+    region's candidates (every particle of every (z, y, x) candidate pair,
+    in the kernel's order, sliced to the block's range), each clipped to
+    the region through its shift, summed into the region's voxels."""
+    cfg = geom.cfg
+    Ts, Bs, K = (cfg.TZ, cfg.TY, cfg.TX), cfg.box, cfg.K
+    shape = tuple(grid.shape[1:])
+    tables = T._candidate_tables(geom, shape, periodic, grid.device)
+    items, _ = T._region_items(pcount, geom, tables, split)
+    ks = T.get_kernel(kernel)
+    coords, cell = (w, v, u), (psz, psy, psx)
+    for region, lo, hi, _ in items.tolist():
+        tz, rem = divmod(region, geom.nty * geom.ntx)
+        t3 = (tz, *divmod(rem, geom.ntx))
+        rows = [tables[a][t3[a]].tolist() for a in range(3)]
+        cand, shift = [], []
+        for cz in range(rows[0][0]):
+            for cy in range(rows[1][0]):
+                for cx in range(rows[2][0]):
+                    tt = [rows[a][1 + 2 * c] for a, c in enumerate((cz, cy, cx))]
+                    tile = (tt[0] * geom.nty + tt[1]) * geom.ntx + tt[2]
+                    s0, n0 = int(pstart[tile]), int(pcount[tile])
+                    cand += range(s0, s0 + n0)
+                    shift += [[rows[a][2 + 2 * c] for a, c in enumerate((cz, cy, cx))]] * n0
+        idx = torch.tensor(cand[lo:hi], dtype=torch.long)
+        d = torch.tensor(shift[lo:hi], dtype=torch.long).reshape(-1, 3)
+        inv_h = torch.where(h[idx] > 0, 1.0 / h[idx], 0.0)
+        vals = values[:, idx] * ((ks.norm_3d * inv_h) * (inv_h * inv_h))
+        q2 = torch.zeros(len(idx), *Ts)
+        ok = torch.ones(len(idx), *Ts, dtype=torch.bool)
+        R = [min(Ts[a], shape[a] - t3[a] * Ts[a]) for a in range(3)]
+        for a in range(3):
+            c = coords[a][idx]
+            r = torch.arange(Ts[a])
+            j = r[None, :] - d[:, a:a + 1]  # box-local index
+            j0 = (torch.floor(c - offset + 0.5).long() - K // 2)[:, None]
+            ok_a = (j >= j0) & (j < j0 + K) & (j >= 0) & (j < Bs[a]) & (r[None, :] < R[a])
+            dn = ((j.float() + offset) - c[:, None]) * (cell[a] * inv_h)[:, None]
+            sh = [len(idx), 1, 1, 1]
+            sh[a + 1] = Ts[a]
+            q2 = q2 + (dn * dn).reshape(sh)
+            ok = ok & ok_a.reshape(sh)
+        wgt = torch.where(ok & (q2 < ks.support_factor**2), ks.shape_q(torch.sqrt(q2)), 0.0)
+        blk = torch.einsum("fp,pzyx->fzyx", vals, wgt)
+        o = [t3[a] * Ts[a] for a in range(3)]
+        grid[:, o[0]:o[0] + R[0], o[1]:o[1] + R[1], o[2]:o[2] + R[2]] += blk[:, :R[0], :R[1], :R[2]]
+    return grid
+
+
+# (grid, periodic, level index, split): a non-dividing periodic grid whose
+# K = 16 boxes fold over it, the (20, 20, 20) open grid, per-axis periodicity,
+# a box longer than a 4-voxel periodic axis, and regions split over blocks
+PULL_CASES = {
+    "periodic_20_k16": ((20, 20, 20), True, 2, 2048),
+    "open_20_k16": ((20, 20, 20), False, 2, 2048),
+    "per_axis_k16": ((24, 16, 40), (True, False, True), 2, 2048),
+    "folded_4x6x20_k8": ((4, 6, 20), True, 1, 2048),
+    "split_regions_k4": ((5, 13, 7), False, 0, 50),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PULL_CASES))
+def test_pull_work_list_matches_plain_and_jax(name):
+    """The kernel's owner-computes work list (candidate pairs, shifts, block
+    slices), emulated in torch, against deposit_3d_tiles_plain and the JAX
+    stencil engine on the same particles."""
+    shape, periodic, li, split = PULL_CASES[name]
+    rng = np.random.default_rng(sorted(PULL_CASES).index(name) + 150)
+    pos, h, vals = level_particles(rng, li, 400, 2, max(shape), spread=0.03)
+    spec = GridSpec(shape, EXT, periodic_wrap=periodic if isinstance(periodic, bool) else False)
+    geom, args = sorted_level_inputs(pos, h, vals, spec, T.PALLAS_3D_LEVELS[li])
+    kw = T._level_args(geom, spec, "cubic_spline")
+    kw["periodic"] = periodic
+    ref = T.deposit_3d_tiles_plain(*args, torch.zeros((2, *shape)), **kw)
+    got = _pull_emulated(*args, torch.zeros((2, *shape)), **kw, split=split)
+    assert rel_err(got, ref) < TOL
+    if isinstance(periodic, bool):
+        wrapped = np.mod(pos, BOX) if periodic else pos
+        assert rel_err(got, jax_plain(wrapped, h, vals, shape, periodic)) < PATH_TOL
+
+
+def test_pull_work_list_dense_tile():
+    """A dense tile well past the old 256-particle split: 1500 particles in
+    one 8^3 tile of a periodic 32^3 grid, regions split over blocks."""
+    rng = np.random.default_rng(171)
+    npix = 32
+    pos, h, vals = level_particles(rng, 2, 1600, 2, npix)
+    pos[:1500] = rng.uniform(3.0 * BOX / 8, 4.0 * BOX / 8, (1500, 3))  # tile (1, 1, 1)'s voxels 12..15
+    spec = GridSpec((npix,) * 3, EXT, periodic_wrap=True)
+    geom, args = sorted_level_inputs(pos, h, vals, spec, T.PALLAS_3D_LEVELS[2])
+    assert int(args[6].max()) > 256
+    kw = T._level_args(geom, spec, "cubic_spline")
+    ref = T.deposit_3d_tiles_plain(*args, torch.zeros((2, npix, npix, npix)), **kw)
+    got = _pull_emulated(*args, torch.zeros((2, npix, npix, npix)), **kw, split=512)
+    assert rel_err(got, ref) < TOL
+    assert rel_err(got, jax_plain(pos, h, vals, spec.shape, True)) < PATH_TOL
 
 
 @pytest.fixture
@@ -280,6 +448,28 @@ def test_cuda_kernel_matches_plain(cuda_device, periodic):
         kw = T._level_args(geom, spec, "cubic_spline")
         got = T.deposit_3d_tiles(*args, torch.zeros((4, 64, 64, 64), device=cuda_device), **kw)
         ref = T.deposit_3d_tiles_plain(*args, torch.zeros((4, 64, 64, 64), device=cuda_device), **kw)
+        torch.cuda.synchronize()
+        assert rel_err(got.cpu(), ref.cpu()) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,periodic", [
+    ((20, 20, 20), True), ((20, 20, 20), False), ((4, 6, 20), True), ((24, 16, 40), (True, False, True)),
+])
+def test_cuda_kernel_matches_plain_on_awkward_grids(cuda_device, shape, periodic):
+    """Grids the tiles do not divide, boxes that fold over a small periodic
+    axis, and per-axis periodicity, every level, with regions split over
+    blocks: the kernel against its plain version on the card."""
+    rng = np.random.default_rng(121)
+    spec = GridSpec(shape, EXT, periodic_wrap=periodic if isinstance(periodic, bool) else False)
+    for li in range(3):
+        pos, h, vals = level_particles(rng, li, 3000, 3, max(shape), spread=0.02)
+        geom, args = sorted_level_inputs(pos, h, vals, spec, T.PALLAS_3D_LEVELS[li])
+        args = [a.to(cuda_device) for a in args]
+        kw = T._level_args(geom, spec, "cubic_spline")
+        kw["periodic"] = periodic
+        got = T.deposit_3d_tiles(*args, torch.zeros((3, *shape), device=cuda_device), **kw)
+        ref = T.deposit_3d_tiles_plain(*args, torch.zeros((3, *shape), device=cuda_device), **kw)
         torch.cuda.synchronize()
         assert rel_err(got.cpu(), ref.cpu()) <= TOL
 

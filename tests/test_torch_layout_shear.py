@@ -398,6 +398,23 @@ def test_shear_layout_counts_match_jax():
     assert np.array_equal(tp.sorted_tile.numpy(), np.asarray(jtp.sorted_tile)[: tp.n_sorted])
 
 
+@pytest.mark.parametrize("n_fields", [1, 2])
+def test_bucketed_path_with_no_particles_matches_sorted_engine(n_fields):
+    """n = 0: the coarse grouping returns empty streams and the bucketed
+    render the sorted engine's zero map, in both projections. (The JAX
+    stage A divides by zero there, so the sorted engine is the reference.)"""
+    spec = MapSpec(shape=(64, 48), extent=(0.0, BOX, 0.0, BOX), periodic_wrap=True)
+    e = np.zeros(0, np.float32)
+    vals = e if n_fields == 1 else np.zeros((n_fields, 0), np.float32)
+    gx, gy, gh, gv = P.shear_coarse_group(e, e, e, np.zeros((n_fields, 0), np.float32), spec, device="cpu")
+    assert [tuple(a.shape) for a in (gx, gy, gh, gv)] == [(0,), (0,), (0,), (n_fields, 0)]
+    for projection in ("kernel3d", "integrated"):
+        got = P.deposit_2d_bucketed(e, e, e, vals, spec, projection=projection, device="cpu")
+        ref = deposit_2d_auto(e, e, e, vals, spec, projection=projection, device="cpu")
+        assert got.shape == ref.shape == ((64, 48) if n_fields == 1 else (n_fields, 64, 48))
+        assert torch.equal(got, ref) and not bool(got.any())
+
+
 def test_append_wrapper_takes_plain_version_only_on_cpu():
     rng = np.random.default_rng(53)
     key, nk = stage_a_keys(rng, "skewed")
@@ -409,6 +426,17 @@ def test_append_wrapper_takes_plain_version_only_on_cpu():
     assert P.append_gangs.launches == before  # no kernel launched on the CPU
     with pytest.raises(ValueError, match="no gang append kernel"):
         P.append_gangs(gangs.to("meta"), sched.to("meta"), int(ng))
+
+
+def test_team_size_follows_mean_subrun():
+    """The kernel's warps per sub-run: one for one-gang sub-runs, up to eight
+    as the mean sub-run grows toward 16 gangs."""
+    assert P._team_log2(1000, 1000, 3) == 0  # one gang of 96 float4s
+    assert P._team_log2(1500, 1000, 3) == 1
+    assert P._team_log2(3670, 1000, 6) == 3  # a few gangs of 192 float4s
+    assert P._team_log2(16000, 1000, 3) == 3  # 16 gangs, at most 8 warps
+    assert P._team_log2(0, 0, 3) == 0
+    assert [P._team_log2(2 ** k * 300, 100, 1) for k in range(5)] == [0, 1, 2, 3, 3]
 
 
 @pytest.fixture
@@ -433,6 +461,24 @@ def test_cuda_append_matches_plain(cuda_device, case):
     ref = P.append_gangs_plain(gangs, sched, int(ng))
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_append_one_gang_subruns(cuda_device):
+    """Sub-runs of one gang each (a warp per sub-run): bit for bit."""
+    rng = np.random.default_rng(67)
+    n, nk = 2048 * 64, 1 << 14
+    key = rng.integers(0, nk, n).astype(np.int32)
+    pays = [t(rng.uniform(0, 1, n).astype(np.float32)).to(cuda_device) for _ in range(2)]
+    gangs, src_gang, _, ngang, cum_ngang, _, cum_nsub, _, ng, ns = P._shear_stage_a(
+        [t(key).to(cuda_device), *pays], n_keys=nk
+    )
+    sched = P._shear_schedule(src_gang, ngang, cum_ngang, cum_nsub, int(ns))
+    assert float((sched[:, 2] == 1).float().mean()) > 0.9 and P._team_log2(int(ng), int(ns), 2) == 0
+    got = P.append_gangs(gangs, sched, int(ng))
+    ref = P.append_gangs_plain(gangs, sched, int(ng))
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
 
 
 @pytest.mark.cuda
