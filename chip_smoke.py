@@ -51,7 +51,10 @@ fails (non-zero exit) if any phase fails:
     spectra engine on a 2^20-particle subset;
 13. 3D voxel deposit kernel (``csrc/deposit3d.cu``) vs its plain version,
     every level K in {4, 8, 16} x F in {1, 4} x {periodic, open}, on a 256^3
-    grid with 2^18 particles whose h lies inside the level;
+    grid with 2^18 particles whose h lies inside the level, and every level
+    on four small grids (20^3 periodic and open, which the 8^3 tiles do not
+    divide; 4 x 6 x 20 periodic, over which the K = 16 boxes fold; 24 x 16
+    x 40 periodic in x and z only), regions whole and split over blocks;
 14. the config-3 path at full size: ``deposit_3d_auto`` on 2^24 clustered
     particles (the JAX package's ``benchmarks/voxel3d_bench.py`` generator,
     h capped at 3.5 voxels so that every particle fits the K = 16 level),
@@ -1121,13 +1124,14 @@ def _voxel_level_inputs(torch, cfg, lo_s, hi_s, n_fields, n, spec, seed, device)
     return geom, (ul[perm], vl[perm], wl[perm], h[perm], vals[:, perm].contiguous(), pstart, pcount)
 
 
-def region_work(torch, geom, spec, pcount) -> dict:
+def region_work(torch, geom, spec, pcount, periodic=None) -> dict:
     """Kernel #6's work list for one level: output regions with candidates,
     thread blocks (a region past the split is shared by several, which add
     with atomics), and the largest and the mean candidate count."""
     from astro_sph_tools_tpu_torch.ops.grid3d_tiled import _candidate_tables, _region_candidates, _region_items
 
-    tables = _candidate_tables(geom, spec.shape, spec.periodic_wrap, pcount.device)
+    periodic = spec.periodic_wrap if periodic is None else periodic
+    tables = _candidate_tables(geom, spec.shape, periodic, pcount.device)
     items, max_cand = _region_items(pcount, geom, tables)
     counts = _region_candidates(pcount, geom, tables)
     return {"regions": int((counts > 0).sum()), "blocks": items.shape[0],
@@ -1172,6 +1176,34 @@ def phase_voxel_kernel(torch, device, n: int = 1 << 18, npix: int = 256):
                 check(rel <= REL_TOL, f"3D kernel disagrees with its plain version: {case}")
                 out.append(case)
                 del got, ref, args
+    # grids the tiles do not divide, boxes that fold over a small periodic
+    # axis, per-axis periodicity; 1,500 particles on a few tiles leave some
+    # regions whole and split others over blocks
+    for gi, (shape, periodic) in enumerate((((20, 20, 20), True), ((20, 20, 20), False), ((4, 6, 20), True),
+                                            ((24, 16, 40), (True, False, True)))):
+        spec = GridSpec(shape=shape, extent=(0.0, VOX_BOX) * 3, periodic_wrap=periodic is True)
+        for li, cfg in enumerate(PALLAS_3D_LEVELS):
+            geom, args = _voxel_level_inputs(
+                torch, cfg, bounds[li], bounds[li + 1], 3, 1500, spec, seed=300 + 10 * gi + li, device=device,
+            )
+            kw = _level_args(geom, spec, "cubic_spline")
+            kw["periodic"] = periodic
+            got = torch.zeros((3, *shape), device=device)
+            ref = torch.zeros_like(got)
+            deposit_3d_tiles(*args, got, **kw)
+            deposit_3d_tiles_plain(*args, ref, **kw)
+            torch.cuda.synchronize()
+            err, rel = rel_err(got, ref)
+            case = {
+                "phase": "voxel_kernel_vs_plain", "K": cfg.K, "F": 3, "periodic": periodic, "grid": list(shape),
+                "n": 1500, **region_work(torch, geom, spec, args[6], periodic), "max_abs_err": err,
+                "rel_err": rel,
+            }
+            emit(case)
+            check(bool(torch.isfinite(got).all()), f"non-finite 3D kernel output {case}")
+            check(rel <= REL_TOL, f"3D kernel disagrees with its plain version: {case}")
+            out.append(case)
+            del got, ref, args
     return out
 
 
