@@ -52,9 +52,7 @@ _PRECISIONS_3D = ("f32", "bf16", "bf16x2")
 _MAX_FIELDS_3D = 4
 # candidates of one output region that one thread block takes: a denser
 # region is shared by several blocks, which add their sums with atomics
-_REGION_CANDIDATES = 2048
-# (z, y, x) candidate pairs one region may have (the kernel's shared table)
-_MAX_COMBOS = 512
+_REGION_CANDIDATES = 8192
 
 
 def _check_precision_3d(precision: str) -> str:
@@ -285,13 +283,14 @@ def _region_candidates(pcount: Tensor, geom: _Geometry3D, tables) -> Tensor:
     return s[tz].sum(1).reshape(-1)  # (ntz, nty, ntx)
 
 
-def _region_items(pcount: Tensor, geom: _Geometry3D, tables, split: int = _REGION_CANDIDATES):
+def _region_items(pcount: Tensor, geom: _Geometry3D, tables):
     """Thread-block work of one level: ``(items, max_candidates)``, items
     ``(n_items, 4)`` int32 ``[region, first candidate, end candidate,
     atomic]``. Regions without candidates get no block; the rest run
-    heaviest first, and a region with more than ``split`` candidates is
-    shared by ``ceil(count / split)`` blocks that add with atomics (flag 1).
-    One host sync (three counts)."""
+    heaviest first, and a region with more than ``_REGION_CANDIDATES``
+    candidates is shared by ``ceil(count / _REGION_CANDIDATES)`` blocks that
+    add with atomics (flag 1). One host sync (three counts)."""
+    split = _REGION_CANDIDATES
     counts = _region_candidates(pcount, geom, tables)
     n_split = (counts + (split - 1)) // split
     n_active, max_count, total = (int(c) for c in torch.stack(
@@ -374,15 +373,9 @@ def deposit_3d_tiles(
         raise ValueError(f"no 3D deposit kernel for device {u.device}")
     _check_cuda_inputs(u, v, w, h, values, pstart, pcount, grid)
     cfg = geom.cfg
-    if 4 * values.shape[0] * cfg.TZ * cfg.TY * cfg.TX > 160 * 1024 or max(cfg.TZ, cfg.TY, cfg.TX) > 255:
-        raise ValueError(f"the 3D deposit kernel holds a tile's F x TZ x TY x TX sums in 160 KiB, got {cfg}")
     nz, ny, nx = grid.shape[1:]
-    if max(nz, ny, nx) >= 2**15:
-        raise ValueError("the 3D deposit kernel packs voxel shifts in 16 bits: grid axes must be < 32768")
     tables = _candidate_tables(geom, (nz, ny, nx), periodic, u.device)
     widths = [(t.shape[1] - 1) // 2 for t in tables]
-    if widths[0] * widths[1] * widths[2] > _MAX_COMBOS:
-        raise ValueError(f"a region of this grid has more than {_MAX_COMBOS} candidate tiles: {widths}")
     items, _ = _region_items(pcount, geom, tables)
     if items.shape[0] == 0:
         return grid

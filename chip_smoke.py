@@ -41,7 +41,8 @@ fails (non-zero exit) if any phase fails:
     the fused layout of the config-4 particles (below) and 2048 rays,
     {kernel3d, integrated} x {periodic, open} x F in {1, 5};
 11. spectra kernel vs its plain version, 256 rays, 512 bins, {gaussian,
-    voigt (H I Lya)} x {periodic, open};
+    voigt (H I Lya)} x {periodic, open}, with the work its bound counts
+    (``spectra_work``);
 12. the config-4 path at full size: 10^4 random rays through 10^7 clustered
     gas particles in a periodic 25 cMpc box at z = 0.5 —
     ``column_integrate_pallas`` and ``absorption_spectra_pallas`` (512 bins,
@@ -54,7 +55,8 @@ fails (non-zero exit) if any phase fails:
     grid with 2^18 particles whose h lies inside the level, and every level
     on four small grids (20^3 periodic and open, which the 8^3 tiles do not
     divide; 4 x 6 x 20 periodic, over which the K = 16 boxes fold; 24 x 16
-    x 40 periodic in x and z only), regions whole and split over blocks;
+    x 40 periodic in x and z only) at the default region split and at 512
+    candidates a block, regions whole and split over blocks;
 14. the config-3 path at full size: ``deposit_3d_auto`` on 2^24 clustered
     particles (the JAX package's ``benchmarks/voxel3d_bench.py`` generator,
     h capped at 3.5 voxels so that every particle fits the K = 16 level),
@@ -72,8 +74,10 @@ fails (non-zero exit) if any phase fails:
 16. gang-append kernel (``csrc/layout_shear.cu``, kernel #7) vs its plain
     version, bit for bit on every destination gang, on stage A's output for
     (a) the coarse 128 x 2-cell grouping of phase 17's particles, (b) their
-    fine 1024^2 level/tile key space, (c) one key, (d) runs of mostly one
-    record; kernel, plain and ``torch.index_select`` times and bounds;
+    fine 1024^2 level/tile key space, (c) one key at 2^24 and 2^26 records,
+    (d) runs of mostly one record; kernel, plain and ``torch.index_select``
+    times and bounds, and ten alternating pairs of kernel and
+    ``index_select`` times, of one call and of ten back-to-back calls;
 17. the random-order path at 2^27 (``--rand-log2n``): phase 3's density
     field, h and fields with every particle in an iid random cell (the JAX
     package's ``benchmarks/northstar_proxy.py --order random``), 1024^2
@@ -86,7 +90,10 @@ fails (non-zero exit) if any phase fails:
     after bucketing, the device's busy share and peak memory; and, on the
     stream the bucketing feeds the coherent engine, the row-prep kernel (bit
     for bit), the coherent deposit kernel and the sorted-engine kernel on
-    each routed tail level, each against its plain version.
+    each routed tail level, each against its plain version;
+18. (only when named in ``--phases``) kernel #6's time per level on phase
+    14's layout at region splits of 512, 2048, 8192 (the default) and 32768
+    candidates per block, each held against the default's cube.
 
 Every phase prints one JSON line; the kernels' summary line and the card's
 ``nvidia-smi`` line come before the last line, which is
@@ -150,6 +157,21 @@ def cuda_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def alternating_ms(fn_a, fn_b, pairs: int, reps: int) -> dict:
+    """``pairs`` alternating timings of two functions (a then b, b then a,
+    ...), each the median of ``reps`` runs (``cuda_ms``): both lists, their
+    medians and ranges, and b/a per pair, so that drift of the card hits
+    both alike."""
+    a, b = [], []
+    for i in range(pairs):
+        for fn, out in ((fn_a, a), (fn_b, b)) if i % 2 == 0 else ((fn_b, b), (fn_a, a)):
+            out.append(cuda_ms(fn, reps))
+    ratio = [y / x for x, y in zip(a, b)]
+    return {"a_ms": a, "b_ms": b, "a_median": float(np.median(a)), "b_median": float(np.median(b)),
+            "a_range": [min(a), max(a)], "b_range": [min(b), max(b)], "b_over_a": ratio,
+            "b_over_a_median": float(np.median(ratio)), "b_over_a_range": [min(ratio), max(ratio)]}
 
 
 def wall_s(fn, reps: int) -> float:
@@ -929,12 +951,56 @@ def phase_columns_kernel(torch, device, sl, n_rays: int = 2048):
     return out
 
 
-def spectra_ops(hits: float, n_bins: int, n_images: int, profile: str) -> float:
-    """FP32 operations of kernel #5: each (particle, ray) hit's profile at
-    every bin and at each of its 2 n_images + 1 velocity images (k = -n..n),
-    ~10 operations for a Gaussian and ~60 for the Voigt fit, plus the tau
-    FMA. The kernel evaluates every bin; a windowed profile would do less."""
-    return hits * n_bins * (2 * n_images + 1) * (12 if profile == "gaussian" else 62)
+# exp(-z^2) rounds to 0 in f32 once z^2 > 103.3 (below the least subnormal)
+GAUSS_Z_MAX = math.sqrt(103.3)
+
+
+def spectra_work(torch, sl, n_rays: int, n_bins: int, periodic: bool, profile: str, n_images: int) -> dict:
+    """The FP32 operations that kernel #5's function needs on this run's
+    particles, as expected values over uniform random rays. A particle of
+    smoothing length h is hit by lam = pi (2 h)^2 n_rays / box^2 rays, and by
+    at least one with probability 1 - exp(-lam). The work is:
+
+    * per hit, its column weight (``pair_ops(0, "integrated")``);
+    * per particle hit at all, its profile once (the rays share it) at each
+      (bin, velocity image) term where it is not 0 in f32: ~10 operations a
+      Gaussian term, only those with |z| < ``GAUSS_Z_MAX`` (a window of
+      2 * 10.16 b around the line, folded over the 2n + 1 images when the
+      velocities wrap, cut at the bin range when they do not); ~60 a Voigt
+      term, at every bin and image (its wings never vanish);
+    * per hit, one multiply-add into tau at every bin where the profile is
+      not 0.
+
+    The kernel does more: it evaluates every bin and image for each hit."""
+    from astro_sph_tools_tpu_torch.ops.spectra import _spectra_inputs
+
+    (_, _, h, _, v, b), v_box, vc = _spectra_inputs(
+        sl["pos"], sl["h"], sl["m"], sl["v_pec"], sl["T"], cosmology=sl["cosmology"], box_size=SIGHT_BOX,
+        atomic_weight=1.008, n_bins=n_bins, periodic=periodic, device=sl["pos"].device,
+    )
+    h, v, b = h.double(), v.double(), b.double()
+    lam = math.pi * (2.0 * h) ** 2 * (n_rays / SIGHT_BOX**2)
+    hit_any = -torch.expm1(-lam)
+    images = 2 * n_images + 1
+    dv = float(vc[1]) - float(vc[0])
+    if profile == "voigt":
+        terms = torch.full_like(h, float(n_bins * images))
+        bins = torch.full_like(h, float(n_bins))
+        term_ops = 60
+    else:
+        half = GAUSS_Z_MAX * b
+        if periodic and v_box is not None:
+            terms = torch.clamp(2.0 * half / dv, max=float(n_bins * images))
+            bins = torch.clamp(terms, max=float(n_bins))
+        else:
+            lo, hi = float(vc[0]) - 0.5 * dv, float(vc[-1]) + 0.5 * dv
+            terms = (torch.clamp(v + half, max=hi) - torch.clamp(v - half, min=lo)).clamp_min(0.0) / dv
+            bins = terms
+        term_ops = 10
+    ops = hit_any * terms * term_ops + lam * (2.0 * bins + pair_ops(0, "integrated"))
+    return {"ops": float(ops.sum()), "hits": float(lam.sum()), "particles_hit": float(hit_any.sum()),
+            "profile_terms_per_particle_hit": float((hit_any * terms).sum() / hit_any.sum()),
+            "velocity_images": images}
 
 
 def phase_spectra_kernel(torch, device, sl, n_rays: int = 256, n_bins: int = 512):
@@ -943,7 +1009,6 @@ def phase_spectra_kernel(torch, device, sl, n_rays: int = 256, n_bins: int = 512
     from astro_sph_tools_tpu_torch.ops.spectra import _resolve_profile
     from astro_sph_tools_tpu_torch.ops.spectra_fused import _spectra_layout, spectra_tiles, spectra_tiles_plain
 
-    hits = support_points(sl["h"], 2.0, 1.0, 2) * n_rays / SIGHT_BOX**2
     out = []
     for periodic in (True, False):
         for profile in ("gaussian", "voigt"):
@@ -962,14 +1027,15 @@ def phase_spectra_kernel(torch, device, sl, n_rays: int = 256, n_bins: int = 512
             torch.cuda.synchronize()
             err, rel = rel_err(got, ref)
             spans = (lay.hi - lay.lo).clamp_min(0).sum(dim=1)
+            work = spectra_work(torch, sl, n_rays, n_bins, periodic, profile, n_images)
             case = {
                 "phase": "spectra_kernel_vs_plain", "profile": profile, "periodic": periodic,
                 "n": sl["pos"].shape[0], "n_rays": n_rays, "n_bins": n_bins, "n_blocks": lay.n_blocks,
-                "n_levels": len(lay.rorders), "n_images": n_images, "velocity_images": 2 * n_images + 1,
-                "particles_scanned": int(spans.sum()), "max_abs_err": err, "rel_err": rel,
+                "n_levels": len(lay.rorders), "n_images": n_images, "particles_scanned": int(spans.sum()),
+                **{k: x for k, x in work.items() if k != "ops"}, "max_abs_err": err, "rel_err": rel,
                 "ms": cuda_ms(lambda: spectra_tiles(*args, **kw), 3),
                 "plain_ms": cuda_ms(lambda: spectra_tiles_plain(*args, **kw), 1),
-                **bound(nbytes(*args, got), spectra_ops(hits, n_bins, n_images, profile)),
+                **bound(nbytes(*args, got), work["ops"]),
             }
             emit(case)
             check(bool(torch.isfinite(got).all()), f"non-finite spectra kernel output {case}")
@@ -1035,7 +1101,6 @@ def phase_sightlines(torch, device, sl, n_check: int = 256, n_bins: int = 512):
         lay.packed, lay.rx, lay.ry, lay.lo, lay.hi, n_fields=1, kernel="cubic_spline",
         projection="integrated", periodic=True, Lx=lay.Lx, Ly=lay.Ly), 3)}
     kernel_bound = {}
-    hits = support_points(h, 2.0, 1.0, 2) * n_rays / SIGHT_BOX**2
     for prof in ("gaussian", "voigt"):
         lay, vc_np, v_box, n_img = spec_layout(prof)
         vc_t = torch.as_tensor(vc_np, device=device)
@@ -1044,9 +1109,9 @@ def phase_sightlines(torch, device, sl, n_check: int = 256, n_bins: int = 512):
             Lx=lay.Lx, Ly=lay.Ly, v_box=v_box, n_images=n_img, profile=prof,
             voigt_k=_resolve_profile(prof, GAMMA_LYA, 1215.67)), 3)
         # each full-size launch's bound beside its time
-        kernel_bound[f"spectra_{prof}"] = {"velocity_images": 2 * n_img + 1, **bound(
-            nbytes(lay.packed, lay.rx, lay.ry, lay.lo, lay.hi, vc_t) + n_rays * n_bins * 4,
-            spectra_ops(hits, n_bins, n_img, prof))}
+        work = spectra_work(torch, sl, n_rays, n_bins, True, prof, n_img)
+        kernel_bound[f"spectra_{prof}"] = {**{k: x for k, x in work.items() if k != "ops"}, **bound(
+            nbytes(lay.packed, lay.rx, lay.ry, lay.lo, lay.hi, vc_t) + n_rays * n_bins * 4, work["ops"])}
     del lay
 
     # the velocity integral of each spectrum is its column (unit-integral
@@ -1142,6 +1207,7 @@ def region_work(torch, geom, spec, pcount, periodic=None) -> dict:
 def phase_voxel_kernel(torch, device, n: int = 1 << 18, npix: int = 256):
     """Kernel #6 (3D voxel deposit) vs its plain version, every level."""
     from astro_sph_tools_tpu_torch.ops import PALLAS_3D_LEVELS, GridSpec
+    from astro_sph_tools_tpu_torch.ops import grid3d_tiled as G
     from astro_sph_tools_tpu_torch.ops.grid3d_tiled import _level_args, deposit_3d_tiles, deposit_3d_tiles_plain
 
     bounds = [0.05] + [cfg.max_s_vox for cfg in PALLAS_3D_LEVELS]
@@ -1177,33 +1243,41 @@ def phase_voxel_kernel(torch, device, n: int = 1 << 18, npix: int = 256):
                 out.append(case)
                 del got, ref, args
     # grids the tiles do not divide, boxes that fold over a small periodic
-    # axis, per-axis periodicity; 1,500 particles on a few tiles leave some
-    # regions whole and split others over blocks
-    for gi, (shape, periodic) in enumerate((((20, 20, 20), True), ((20, 20, 20), False), ((4, 6, 20), True),
-                                            ((24, 16, 40), (True, False, True)))):
-        spec = GridSpec(shape=shape, extent=(0.0, VOX_BOX) * 3, periodic_wrap=periodic is True)
-        for li, cfg in enumerate(PALLAS_3D_LEVELS):
-            geom, args = _voxel_level_inputs(
-                torch, cfg, bounds[li], bounds[li + 1], 3, 1500, spec, seed=300 + 10 * gi + li, device=device,
-            )
-            kw = _level_args(geom, spec, "cubic_spline")
-            kw["periodic"] = periodic
-            got = torch.zeros((3, *shape), device=device)
-            ref = torch.zeros_like(got)
-            deposit_3d_tiles(*args, got, **kw)
-            deposit_3d_tiles_plain(*args, ref, **kw)
-            torch.cuda.synchronize()
-            err, rel = rel_err(got, ref)
-            case = {
-                "phase": "voxel_kernel_vs_plain", "K": cfg.K, "F": 3, "periodic": periodic, "grid": list(shape),
-                "n": 1500, **region_work(torch, geom, spec, args[6], periodic), "max_abs_err": err,
-                "rel_err": rel,
-            }
-            emit(case)
-            check(bool(torch.isfinite(got).all()), f"non-finite 3D kernel output {case}")
-            check(rel <= REL_TOL, f"3D kernel disagrees with its plain version: {case}")
-            out.append(case)
-            del got, ref, args
+    # axis, per-axis periodicity; 1,500 particles on a few tiles, at the
+    # default region split and at 512 candidates a block, leave some regions
+    # whole and split others over blocks
+    default = G._REGION_CANDIDATES
+    try:
+        for gi, (shape, periodic) in enumerate((((20, 20, 20), True), ((20, 20, 20), False), ((4, 6, 20), True),
+                                                ((24, 16, 40), (True, False, True)))):
+            spec = GridSpec(shape=shape, extent=(0.0, VOX_BOX) * 3, periodic_wrap=periodic is True)
+            for li, cfg in enumerate(PALLAS_3D_LEVELS):
+                geom, args = _voxel_level_inputs(
+                    torch, cfg, bounds[li], bounds[li + 1], 3, 1500, spec, seed=300 + 10 * gi + li, device=device,
+                )
+                kw = _level_args(geom, spec, "cubic_spline")
+                kw["periodic"] = periodic
+                for split in dict.fromkeys((default, 512)):
+                    G._REGION_CANDIDATES = split
+                    got = torch.zeros((3, *shape), device=device)
+                    ref = torch.zeros_like(got)
+                    deposit_3d_tiles(*args, got, **kw)
+                    deposit_3d_tiles_plain(*args, ref, **kw)
+                    torch.cuda.synchronize()
+                    err, rel = rel_err(got, ref)
+                    case = {
+                        "phase": "voxel_kernel_vs_plain", "K": cfg.K, "F": 3, "periodic": periodic,
+                        "grid": list(shape), "n": 1500, "split": split,
+                        **region_work(torch, geom, spec, args[6], periodic), "max_abs_err": err, "rel_err": rel,
+                    }
+                    emit(case)
+                    check(bool(torch.isfinite(got).all()), f"non-finite 3D kernel output {case}")
+                    check(rel <= REL_TOL, f"3D kernel disagrees with its plain version: {case}")
+                    out.append(case)
+                    del got, ref
+                del args
+    finally:
+        G._REGION_CANDIDATES = default
     return out
 
 
@@ -1389,6 +1463,51 @@ def phase_voxel_tiles(torch, device, n_log2: int):
     return out
 
 
+def phase_voxel_split(torch, device, n_log2: int):
+    """Kernel #6's time per level on phase 14's layout at three region
+    splits (the candidates one block takes before a region is shared by
+    blocks that add with atomics), each held against the default's cube."""
+    from astro_sph_tools_tpu_torch.ops import GridSpec, tile_particles_3d
+    from astro_sph_tools_tpu_torch.ops import grid3d_tiled as G
+    from astro_sph_tools_tpu_torch.ops.deposit_tiled import _tile_ranges
+
+    ng = VOX_GRID
+    spec = GridSpec(shape=(ng,) * 3, extent=(0.0, VOX_BOX) * 3, periodic_wrap=True)
+    pos, h, m, v = voxel_particles(torch, device, 1 << n_log2, VOX_BOX, seed=11)
+    h = torch.clamp(h, max=3.5 * VOX_BOX / ng)
+    fields = torch.stack([m, m * v[:, 0], m * v[:, 1], m * v[:, 2]])
+    del v
+    tp = tile_particles_3d(pos, h, fields, spec, device=device)
+    default = G._REGION_CANDIDATES
+    out = []
+    try:
+        for geom, lo, count in tp.geoms:
+            sl = slice(lo, lo + count)
+            pstart, pcount = _tile_ranges(tp.sorted_tile[sl], geom.n_tiles)
+            args = (tp.sorted_u[sl], tp.sorted_v[sl], tp.sorted_w[sl], tp.sorted_h[sl], tp.sorted_values[:, sl],
+                    pstart, pcount)
+            kw = G._level_args(geom, spec, "cubic_spline")
+            ref = None
+            for split in dict.fromkeys((default, 512, 2048, 8192, 32768)):
+                G._REGION_CANDIDATES = split
+                grid = torch.zeros((4, ng, ng, ng), device=device)
+                G.deposit_3d_tiles(*args, grid, **kw)
+                torch.cuda.synchronize()
+                if ref is None:
+                    ref = grid.clone()
+                case = {"phase": "voxel_split", "K": geom.cfg.K, "count": count, "split": split,
+                        **region_work(torch, geom, spec, pcount), "rel_err_vs_default": rel_err(grid, ref)[1],
+                        "kernel_ms": cuda_ms(lambda: G.deposit_3d_tiles(*args, grid, **kw), 5)}
+                emit(case)
+                check(case["rel_err_vs_default"] <= REL_TOL, f"region splits disagree: {case}")
+                out.append(case)
+                del grid
+            del ref, args
+    finally:
+        G._REGION_CANDIDATES = default
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the random-order path: shear grouping, kernel #7, deposit_2d_bucketed
 # ---------------------------------------------------------------------------
@@ -1437,17 +1556,19 @@ def phase_append_kernel(torch, device, particles):
     """Kernel #7 (gang append) vs its plain version, bit for bit, on every
     gang of the destination: (a) the coarse grouping of phase 17's input,
     (b) its fine 1024^2 level/tile key space, (c) one key (one giant run per
-    band), (d) runs of mostly one record."""
+    band), at 2^24 records and at four times as many (a fixed cost per
+    launch stays, a cost per byte grows), (d) runs of mostly one record."""
     from astro_sph_tools_tpu_torch.ops import layout_shear as LS
 
     g = torch.Generator(device=device)
     g.manual_seed(16)
     out = []
-    for name in ("coarse", "fine", "single_key", "one_record_runs"):
+    sizes = {"single_key": (1 << 24, 1), "single_key_x4": (1 << 26, 1), "one_record_runs": (1 << 21, 1 << 14)}
+    for name in ("coarse", "fine", "single_key", "single_key_x4", "one_record_runs"):
         if name in ("coarse", "fine"):
             ops, n_keys, assign = _shear_stage_a_inputs(torch, name, particles)
         else:
-            n, n_keys = (1 << 24, 1) if name == "single_key" else (1 << 21, 1 << 14)
+            n, n_keys = sizes[name]
             key = torch.randint(0, n_keys, (n,), generator=g, device=device, dtype=torch.int32)
             ops = [key] + [torch.rand(n, generator=g, device=device) for _ in range(3)]
             assign = None
@@ -1474,6 +1595,17 @@ def phase_append_kernel(torch, device, particles):
             "ms": cuda_ms(lambda: LS.append_gangs(gangs, sched, n_gang), 5),
             "plain_ms": cuda_ms(lambda: LS.append_gangs_plain(gangs, sched, n_gang), 5),
             "library_ms": cuda_ms(lambda: torch.index_select(gangs, 0, src_of_dst), 5),
+            # ten alternating pairs, kernel (a) and index_select (b), each a
+            # median of 5: the spread of both in one run
+            "pairs_vs_index_select": alternating_ms(
+                lambda: LS.append_gangs(gangs, sched, n_gang),
+                lambda: torch.index_select(gangs, 0, src_of_dst), 10, 5),
+            # the same with ten back-to-back calls a timing (ms for all ten):
+            # the host's time to launch each call then overlaps the card's
+            # work instead of adding to it
+            "pairs_vs_index_select_x10": alternating_ms(
+                lambda: [LS.append_gangs(gangs, sched, n_gang).shape for _ in range(10)],
+                lambda: [torch.index_select(gangs, 0, src_of_dst).shape for _ in range(10)], 10, 3),
             # the source gangs and the schedule read once, the destination
             # written once (runs of one band share their boundary gangs, so
             # with many short runs the destination outgrows the source)
@@ -1619,7 +1751,7 @@ def phase_random(torch, device, particles, gen_s):
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,16,17",
-                        help="comma-separated phases to run (15 only when named)")
+                        help="comma-separated phases to run (15 and 18 only when named)")
     parser.add_argument("--log2n", type=int, default=MAIN_LOG2N, help="log2 of the main path's particle count")
     parser.add_argument("--sight-n", type=int, default=SIGHT_N, help="gas particles of phases 10-12")
     parser.add_argument("--vox-log2n", type=int, default=VOX_LOG2N, help="log2 of phase 14's particle count")
@@ -1665,6 +1797,8 @@ def main() -> None:
     vox_out = phase_voxel(torch, device, args.vox_log2n) if 14 in phases else None
     if 15 in phases:
         phase_voxel_tiles(torch, device, args.vox_log2n)
+    if 18 in phases:
+        phase_voxel_split(torch, device, args.vox_log2n)
     torch.cuda.empty_cache()
     rp, rand_gen_s = random_particles(torch, device, args.rand_log2n) if phases & {16, 17} else (None, 0.0)
     app_cases = phase_append_kernel(torch, device, rp) if 16 in phases else []

@@ -296,7 +296,7 @@ def test_axis_pairs_map_every_box_voxel_once(n, T_, M, periodic):
         assert all(sorted(tt for tt, _ in pairs[r]) == sorted({(r - 1) % nt, r, (r + 1) % nt}) for r in range(nt))
 
 
-def test_region_items_split_dense_regions():
+def test_region_items_split_dense_regions(monkeypatch):
     """Candidate counts per region sum each candidate tile once per pair;
     blocks run the regions heaviest first, a region past the split is shared
     by blocks that add with atomics, and empty regions get no block."""
@@ -307,7 +307,8 @@ def test_region_items_split_dense_regions():
     tables = T._candidate_tables(geom, (24, 24, 24), True, "cpu")
     counts = T._region_candidates(pcount, geom, tables)
     assert counts.tolist() == [305] * 27  # 3 tiles a side: every region sees every tile once
-    items, max_count = T._region_items(pcount, geom, tables, split=128)
+    monkeypatch.setattr(T, "_REGION_CANDIDATES", 128)
+    items, max_count = T._region_items(pcount, geom, tables)
     assert max_count == 305 and items.dtype == torch.int32
     assert items.shape[0] == 27 * 3 and bool((items[:, 3] == 1).all())
     for r in range(27):
@@ -328,8 +329,7 @@ def test_region_items_split_dense_regions():
     assert items[:, 2].tolist() == [43] + [40] * 26 + [3] * 7 and bool((items[:, 1] == 0).all())
 
 
-def _pull_emulated(u, v, w, h, values, pstart, pcount, grid, *, geom, kernel, periodic, psx, psy, psz, offset,
-                   split):
+def _pull_emulated(u, v, w, h, values, pstart, pcount, grid, *, geom, kernel, periodic, psx, psy, psz, offset):
     """The CUDA kernel's algorithm in torch: per block of the work list, its
     region's candidates (every particle of every (z, y, x) candidate pair,
     in the kernel's order, sliced to the block's range), each clipped to
@@ -338,7 +338,7 @@ def _pull_emulated(u, v, w, h, values, pstart, pcount, grid, *, geom, kernel, pe
     Ts, Bs, K = (cfg.TZ, cfg.TY, cfg.TX), cfg.box, cfg.K
     shape = tuple(grid.shape[1:])
     tables = T._candidate_tables(geom, shape, periodic, grid.device)
-    items, _ = T._region_items(pcount, geom, tables, split)
+    items, _ = T._region_items(pcount, geom, tables)
     ks = T.get_kernel(kernel)
     coords, cell = (w, v, u), (psz, psy, psx)
     for region, lo, hi, _ in items.tolist():
@@ -392,7 +392,7 @@ PULL_CASES = {
 
 
 @pytest.mark.parametrize("name", sorted(PULL_CASES))
-def test_pull_work_list_matches_plain_and_jax(name):
+def test_pull_work_list_matches_plain_and_jax(name, monkeypatch):
     """The kernel's owner-computes work list (candidate pairs, shifts, block
     slices), emulated in torch, against deposit_3d_tiles_plain and the JAX
     stencil engine on the same particles."""
@@ -404,14 +404,15 @@ def test_pull_work_list_matches_plain_and_jax(name):
     kw = T._level_args(geom, spec, "cubic_spline")
     kw["periodic"] = periodic
     ref = T.deposit_3d_tiles_plain(*args, torch.zeros((2, *shape)), **kw)
-    got = _pull_emulated(*args, torch.zeros((2, *shape)), **kw, split=split)
+    monkeypatch.setattr(T, "_REGION_CANDIDATES", split)
+    got = _pull_emulated(*args, torch.zeros((2, *shape)), **kw)
     assert rel_err(got, ref) < TOL
     if isinstance(periodic, bool):
         wrapped = np.mod(pos, BOX) if periodic else pos
         assert rel_err(got, jax_plain(wrapped, h, vals, shape, periodic)) < PATH_TOL
 
 
-def test_pull_work_list_dense_tile():
+def test_pull_work_list_dense_tile(monkeypatch):
     """A dense tile well past the old 256-particle split: 1500 particles in
     one 8^3 tile of a periodic 32^3 grid, regions split over blocks."""
     rng = np.random.default_rng(171)
@@ -423,7 +424,8 @@ def test_pull_work_list_dense_tile():
     assert int(args[6].max()) > 256
     kw = T._level_args(geom, spec, "cubic_spline")
     ref = T.deposit_3d_tiles_plain(*args, torch.zeros((2, npix, npix, npix)), **kw)
-    got = _pull_emulated(*args, torch.zeros((2, npix, npix, npix)), **kw, split=512)
+    monkeypatch.setattr(T, "_REGION_CANDIDATES", 512)
+    got = _pull_emulated(*args, torch.zeros((2, npix, npix, npix)), **kw)
     assert rel_err(got, ref) < TOL
     assert rel_err(got, jax_plain(pos, h, vals, spec.shape, True)) < PATH_TOL
 
