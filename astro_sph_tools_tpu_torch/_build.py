@@ -176,13 +176,13 @@ def library_path(name: str, src_dir: Path = _SRC_DIR, build_dir: Path = _BUILD_D
     return build_dir / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def _build(name: str) -> BuildInfo:
-    src = _SRC_DIR / f"{name}.cu"
-    lib_path = library_path(name)
+def _build(name: str, src_dir: Path = _SRC_DIR, build_dir: Path = _BUILD_DIR) -> BuildInfo:
+    src = src_dir / f"{name}.cu"
+    lib_path = library_path(name, src_dir, build_dir)
     if lib_path.exists():
         return BuildInfo(lib_path, 0.0, False, "")
     nvcc = _find_nvcc()
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir.mkdir(parents=True, exist_ok=True)
     tmp = lib_path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
     t0 = time.perf_counter()
@@ -217,6 +217,27 @@ def load(name: str = "deposit2d") -> tuple[ctypes.CDLL, BuildInfo]:
             info = _build(name)
             _loaded[name] = (_open(name, info), info)
         return _loaded[name]
+
+
+def load_variant(name: str, tag: str, edits: dict[str, str]) -> tuple[ctypes.CDLL, BuildInfo]:
+    """Build ``csrc/<name>.cu`` with each ``old -> new`` text edit applied
+    (each ``old`` must occur once) under ``_build/variant_<tag>/``, and load
+    it with the library's C signatures: a variant of a kernel's design
+    constants, for an A/B measurement beside the package's own build. The
+    package never calls it."""
+    src = _SRC_DIR / f"{name}.cu"
+    text = src.read_text()
+    for old, new in edits.items():
+        if text.count(old) != 1:
+            raise ValueError(f"variant {tag!r}: {old!r} occurs {text.count(old)} times in {src.name}")
+        text = text.replace(old, new)
+    var_dir = _BUILD_DIR / f"variant_{tag}"
+    var_dir.mkdir(parents=True, exist_ok=True)
+    (var_dir / src.name).write_text(text)
+    for hdr in _headers(src, _SRC_DIR):
+        shutil.copyfile(hdr, var_dir / hdr.name)
+    info = _build(name, var_dir, var_dir)
+    return _open(name, info), info
 
 
 def load_all() -> dict[str, tuple[ctypes.CDLL, BuildInfo]]:

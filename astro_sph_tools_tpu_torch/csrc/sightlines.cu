@@ -34,21 +34,51 @@
 //     B * F sums in registers; one warp-shuffle and shared-memory reduction
 //     at the end. Particles with h <= 0 are skipped outright (the TPU
 //     masked a multiply so that a pad's inf could not leak NaN).
-//   * Spectra: a chunk of 256 particles is tested against the 32 rays (one
-//     bit per ray); only the particles some ray reaches (the TPU measured
-//     0.6 % of pair evaluations inside the support) are compacted into
-//     shared memory (ballot + prefix) with their 32 column weights. Each
-//     thread owns kBinsPerThread velocity bins: per live particle it
-//     evaluates phi once per bin and does 32 FMAs into its tau registers.
-//     The TPU's bf16 hi/lo matmul splits are not carried over: the sums are
-//     plain f32 FMAs.
+//   * Spectra: a thread block owns one ray block and kSpecThreads velocity
+//     bins (more bins: blockIdx.y); warp w the 32 contiguous bins from 32 w,
+//     a thread one bin. A chunk of 256 particles is tested against the 32
+//     rays (one bit per ray); the live ones (some ray hits them) are
+//     compacted into shared memory (ballot + prefix) with their ray mask,
+//     the column weights of the rays that hit them, and their line window
+//     and velocity wrap (line_window, mirrored step for step by
+//     ops/spectra_fused.py::line_windows). Then each warp, on its own, takes
+//     the live particles 32 at a time:
+//       a. the profile of each particle whose window reaches the warp's
+//          bins, at each thread's bin, into the thread's own column of
+//          shared memory (s_phi[particle][thread]: no barrier, no bank
+//          conflict);
+//          - Gaussian: the window holds every bin within 10.2 b of the line,
+//            one bin of margin, folded over the periodic bins; a line wider
+//            than half the box takes every bin and the images up to
+//            (|k| - 1/2) v_box < 10.2 b. exp(-z^2) is exactly 0 in f32
+//            outside it, so a warp skips a particle whose window misses its
+//            bins, and a thread a bin outside it;
+//          - Voigt: every bin and image, each term by its branch: the
+//            Chebyshev core of corr(x) only where |x| <= 7, the series in
+//            1/x^2 beyond, exp(-x^2) only where x^2 < 104; a line whose
+//            every image but the principal one lies beyond |z| = 10.5 (all
+//            but the widest) takes those images in one branch-free loop of
+//            the series alone; contiguous bins put whole warps on one
+//            branch of the principal image;
+//          - the wrap of vc_j - v to the principal zone is taken once per
+//            particle: the bin at which it steps by v_box, and two shifts;
+//       b. tau[r][j] += w_r * phi(j) only for the rays r that hit the
+//          particle: for each ray (an unrolled loop, so tau stays in
+//          registers), the batch's particles it hits (a ballot of their mask
+//          bits: the mask matrix transposed), in order.
+//     Each bin's sum is taken in one thread in a fixed order: the same bits
+//     every run and in any block order, no atomics. The wrapper
+//     (ops/spectra_fused.py::spectra_tiles) launches the blocks heaviest
+//     first, so that no heavy block starts last. The TPU's bf16 hi/lo matmul splits are not
+//     carried over: the sums are plain f32 FMAs. The Voigt wing's 1/x^2 is
+//     the hardware reciprocal (within an ulp of the plain version's
+//     division).
 //
 // Bound on the card. Columns: the pair tests (8 rays x candidate particles)
 // and device-memory reads of each span, a few bytes per pair. Spectra: the
-// FP32 and special-function pipes of the profile pass (bins x live particles
-// x images, plus 32 FMAs per bin); the span scan is a small share. A simple
-// first version; a wgmma tile for tau += w @ phi, TMA staging and per-ray
-// live lists are later work.
+// FP32 pipe of the profile pass, (ray block, live particle) pairs x terms
+// (a particle that rays of several blocks hit is evaluated once per block:
+// 1.8 times at config 4), then the scan and the FMAs of the hits.
 
 #include "deposit_common.cuh"
 
@@ -62,9 +92,15 @@ constexpr int kColRays = 8;      // rays per column block
 constexpr int kColThreads = 256;
 constexpr int kSpecRays = 32;    // rays per spectra block (one live bit each)
 constexpr int kSpecThreads = 256;
-constexpr int kBinsPerThread = 2;
-constexpr int kBinsPerBlock = kSpecThreads * kBinsPerThread;
+constexpr int kSpecWarps = kSpecThreads / 32;
+constexpr int kMaxImages = 3;    // velocity images a side (ops/spectra_fused.py::_MAX_IMAGES)
 constexpr float kInvSqrtPi = 0.56418958354775628f;
+// A Gaussian window's half-width in b (ops/spectra_fused.py::_GAUSS_Z_WIN):
+// exp(-z^2) rounds to 0 in f32 once z^2 > 103.98.
+constexpr float kGaussZWin = 10.2f;
+constexpr float kExpX2 = 104.0f;    // expf(-x2) == 0 for x2 >= kExpX2
+constexpr float kVoigtCoreX2 = 49.0f;  // the Chebyshev core: x^2 <= 49, |x| <= 7
+constexpr float kVoigtFarZ = 10.5f;    // an image beyond this |z| everywhere: series alone
 
 // Chebyshev fit of corr(x) = 2 - 4 x F(x) (F = Dawson's function) on [0, 7]
 // in u = x / 3.5 - 1: ops/spectra.py::_VOIGT_CHEB.
@@ -89,47 +125,43 @@ __device__ __forceinline__ float min_image(float d, float L, float invL) {
 }
 
 // H(a, x) = exp(-x^2) (1 + a^2 (1 - 2x^2)) - a / sqrt(pi) * corr(x):
-// ops/spectra.py::voigt_hjerting. corr is the Chebyshev fit for x <= 7 and
-// the asymptotic series in 1/x^2 beyond.
-__device__ __forceinline__ float voigt_hjerting(float a, float z) {
-  const float x = fabsf(z);
-  const float x2 = x * x;
-  float corr;
-  if (x <= 7.0f) {
-    const float u = x * (1.0f / 3.5f) - 1.0f;
-    const float u2 = 2.0f * u;
-    float b1 = 0.0f, b2 = 0.0f;
+// ops/spectra.py::voigt_hjerting. corr is the Chebyshev fit for |x| <= 7 and
+// the asymptotic series in 1/x^2 beyond; the spectra kernel sums the two
+// parts of H over images apart and combines them once a bin.
+__device__ __forceinline__ float voigt_corr_core(float x) {
+  const float u = x * (1.0f / 3.5f) - 1.0f;
+  const float u2 = 2.0f * u;
+  float b1 = 0.0f, b2 = 0.0f;
 #pragma unroll
-    for (int k = 30; k > 0; --k) {
-      const float t = u2 * b1 - b2 + kVoigtCheb[k];
-      b2 = b1;
-      b1 = t;
-    }
-    corr = u * b1 - b2 + kVoigtCheb[0];
-  } else {
-    const float t = 1.0f / x2;
-    corr = -t * (1.0f + t * (1.5f + t * (3.75f + t * (13.125f + t * (59.0625f + t * 324.84375f)))));
+  for (int k = 30; k > 0; --k) {
+    const float t = u2 * b1 - b2 + kVoigtCheb[k];
+    b2 = b1;
+    b1 = t;
   }
-  const float h0 = expf(-x2);
-  return h0 * (1.0f + a * a * (1.0f - 2.0f * x2)) - a * kInvSqrtPi * corr;
+  return u * b1 - b2 + kVoigtCheb[0];
 }
 
-// Line profile with unit velocity integral at velocity offset dv:
-// ops/spectra.py::_profile_sum over images -n_images .. n_images.
-template <bool VOIGT>
-__device__ __forceinline__ float line_profile(float dv, float inv_b, float a, int wrap,
-                                              float v_box, int n_images) {
-  if (wrap) dv = dv - rintf(dv / v_box) * v_box;
-  float phi = 0.0f;
-  for (int k = -n_images; k <= n_images; ++k) {
-    const float z = (dv + (float)k * v_box) * inv_b;
-    if constexpr (VOIGT) {
-      phi += voigt_hjerting(a, z);
-    } else {
-      phi += expf(-(z * z));
-    }
+__device__ __forceinline__ float voigt_corr_series(float x2) {
+  float t;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(t) : "f"(x2));
+  float s = fmaf(t, 324.84375f, 59.0625f);
+  s = fmaf(t, s, 13.125f);
+  s = fmaf(t, s, 3.75f);
+  s = fmaf(t, s, 1.5f);
+  s = fmaf(t, s, 1.0f);
+  return -t * s;
+}
+
+// One Voigt term at z = dv / b, by branch: g += the exp(-x^2) part (only
+// where it is not 0), c += corr(x).
+__device__ __forceinline__ void voigt_term(float z, float a2, float& g, float& c) {
+  const float x2 = z * z;
+  if (x2 <= kVoigtCoreX2) {
+    c += voigt_corr_core(fabsf(z));
+  } else {
+    c += voigt_corr_series(x2);
   }
-  return phi * (kInvSqrtPi * inv_b);
+  if (x2 < kExpX2) g += expf(-x2) * fmaf(a2, fmaf(-2.0f, x2, 1.0f), 1.0f);
 }
 
 // ---------------------------------------------------------------------------
@@ -223,8 +255,121 @@ columns_kernel(const float* __restrict__ packed, long long stride,
 // TPU kernel #5: velocity-space optical depth
 // ---------------------------------------------------------------------------
 
+// The uniform velocity grid: ops/spectra_fused.py::bin_grid (n >= 2 bins).
+struct BinGrid {
+  int n;
+  float nf, vc0, inv_dvb, inv_n;
+};
+
+__device__ __forceinline__ BinGrid make_bin_grid(const float* __restrict__ vc, int n) {
+  BinGrid g;
+  g.n = n;
+  g.nf = (float)n;
+  g.vc0 = vc[0];
+  g.inv_dvb = __fdiv_rn((float)(n - 1), __fsub_rn(vc[n - 1], vc[0]));
+  g.inv_n = __fdiv_rn(1.0f, g.nf);
+  return g;
+}
+
+// A particle's bins and velocity wrap: ops/spectra_fused.py::line_windows,
+// step for step (the _rn intrinsics keep nvcc from fusing its roundings).
+// Bin j is in the window when (j - first) mod n < len; images -img .. img;
+// vc_j - v wraps by shift_lo below bin jw and by shift_hi from it on.
+struct LineWindow {
+  int first, len, img, jw;
+  float shift_lo, shift_hi;
+};
+
 template <bool VOIGT>
-__global__ void __launch_bounds__(kSpecThreads)
+__device__ __forceinline__ LineWindow line_window(float v, float b, const BinGrid& g, int wrap,
+                                                  float v_box, int n_images) {
+  LineWindow w;
+  const float u = __fmul_rn(__fsub_rn(v, g.vc0), g.inv_dvb);
+  const float half = __fmul_rn(__fmul_rn(b, kGaussZWin), g.inv_dvb);
+  w.jw = g.n;
+  w.shift_lo = w.shift_hi = 0.0f;
+  if (wrap) {
+    const float m0 = rintf(-__fmul_rn(u, g.inv_n));
+    const float jw = ceilf(__fadd_rn(u, __fmul_rn(__fadd_rn(m0, 0.5f), g.nf)));
+    w.jw = (int)fminf(fmaxf(jw, 0.0f), g.nf);
+    w.shift_lo = __fmul_rn(m0, v_box);
+    w.shift_hi = __fmul_rn(__fadd_rn(m0, 1.0f), v_box);
+  }
+  w.first = 0;
+  w.len = g.n;
+  w.img = wrap ? n_images : 0;
+  if (VOIGT) return w;
+  if (wrap) {
+    if (__fadd_rn(half, 1.5f) < 0.5f * g.nf) {
+      float uf = __fsub_rn(u, __fmul_rn(floorf(__fmul_rn(u, g.inv_n)), g.nf));
+      uf = fminf(fmaxf(uf, 0.0f), g.nf);
+      int first = (int)floorf(__fsub_rn(uf, half)) - 1;
+      w.len = (int)floorf(__fadd_rn(uf, half)) + 2 - first;
+      w.first = first < 0 ? first + g.n : (first >= g.n ? first - g.n : first);
+      w.img = 0;
+    } else {
+      const float kp = floorf(__fadd_rn(__fmul_rn(__fadd_rn(half, 1.0f), g.inv_n), 0.5f));
+      w.img = (int)fminf(kp, (float)n_images);
+    }
+  } else {
+    const float lo = fmaxf(__fsub_rn(u, half), -2.0f);
+    const float hi = fminf(__fadd_rn(u, half), g.nf + 2.0f);
+    w.first = max((int)floorf(lo) - 1, 0);
+    w.len = max(min((int)floorf(hi) + 2, g.n) - w.first, 0);
+  }
+  return w;
+}
+
+// The Voigt-Hjerting profile at one bin, summed over images -NI .. NI
+// (kv[i + NI] = i v_box): image 0 by branch (voigt_term); the others the
+// same, except that when every bin of an image lies beyond |z| = 10.5
+// (0.5 v_box / b >= 10.5 for all of them: the common case) they take the
+// series alone, a branch-free loop.
+template <int NI>
+__device__ __forceinline__ float voigt_profile(float dv, float ib, float a, float v_box,
+                                               const float (&kv)[2 * NI + 1]) {
+  const float a2 = a * a;
+  float g = 0.0f, c = 0.0f;
+  voigt_term(dv * ib, a2, g, c);
+  if constexpr (NI > 0) {
+    const float vb_ib = v_box * ib;
+    if (0.5f * vb_ib >= kVoigtFarZ) {
+#pragma unroll
+      for (int i = 1; i <= NI; ++i) {
+        const float zp = (dv + kv[NI + i]) * ib, zm = (dv + kv[NI - i]) * ib;
+        c += voigt_corr_series(zp * zp);
+        c += voigt_corr_series(zm * zm);
+      }
+    } else {
+#pragma unroll
+      for (int i = 1; i <= NI; ++i) {
+        const bool far = ((float)i - 0.5f) * vb_ib >= kVoigtFarZ;
+#pragma unroll
+        for (int s = -1; s <= 1; s += 2) {
+          const float z = (dv + kv[NI + s * i]) * ib;
+          if (far) {
+            c += voigt_corr_series(z * z);
+          } else {
+            voigt_term(z, a2, g, c);
+          }
+        }
+      }
+    }
+  }
+  return (g - a * kInvSqrtPi * c) * (kInvSqrtPi * ib);
+}
+
+// Dynamic shared memory of one spectra block: the live particles' column
+// weights (kSpecThreads x (kSpecRays + 1), padded against bank conflicts)
+// and each thread's column of profile values for a batch of 32 of them.
+constexpr size_t kSpecSmemW = sizeof(float) * kSpecThreads * (kSpecRays + 1);
+constexpr size_t kSpecSmem = kSpecSmemW + sizeof(float) * 32 * kSpecThreads;
+
+// NI: velocity images a side (0 without a wrap). Three blocks an SM (as
+// the shared memory allows): up to 85 registers, where ptxas alone chose 64
+// and spilled for the Voigt.
+template <bool VOIGT, int NI>
+__global__ void __launch_bounds__(kSpecThreads, 3)
 spectra_kernel(const float* __restrict__ packed, long long stride,
                const float* __restrict__ rx, const float* __restrict__ ry,
                const int* __restrict__ lo, const int* __restrict__ hi,
@@ -233,11 +378,17 @@ spectra_kernel(const float* __restrict__ packed, long long stride,
                float invLx, float invLy, float inv_sf,
                const float* __restrict__ cheb, int n_cheb, int wrap, float v_box,
                int n_images, float voigt_k) {
+  extern __shared__ float s_dyn[];
+  auto s_w = reinterpret_cast<float (*)[kSpecRays + 1]>(s_dyn);  // [slot][ray]
+  auto s_phi = reinterpret_cast<float (*)[kSpecThreads]>(s_dyn + kSpecSmemW / sizeof(float));
   __shared__ float s_cheb[kMaxCheb];
   __shared__ float s_rx[kSpecRays], s_ry[kSpecRays];
-  __shared__ float s_w[kSpecThreads][kSpecRays + 1];  // live particles' column weights
+  __shared__ unsigned s_mask[kSpecThreads];
   __shared__ float s_v[kSpecThreads], s_ib[kSpecThreads];
-  __shared__ int s_count[kSpecThreads / 32];
+  __shared__ float s_shlo[kSpecThreads], s_shhi[kSpecThreads];
+  __shared__ int s_first[kSpecThreads], s_len[kSpecThreads], s_img[kSpecThreads];
+  __shared__ int s_jw[kSpecThreads];
+  __shared__ int s_count[kSpecWarps];
   const int blk = blockIdx.x;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   for (int k = t; k < n_cheb; k += blockDim.x) s_cheb[k] = cheb[k];
@@ -245,17 +396,16 @@ spectra_kernel(const float* __restrict__ packed, long long stride,
     s_rx[t] = rx[blk * kSpecRays + t];
     s_ry[t] = ry[blk * kSpecRays + t];
   }
-  float vc[kBinsPerThread];
+  const BinGrid grid = make_bin_grid(v_centres, n_bins);
+  const int warp_bin0 = blockIdx.y * kSpecThreads + warp * 32;  // the warp's 32 bins
+  const int j = warp_bin0 + lane;                                // and this thread's
+  const float vcj = j < n_bins ? v_centres[j] : 0.0f;
+  float kv[2 * NI + 1];  // image offsets i * v_box
 #pragma unroll
-  for (int k = 0; k < kBinsPerThread; ++k) {
-    const int j = blockIdx.y * kBinsPerBlock + k * kSpecThreads + t;
-    vc[k] = j < n_bins ? v_centres[j] : 0.0f;
-  }
-  float acc[kSpecRays][kBinsPerThread];
+  for (int i = -NI; i <= NI; ++i) kv[i + NI] = (float)i * v_box;
+  float acc[kSpecRays];
 #pragma unroll
-  for (int r = 0; r < kSpecRays; ++r)
-#pragma unroll
-    for (int k = 0; k < kBinsPerThread; ++k) acc[r][k] = 0.0f;
+  for (int r = 0; r < kSpecRays; ++r) acc[r] = 0.0f;
   __syncthreads();
 
   const float* px = packed;
@@ -292,13 +442,14 @@ spectra_kernel(const float* __restrict__ packed, long long stride,
           }
         }
       }
-      // 2. compact the live particles into shared memory
+      // 2. compact the live particles into shared memory: mask, the weights
+      //    of the rays that hit, line window and wrap
       const unsigned ballot = __ballot_sync(0xffffffffu, mask != 0u);
       if (lane == 0) s_count[warp] = __popc(ballot);
       __syncthreads();
       int slot = 0, n_live = 0;
 #pragma unroll
-      for (int w = 0; w < kSpecThreads / 32; ++w) {
+      for (int w = 0; w < kSpecWarps; ++w) {
         const int c = s_count[w];
         slot += w < warp ? c : 0;
         n_live += c;
@@ -308,50 +459,90 @@ spectra_kernel(const float* __restrict__ packed, long long stride,
         const float inv_sh = inv_h * inv_sf;
         const float q = inv_sh * inv_sh;
         const float N = pN[i];
-        for (int r = 0; r < kSpecRays; ++r) {
-          float w = 0.0f;
-          if ((mask >> r) & 1u) {
-            float dx = s_rx[r] - xs, dy = s_ry[r] - ys;
-            if (periodic) {
-              dx = min_image(dx, Lx, invLx);
-              dy = min_image(dy, Ly, invLy);
-            }
-            const float tq = (dx * dx + dy * dy) * q;
-            w = ast::clenshaw(2.0f * fminf(fmaxf(tq, 0.0f), 1.0f) - 1.0f, s_cheb, n_cheb) *
-                (inv_h * inv_h) * N;
+        for (unsigned mm = mask; mm; mm &= mm - 1u) {
+          const int r = __ffs(mm) - 1;
+          float dx = s_rx[r] - xs, dy = s_ry[r] - ys;
+          if (periodic) {
+            dx = min_image(dx, Lx, invLx);
+            dy = min_image(dy, Ly, invLy);
           }
-          s_w[slot][r] = w;
+          const float tq = (dx * dx + dy * dy) * q;
+          s_w[slot][r] = ast::clenshaw(2.0f * fminf(fmaxf(tq, 0.0f), 1.0f) - 1.0f, s_cheb, n_cheb) *
+                         (inv_h * inv_h) * N;
         }
-        s_v[slot] = pv[i];
-        s_ib[slot] = 1.0f / pb[i];
+        const float v = pv[i], bd = pb[i];
+        const LineWindow win = line_window<VOIGT>(v, bd, grid, wrap, v_box, n_images);
+        s_mask[slot] = mask;
+        s_v[slot] = v;
+        s_ib[slot] = 1.0f / bd;
+        s_first[slot] = win.first;
+        s_len[slot] = win.len;
+        s_img[slot] = win.img;
+        s_jw[slot] = win.jw;
+        s_shlo[slot] = win.shift_lo;
+        s_shhi[slot] = win.shift_hi;
       }
       __syncthreads();
-      // 3. tau[r][bin] += w[p][r] * phi_p(bin) over the live particles
-      for (int p = 0; p < n_live; ++p) {
-        const float v = s_v[p], ib = s_ib[p];
-        const float a_damp = voigt_k * ib;
-        float phi[kBinsPerThread];
+      // 3. tau[r][bin] += w[p][r] * phi_p(bin), 32 live particles at a time;
+      //    each warp on its own (s_phi's column t is thread t's alone)
+      for (int sub = 0; sub < n_live; sub += 32) {
+        const int pl = sub + lane;  // lane l holds the batch's particle l
+        const bool valid = pl < n_live;
+        const unsigned pmask = valid ? s_mask[pl] : 0u;
+        bool reach = valid;
+        if constexpr (!VOIGT) {  // does its window reach this warp's bins?
+          if (valid) {
+            int d0 = warp_bin0 - s_first[pl];
+            if (d0 < 0) d0 += n_bins;
+            const int len = s_len[pl];
+            reach = len > 0 && (d0 < len || d0 + 32 > n_bins);
+          }
+        }
+        const unsigned touch = __ballot_sync(0xffffffffu, reach);
+        // a. the profile of each particle that reaches the warp, at the bin
+        for (unsigned tt = touch; tt; tt &= tt - 1u) {
+          const int q = __ffs(tt) - 1;
+          const int p = sub + q;
+          const float ib = s_ib[p];
+          const float dv = (vcj - s_v[p]) - (j >= s_jw[p] ? s_shhi[p] : s_shlo[p]);
+          float phi = 0.0f;
+          if constexpr (!VOIGT) {
+            const int img = s_img[p];
+            int d = j - s_first[p];
+            if (d < 0) d += n_bins;
+            if (d < s_len[p] && j < n_bins) {
+              float s = 0.0f;
 #pragma unroll
-        for (int k = 0; k < kBinsPerThread; ++k)
-          phi[k] = line_profile<VOIGT>(vc[k] - v, ib, a_damp, wrap, v_box, n_images);
+              for (int k = -NI; k <= NI; ++k) {
+                if (k < -img || k > img) continue;
+                const float z = (dv + kv[k + NI]) * ib;
+                s += expf(-(z * z));
+              }
+              phi = s * (kInvSqrtPi * ib);
+            }
+          } else {
+            if (j < n_bins) phi = voigt_profile<NI>(dv, ib, voigt_k * ib, v_box, kv);
+          }
+          s_phi[q][t] = phi;
+        }
+        // b. into tau, only for the rays that hit: per ray, the batch's
+        //    particles it hits (the mask matrix transposed by ballots)
 #pragma unroll
         for (int r = 0; r < kSpecRays; ++r) {
-          const float w = s_w[p][r];
-#pragma unroll
-          for (int k = 0; k < kBinsPerThread; ++k) acc[r][k] += w * phi[k];
+          for (unsigned hit = __ballot_sync(0xffffffffu, (pmask >> r) & 1u) & touch; hit;
+               hit &= hit - 1u) {
+            const int q = __ffs(hit) - 1;
+            acc[r] = fmaf(s_w[sub + q][r], s_phi[q][t], acc[r]);
+          }
         }
       }
-      __syncthreads();  // the next chunk overwrites s_w and s_count
+      __syncthreads();  // the next chunk overwrites the slots and s_count
     }
   }
 
+  if (j < n_bins) {
 #pragma unroll
-  for (int k = 0; k < kBinsPerThread; ++k) {
-    const int j = blockIdx.y * kBinsPerBlock + k * kSpecThreads + t;
-    if (j >= n_bins) continue;
-#pragma unroll
-    for (int r = 0; r < kSpecRays; ++r)
-      out[((long long)blk * kSpecRays + r) * n_bins + j] = acc[r][k];
+    for (int r = 0; r < kSpecRays; ++r) out[((long long)blk * kSpecRays + r) * n_bins + j] = acc[r];
   }
 }
 
@@ -392,10 +583,11 @@ int sightline_columns_launch(const float* packed, long long stride, int n_fields
   });
 }
 
-// Optical depth of n_blocks ray blocks into out (n_blocks, 32, n_bins).
-// wrap != 0: velocities wrap over v_box and the profile sums images
-// -n_images .. n_images. voigt != 0: Voigt-Hjerting profile with
-// a = voigt_k / b per particle, else Gaussian.
+// Optical depth of n_blocks ray blocks into out (n_blocks, 32, n_bins), on
+// n_bins >= 2 uniformly spaced bin centres (which tile one v_box when
+// wrapping). wrap != 0: velocities wrap over v_box and the profile sums
+// images -n_images .. n_images (at most kMaxImages). voigt != 0:
+// Voigt-Hjerting profile with a = voigt_k / b per particle, else Gaussian.
 int sightline_spectra_launch(const float* packed, long long stride, const float* rx,
                              const float* ry, const int* lo, const int* hi, int n_blocks,
                              const float* v_centres, int n_bins, float* out, int periodic,
@@ -403,19 +595,28 @@ int sightline_spectra_launch(const float* packed, long long stride, const float*
                              int n_cheb, int wrap, float v_box, int n_images, int voigt,
                              float voigt_k, void* stream) {
   if (n_blocks <= 0 || n_bins <= 0) return cudaSuccess;
-  if (n_cheb > kMaxCheb || n_images < 0 || (wrap && !(v_box > 0.0f))) return cudaErrorInvalidValue;
+  if (n_bins < 2 || n_cheb > kMaxCheb || n_images < 0 ||
+      (wrap && (!(v_box > 0.0f) || n_images > kMaxImages)))
+    return cudaErrorInvalidValue;
   const float invLx = (float)(1.0 / (double)Lx), invLy = (float)(1.0 / (double)Ly);
   const float inv_sf = (float)(1.0 / (double)support_factor);
-  const dim3 grid(n_blocks, (n_bins + kBinsPerBlock - 1) / kBinsPerBlock);
+  const dim3 grid(n_blocks, (n_bins + kSpecThreads - 1) / kSpecThreads);
   if (grid.y > 65535u) return cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   auto run = [&](auto kern) {
-    kern<<<grid, kSpecThreads, 0, s>>>(packed, stride, rx, ry, lo, hi, v_centres, n_bins, out,
-                                       periodic, Lx, Ly, invLx, invLy, inv_sf, cheb, n_cheb,
-                                       wrap, v_box, n_images, voigt_k);
+    cudaError_t e = ast::allow_smem(kern, kSpecSmem);
+    if (e != cudaSuccess) return e;
+    kern<<<grid, kSpecThreads, kSpecSmem, s>>>(packed, stride, rx, ry, lo, hi, v_centres, n_bins,
+                                               out, periodic, Lx, Ly, invLx, invLy, inv_sf, cheb,
+                                               n_cheb, wrap, v_box, n_images, voigt_k);
     return cudaGetLastError();
   };
-  return voigt ? run(spectra_kernel<true>) : run(spectra_kernel<false>);
+  switch (wrap ? n_images : 0) {
+    case 0: return voigt ? run(spectra_kernel<true, 0>) : run(spectra_kernel<false, 0>);
+    case 1: return voigt ? run(spectra_kernel<true, 1>) : run(spectra_kernel<false, 1>);
+    case 2: return voigt ? run(spectra_kernel<true, 2>) : run(spectra_kernel<false, 2>);
+    default: return voigt ? run(spectra_kernel<true, 3>) : run(spectra_kernel<false, 3>);
+  }
 }
 
 const char* cuda_error_string(int code) {

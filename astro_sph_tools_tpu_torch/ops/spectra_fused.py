@@ -22,7 +22,7 @@ for Voigt, as the dense and binned engines do.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -58,6 +58,107 @@ def n_velocity_images(profile: str, b_max: float, v_box: float) -> int:
     if profile == "voigt":
         return 3
     return min(3, max(0, int(math.ceil(6.0 * b_max / v_box + 0.5)) - 1))
+
+
+# Half-width of a Gaussian line's window in units of b: exp(-z^2) is exactly
+# 0 in f32 (below half the least subnormal, 2^-150) once z^2 > 103.98, |z| >
+# 10.197. csrc/sightlines.cu holds the same constant.
+_GAUSS_Z_WIN = 10.2
+# The spectra kernel's image loops are unrolled up to this many images a side.
+_MAX_IMAGES = 3
+
+
+class LineWindows(NamedTuple):
+    """Per particle: the bins a line profile is evaluated at, and the
+    velocity wrap of each bin. Bin ``j`` lies in the window when ``(j -
+    first) mod n_bins < length``; images ``-images .. images`` are summed
+    there. ``dv_j = vc_j - v`` wraps to ``dv_j - shift_lo`` for ``j <
+    wrap_bin`` and to ``dv_j - shift_hi`` from it on (the plain version's
+    ``dv - round(dv / v_box) * v_box``, with the rounding taken once per
+    particle)."""
+
+    first: Tensor  # int32
+    length: Tensor  # int32
+    images: Tensor  # int32
+    wrap_bin: Tensor  # int32
+    shift_lo: Tensor  # f32
+    shift_hi: Tensor  # f32
+
+
+def bin_grid(v_centres: Tensor, v_box: Optional[float]) -> tuple[float, float]:
+    """(first centre, 1 / bin width) of the kernel's uniform velocity grid,
+    each an f32 value, as ``csrc/sightlines.cu`` computes them. Raises when
+    the centres are not uniform to a tenth of a bin, or when, with a velocity
+    wrap, the bins do not tile one ``v_box``: the kernel locates each line's
+    window by arithmetic on this grid."""
+    vc = v_centres.detach().to("cpu", torch.float32)
+    n = vc.shape[0]
+    if n < 2:
+        raise ValueError("the spectra kernel needs at least 2 velocity bins")
+    span = vc[-1] - vc[0]
+    inv_dvb = torch.tensor(n - 1.0, dtype=torch.float32) / span
+    if not (math.isfinite(float(inv_dvb)) and float(inv_dvb) > 0.0):
+        raise ValueError("velocity bin centres must increase")
+    ideal = vc[0].double() + torch.arange(n, dtype=torch.float64) * (float(span) / (n - 1))
+    if float((vc.double() - ideal).abs().max()) * float(inv_dvb) > 0.1:
+        raise ValueError("the spectra kernel needs uniformly spaced velocity bins")
+    if v_box is not None and abs(float(span) * n / (n - 1) / float(v_box) - 1.0) > 1e-3:
+        raise ValueError("with a velocity wrap the bins must tile one v_box")
+    return float(vc[0]), float(inv_dvb)
+
+
+def line_windows(v: Tensor, b: Tensor, v_centres: Tensor, *, v_box: Optional[float], n_images: int,
+                 profile: str) -> LineWindows:
+    """Each particle's window of bins and velocity wrap (:class:`LineWindows`)
+    for line centres ``v`` and Doppler widths ``b`` (f32), with the f32
+    arithmetic of ``csrc/sightlines.cu::line_window``, step for step.
+
+    A Gaussian's window holds every bin within ``_GAUSS_Z_WIN * b`` of the
+    line, with one bin of margin. With a velocity wrap it is folded over the
+    ``n_bins`` periodic bins; a line whose window reaches half the box takes
+    every bin and the images up to ``(|k| - 1/2) v_box < _GAUSS_Z_WIN * b``
+    (at most ``n_images``). Without a wrap it is cut at the bin range. A
+    Voigt line takes every bin and image: its wings never vanish."""
+    n = v_centres.shape[0]
+    vc0, inv_dvb = bin_grid(v_centres, v_box)
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32)
+    vc0, inv_dvb, nf = f32(vc0), f32(inv_dvb), f32(float(n))
+    inv_n = f32(1.0) / nf
+    v, b = v.float(), b.float()
+    i32 = lambda x: x.to(torch.int32)
+    full_n = torch.full_like(v, float(n))
+    u = (v - vc0) * inv_dvb
+    half = (b * _GAUSS_Z_WIN) * inv_dvb
+    if v_box is not None:
+        m0 = torch.round(-(u * inv_n))
+        wrap_bin = torch.fmin(torch.fmax(torch.ceil(u + (m0 + 0.5) * nf), torch.zeros_like(u)), full_n)
+        shift_lo, shift_hi = m0 * v_box, (m0 + 1.0) * v_box
+    else:
+        wrap_bin, shift_lo, shift_hi = full_n, torch.zeros_like(v), torch.zeros_like(v)
+    zero = torch.zeros_like(v, dtype=torch.int32)
+    if profile == "voigt":
+        first, length = zero, i32(full_n)
+        images = zero + (n_images if v_box is not None else 0)
+    elif v_box is not None:
+        full = ~(half + 1.5 < 0.5 * nf)
+        uf = u - torch.floor(u * inv_n) * nf
+        uf = torch.fmin(torch.fmax(uf, torch.zeros_like(uf)), full_n)
+        lo = torch.where(full, 0.0, torch.floor(uf - half) - 1.0)
+        end = torch.where(full, 0.0, torch.floor(uf + half) + 2.0)
+        first = i32(lo)
+        length = torch.where(full, n, i32(end) - first)
+        first = torch.where(first < 0, first + n, torch.where(first >= n, first - n, first))
+        first = torch.where(full, 0, first)
+        kp = torch.fmin(torch.floor((half + 1.0) * inv_n + 0.5), torch.full_like(v, float(n_images)))
+        images = torch.where(full, i32(kp), 0)
+    else:
+        lo = torch.fmax(u - half, torch.full_like(u, -2.0))
+        hi = torch.fmin(u + half, full_n + 2.0)
+        first = torch.clamp_min(i32(torch.floor(lo)) - 1, 0)
+        end = torch.clamp_max(i32(torch.floor(hi)) + 2, n)
+        length = torch.clamp_min(end - first, 0)
+        images = zero
+    return LineWindows(i32(first), i32(length), i32(images), i32(wrap_bin), shift_lo, shift_hi)
 
 
 def spectra_tiles_plain(
@@ -129,6 +230,10 @@ def spectra_tiles(
     On a CUDA tensor this launches the hand-written kernel
     ``csrc/sightlines.cu`` (built at first use) and raises if the build or
     the launch fails; on a CPU tensor it runs :func:`spectra_tiles_plain`.
+    The kernel takes at least 2 uniformly spaced bin centres that tile one
+    ``v_box`` when it is given (:func:`bin_grid`, as the engines make them)
+    and at most ``_MAX_IMAGES`` images a side. It runs the blocks heaviest
+    first (:func:`heaviest_first`).
     """
     if profile not in ("gaussian", "voigt"):
         raise ValueError(f"unknown line profile {profile!r}")
@@ -145,14 +250,37 @@ def spectra_tiles(
     out = torch.empty((n_blocks, _B, n_bins), dtype=torch.float32, device=packed.device)
     if n_blocks == 0 or n_bins == 0:
         return out.zero_()
+    bin_grid(v_centres, v_box)
+    if v_box is not None and not 0 <= n_images <= _MAX_IMAGES:
+        raise ValueError(f"the spectra kernel sums 0 to {_MAX_IMAGES} velocity images a side, not {n_images}")
     lib, _ = _build.load("sightlines")
+    order, blocks = heaviest_first(rx, ry, lo, hi)
+    _spectra_launch(lib, packed, *blocks, v_centres, out, **args)
+    spectra_tiles.launches += 1
+    return torch.empty_like(out).index_copy_(0, order, out)
+
+
+def heaviest_first(rx: Tensor, ry: Tensor, lo: Tensor, hi: Tensor) -> tuple[Tensor, tuple]:
+    """The launch order of :func:`spectra_tiles`: blocks by particles
+    scanned, most first, so that no heavy block starts last and runs alone
+    (each block's sums do not depend on it). Returns (order, the blocks' rx,
+    ry, lo, hi in it)."""
+    order = torch.argsort((hi - lo).clamp_min(0).sum(dim=1), descending=True, stable=True)
+    return order, tuple(a[order].contiguous() for a in (rx, ry, lo, hi))
+
+
+def _spectra_launch(lib, packed, rx, ry, lo, hi, v_centres, out, *, kernel, periodic, Lx, Ly, v_box, n_images,
+                    profile, voigt_k) -> None:
+    """Launch ``lib``'s spectra kernel on inputs :func:`spectra_tiles` has
+    checked, into ``out``, on the current stream; raises if the launch
+    fails."""
     cheb = device_const(integrated_kernel_chebyshev(kernel), torch.float32, packed.device)
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream(packed.device).cuda_stream
         code = lib.sightline_spectra_launch(
             packed.data_ptr(), packed.stride(0),
-            rx.data_ptr(), ry.data_ptr(), lo.data_ptr(), hi.data_ptr(), n_blocks,
-            v_centres.data_ptr(), n_bins, out.data_ptr(),
+            rx.data_ptr(), ry.data_ptr(), lo.data_ptr(), hi.data_ptr(), rx.shape[0],
+            v_centres.data_ptr(), v_centres.shape[0], out.data_ptr(),
             int(periodic), float(Lx), float(Ly), float(get_kernel(kernel).support_factor),
             cheb.data_ptr(), cheb.numel(),
             int(v_box is not None), float(v_box or 1.0), int(n_images),
@@ -163,8 +291,6 @@ def spectra_tiles(
         raise RuntimeError(
             f"sightline spectra kernel launch failed: {lib.cuda_error_string(code).decode()} ({code})"
         )
-    spectra_tiles.launches += 1
-    return out
 
 
 #: kernel launches made by :func:`spectra_tiles` in this process (CUDA only)

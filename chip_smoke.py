@@ -23,7 +23,8 @@ fails (non-zero exit) if any phase fails:
 3. sorted main path: ``deposit_2d_auto`` on 2^26 Morton-ordered clustered
    particles with adaptive h, 1024^2 periodic map, 2 fields; checks the
    kernel launch count, finiteness, mass conservation in the integrated
-   projection, and agreement with the plain version on a 2^22 subset;
+   projection, and agreement with the plain version on a 2^22 subset; each
+   level's kernel time beside its bound at this size, counted as phase 2's;
 4. ``render_map_stack`` at 1024^2 on an in-memory snapshot;
 5. host-f64 quality path against the f64 oracle of ``tests/oracles.py``;
 6. row-prep kernel vs its plain version, bit for bit, on phase 3's
@@ -41,13 +42,19 @@ fails (non-zero exit) if any phase fails:
     the fused layout of the config-4 particles (below) and 2048 rays,
     {kernel3d, integrated} x {periodic, open} x F in {1, 5};
 11. spectra kernel vs its plain version, 256 rays, 512 bins, {gaussian,
-    voigt (H I Lya)} x {periodic, open}, with the work its bound counts
-    (``spectra_work``);
+    voigt (H I Lya)} x {periodic, open}, on the config-4 particles and on
+    ``awkward_lines`` (lines at the velocity edges, Doppler widths from a
+    tenth of a bin to 0.6 v_box, 3 Gaussian images a side), with the work
+    its bound counts (``spectra_work``), what the kernel did
+    (``spectra_live_work``: live (ray block, particle) pairs, per distinct
+    particle, and profile terms) and a check that no kernel time is under
+    its bound;
 12. the config-4 path at full size: 10^4 random rays through 10^7 clustered
     gas particles in a periodic 25 cMpc box at z = 0.5 —
     ``column_integrate_pallas`` and ``absorption_spectra_pallas`` (512 bins,
     Gaussian and Voigt); launch counts, finiteness, warm walls, each
-    spectra launch's kernel time beside its bound, the device's busy share,
+    spectra launch's kernel time beside its bound (checked to be no less)
+    and phase 11's counts of what it did, the device's busy share,
     and agreement with the binned engines on 256 rays and with the dense
     spectra engine on a 2^20-particle subset;
 13. 3D voxel deposit kernel (``csrc/deposit3d.cu``) vs its plain version,
@@ -93,7 +100,10 @@ fails (non-zero exit) if any phase fails:
     each routed tail level, each against its plain version;
 18. (only when named in ``--phases``) kernel #6's time per level on phase
     14's layout at region splits of 512, 2048, 8192 (the default) and 32768
-    candidates per block, each held against the default's cube.
+    candidates per block, each held against the default's cube;
+19. (only when named in ``--phases``) kernel #5 against variants of its
+    design constants (``SPECTRA_VARIANTS``), on the config-4 layouts at full
+    size: outputs held to the kernel's, alternating pairs of times.
 
 Every phase prints one JSON line; the kernels' summary line and the card's
 ``nvidia-smi`` line come before the last line, which is
@@ -349,7 +359,8 @@ def phase_build():
     t0 = time.perf_counter()
     libs = _build.load_all()
     for name, (_, info) in libs.items():
-        ptxas = [ln.strip() for ln in info.log.splitlines() if "registers" in ln or "Compiling entry" in ln]
+        ptxas = [ln.strip() for ln in info.log.splitlines()
+                 if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
         emit({
             "phase": "build", "library": os.path.relpath(str(info.path), ROOT),
             "nvcc_seconds": round(info.seconds, 3), "built": info.built,
@@ -463,6 +474,10 @@ def phase_main(torch, device, particles, gen_s):
         kw = dict(cfg=geom.cfg, kernel="cubic_spline", projection="kernel3d",
                   psx=box / 1024, psy=box / 1024, offset=spec.sample_offset)
         lev["kernel_ms"] = cuda_ms(lambda: deposit_tiles(*args, **kw), 3)
+        # the level's bound at main-path size, counted as phase 2 counts it
+        lev.update(bound(nbytes(*args, deposit_tiles(*args, **kw)),
+                         support_points(args[2], 2.0, box / 1024, 2) * pair_ops(2, "kernel3d")))
+        lev["excess_ms"] = lev["kernel_ms"] - lev["bound_ms"]
     busy_ms, prof_wall_ms = device_busy_ms(lambda: deposit_2d_auto(x, y, h, fields, spec, device=device))
 
     integ = deposit_2d_auto(x, y, h, fields, spec, projection="integrated", device=device)
@@ -953,95 +968,219 @@ def phase_columns_kernel(torch, device, sl, n_rays: int = 2048):
 
 # exp(-z^2) rounds to 0 in f32 once z^2 > 103.3 (below the least subnormal)
 GAUSS_Z_MAX = math.sqrt(103.3)
+VOIGT_CORE_X = 7.0  # ops/spectra.py::voigt_hjerting: the Chebyshev fit of corr(x) for |x| <= 7
+# FP32 operations of one profile term (a bin at one velocity image), from
+# ops/spectra.py's arithmetic; an FMA counts 2:
+TERM_BASE_OPS = 5  # the offset from the line and its wrap, the image offset, the scale by 1/b, the sum
+EXP_OPS = 4  # exp(-x^2): range reduction and scaling around the hardware exp2
+CHEB_OPS = 96  # corr(x), |x| <= 7: u = x / 3.5 - 1 and 2u (3), 30 Clenshaw steps (90), the last (3)
+SERIES_OPS = 12  # corr(x), |x| > 7: t = 1/x^2 (1), five Horner steps (10), times -t (1)
+GAUSS_TERM_OPS = TERM_BASE_OPS + 1 + EXP_OPS  # x^2 and exp: 10
+# exp(-x^2) (1 + a^2 (1 - 2 x^2)): x^2 (1), the factor (4), the product (1)
+VOIGT_EXP_OPS = 1 + EXP_OPS + 4 + 1
+VOIGT_CORE_OPS = TERM_BASE_OPS + CHEB_OPS + VOIGT_EXP_OPS + 2  # ... - a/sqrt(pi) corr (2): 113
+VOIGT_WING_EXP_OPS = TERM_BASE_OPS + SERIES_OPS + VOIGT_EXP_OPS + 2  # 29
+VOIGT_SERIES_OPS = TERM_BASE_OPS + 1 + SERIES_OPS + 2  # x^2, the series, combined: 20
 
 
-def spectra_work(torch, sl, n_rays: int, n_bins: int, periodic: bool, profile: str, n_images: int) -> dict:
+def spectra_work(torch, sl, n_rays: int, n_bins: int, periodic: bool, profile: str, n_images: int,
+                 box: float = SIGHT_BOX) -> dict:
     """The FP32 operations that kernel #5's function needs on this run's
     particles, as expected values over uniform random rays. A particle of
     smoothing length h is hit by lam = pi (2 h)^2 n_rays / box^2 rays, and by
     at least one with probability 1 - exp(-lam). The work is:
 
     * per hit, its column weight (``pair_ops(0, "integrated")``);
-    * per particle hit at all, its profile once (the rays share it) at each
-      (bin, velocity image) term where it is not 0 in f32: ~10 operations a
-      Gaussian term, only those with |z| < ``GAUSS_Z_MAX`` (a window of
-      2 * 10.16 b around the line, folded over the 2n + 1 images when the
-      velocities wrap, cut at the bin range when they do not); ~60 a Voigt
-      term, at every bin and image (its wings never vanish);
+    * per particle hit at all, its profile once (the rays share it), term by
+      term (a term: one bin at one velocity image, at z = dv / b):
+
+      - Gaussian, ``GAUSS_TERM_OPS`` = 10, only where |z| < ``GAUSS_Z_MAX``
+        (exp(-z^2) is 0 in f32 beyond): a window of 2 * 10.16 b around the
+        line, folded over the 2n + 1 images when the velocities wrap, cut at
+        the bin range when they do not; for config 4, ~160 of 2,560 terms;
+      - Voigt, by the branch ``voigt_hjerting`` takes: ``VOIGT_CORE_OPS`` =
+        113 where |z| <= 7 (the Chebyshev core and exp), ``VOIGT_WING_EXP_OPS``
+        = 29 where 7 < |z| <= 10.16 (the series and exp) and
+        ``VOIGT_SERIES_OPS`` = 20 beyond (the series alone, exp being 0).
+        Each line's bins at the 2n + 1 images cover |z| up to (n + 1/2)
+        v_box / b, so the counts are 14 b / dv, 6.3 b / dv and the rest of
+        the n_bins (2n + 1) terms, each cut as the Gaussian's window is; at
+        config 4's temperatures (median b 18 km/s, dv = 2.9 km/s, 7 images)
+        3.1 % core, 1.4 % series and exp, 95.5 % series alone;
     * per hit, one multiply-add into tau at every bin where the profile is
       not 0.
 
-    The kernel does more: it evaluates every bin and image for each hit."""
+    The kernel does more: it evaluates a particle's profile once for each
+    ray block whose rays hit it (``spectra_live_work``)."""
     from astro_sph_tools_tpu_torch.ops.spectra import _spectra_inputs
 
     (_, _, h, _, v, b), v_box, vc = _spectra_inputs(
-        sl["pos"], sl["h"], sl["m"], sl["v_pec"], sl["T"], cosmology=sl["cosmology"], box_size=SIGHT_BOX,
+        sl["pos"], sl["h"], sl["m"], sl["v_pec"], sl["T"], cosmology=sl["cosmology"], box_size=box,
         atomic_weight=1.008, n_bins=n_bins, periodic=periodic, device=sl["pos"].device,
     )
     h, v, b = h.double(), v.double(), b.double()
-    lam = math.pi * (2.0 * h) ** 2 * (n_rays / SIGHT_BOX**2)
+    lam = math.pi * (2.0 * h) ** 2 * (n_rays / box**2)
     hit_any = -torch.expm1(-lam)
     images = 2 * n_images + 1
     dv = float(vc[1]) - float(vc[0])
-    if profile == "voigt":
-        terms = torch.full_like(h, float(n_bins * images))
-        bins = torch.full_like(h, float(n_bins))
-        term_ops = 60
-    else:
-        half = GAUSS_Z_MAX * b
+    total = float(n_bins * images)
+    lo, hi = float(vc[0]) - 0.5 * dv, float(vc[-1]) + 0.5 * dv
+
+    def within(radius):
+        """Expected terms with |dv + k v_box| < radius: the images of a
+        periodic axis tile it, an open one is cut at the bin range."""
         if periodic and v_box is not None:
-            terms = torch.clamp(2.0 * half / dv, max=float(n_bins * images))
-            bins = torch.clamp(terms, max=float(n_bins))
-        else:
-            lo, hi = float(vc[0]) - 0.5 * dv, float(vc[-1]) + 0.5 * dv
-            terms = (torch.clamp(v + half, max=hi) - torch.clamp(v - half, min=lo)).clamp_min(0.0) / dv
-            bins = terms
-        term_ops = 10
-    ops = hit_any * terms * term_ops + lam * (2.0 * bins + pair_ops(0, "integrated"))
+            return torch.clamp(2.0 * radius / dv, max=total)
+        return (torch.clamp(v + radius, max=hi) - torch.clamp(v - radius, min=lo)).clamp_min(0.0) / dv
+
+    near = within(GAUSS_Z_MAX * b)
+    if profile == "voigt":
+        core = within(VOIGT_CORE_X * b)
+        series = (total - near).clamp_min(0.0)
+        terms = torch.full_like(h, total)
+        term_ops = core * VOIGT_CORE_OPS + (near - core) * VOIGT_WING_EXP_OPS + series * VOIGT_SERIES_OPS
+        bins = torch.full_like(h, float(n_bins))
+        shares = {"voigt_core_share": float((hit_any * core).sum() / (hit_any * terms).sum()),
+                  "voigt_wing_exp_share": float((hit_any * (near - core)).sum() / (hit_any * terms).sum())}
+    else:
+        terms = near
+        term_ops = terms * GAUSS_TERM_OPS
+        bins = torch.clamp(terms, max=float(n_bins))
+        shares = {}
+    ops = hit_any * term_ops + lam * (2.0 * bins + pair_ops(0, "integrated"))
     return {"ops": float(ops.sum()), "hits": float(lam.sum()), "particles_hit": float(hit_any.sum()),
             "profile_terms_per_particle_hit": float((hit_any * terms).sum() / hit_any.sum()),
-            "velocity_images": images}
+            "velocity_images": images, **shares}
+
+
+def spectra_live_work(torch, lay, vc_t, v_box, n_images: int, profile: str, S: float = 2.0) -> dict:
+    """What kernel #5 does on this layout, counted in torch from the same
+    arithmetic: its (ray block, live particle) pairs (a particle some ray
+    of the block hits: the kernel evaluates its profile once per pair), the
+    distinct live particles, the hits (the FMA rows), and the profile terms
+    it evaluates (each pair's window of bins times its images,
+    ``line_windows``)."""
+    from astro_sph_tools_tpu_torch.ops.sightlines_fused import _pair_geometry, _span_entries
+    from astro_sph_tools_tpu_torch.ops.spectra_fused import line_windows
+
+    blk_all, idx_all = _span_entries(lay.lo, lay.hi)
+    seen = torch.zeros(lay.packed.shape[1], dtype=torch.bool, device=lay.packed.device)
+    block_pairs = torch.zeros(lay.n_blocks, dtype=torch.int64, device=lay.packed.device)
+    pairs = hits = terms = 0
+    step = 1 << 17
+    for c0 in range(0, blk_all.shape[0], step):
+        blk, idx = blk_all[c0:c0 + step], idx_all[c0:c0 + step]
+        b2, hs, inv_h = _pair_geometry(lay.packed, lay.rx, lay.ry, blk, idx, lay.periodic, lay.Lx, lay.Ly)
+        inv_sh = inv_h[:, None] * (1.0 / S)
+        hit = (b2 * (inv_sh * inv_sh) < 1.0) & (hs > 0.0)[:, None]
+        live = hit.any(dim=1)
+        ix = idx[live]
+        seen[ix] = True
+        block_pairs.index_add_(0, blk[live], torch.ones_like(ix))
+        pairs += int(live.sum())
+        hits += int(hit.sum())
+        win = line_windows(lay.packed[4, ix], lay.packed[5, ix], vc_t, v_box=v_box, n_images=n_images,
+                           profile=profile)
+        terms += int((win.length.long() * (2 * win.images.long() + 1)).sum())
+    particles = int(seen.sum())
+    scanned = (lay.hi - lay.lo).clamp_min(0).sum(dim=1)
+    return {"n_blocks": lay.n_blocks, "particles_scanned": int(scanned.sum()),
+            "max_block_scanned": int(scanned.max()), "max_block_live_pairs": int(block_pairs.max()),
+            "live_pairs": pairs, "particles_live": particles,
+            "live_pairs_per_particle": pairs / max(particles, 1), "kernel_hits": hits,
+            "kernel_terms": terms, "kernel_terms_per_pair": terms / max(pairs, 1)}
+
+
+def awkward_lines(cosmology, n: int = 3000, n_rays: int = 64, n_bins: int = 512, seed: int = 23):
+    """A small sightline set whose lines sit where kernel #5's windows are
+    awkward, as NumPy arrays (pos, h, m, v_pec, T, rx, ry, box) for a 10 cMpc
+    periodic box under ``cosmology``: line centres at the velocity edges (0, v_box / 2, just
+    below v_box, a third of a bin beyond either end) and uniform, Doppler
+    widths from a tenth of a bin to 0.6 v_box (the widest take every bin and,
+    for the Gaussian, 3 images a side), supports wide enough that most
+    particles are hit."""
+    from astro_sph_tools_tpu_torch.ops.spectra import doppler_parameter_kms
+
+    box = 10.0
+    rng = np.random.default_rng(seed)
+    dv_dx = cosmology.hubble_rate() * cosmology.expansion_factor
+    v_box = box * dv_dx
+    dv = v_box / n_bins
+    pos = rng.uniform(0.0, box, (n, 3))
+    h = np.exp(rng.normal(np.log(0.4), 0.3, n))
+    m = rng.uniform(0.5, 2.0, n).astype(np.float32)
+    b = np.geomspace(0.1 * dv, 0.6 * v_box, n)
+    rng.shuffle(b)
+    T = b**2 / doppler_parameter_kms(1.0, 1.008) ** 2
+    edges = np.array([0.0, 0.5 * v_box, v_box - 1e-3 * dv, -dv / 3.0, v_box + dv / 3.0])
+    v_eff = np.where(np.arange(n) % 2 == 0, edges[rng.integers(0, len(edges), n)], rng.uniform(0.0, v_box, n))
+    v_pec = (v_eff - pos[:, 2] * dv_dx).astype(np.float32)
+    rx, ry = rng.uniform(0.0, box, n_rays), rng.uniform(0.0, box, n_rays)
+    return pos, h, m, v_pec, T, rx, ry, box
+
+
+def _spectra_case(torch, device, sl, n_rays: int, n_bins: int, periodic: bool, profile: str,
+                  box: float, reps: int) -> dict:
+    """Kernel #5 against its plain version on one layout: errors, times, the
+    work the function needs (``spectra_work``) and what the kernel does
+    (``spectra_live_work``)."""
+    from astro_sph_tools_tpu_torch.ops.spectra import _resolve_profile
+    from astro_sph_tools_tpu_torch.ops.spectra_fused import _spectra_layout, spectra_tiles, spectra_tiles_plain
+
+    lay, vc, v_box, n_images = _spectra_layout(
+        sl["pos"], sl["h"], sl["m"], sl["v_pec"], sl["T"], sl["rx"][:n_rays], sl["ry"][:n_rays],
+        cosmology=sl["cosmology"], box_size=box, atomic_weight=1.008, n_bins=n_bins,
+        kernel="cubic_spline", periodic=periodic, profile=profile, device=device,
+    )
+    vc_t = torch.as_tensor(vc, device=device)
+    args = (lay.packed, lay.rx, lay.ry, lay.lo, lay.hi, vc_t)
+    kw = dict(kernel="cubic_spline", periodic=lay.periodic, Lx=lay.Lx, Ly=lay.Ly, v_box=v_box,
+              n_images=n_images, profile=profile, voigt_k=_resolve_profile(profile, GAMMA_LYA, 1215.67))
+    got = spectra_tiles(*args, **kw)
+    ref = spectra_tiles_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, ref)
+    spans = (lay.hi - lay.lo).clamp_min(0).sum(dim=1)
+    work = spectra_work(torch, sl, n_rays, n_bins, periodic, profile, n_images, box=box)
+    case = {
+        "profile": profile, "periodic": periodic, "n": sl["pos"].shape[0], "n_rays": n_rays,
+        "n_bins": n_bins, "n_blocks": lay.n_blocks, "n_levels": len(lay.rorders), "n_images": n_images,
+        "particles_scanned": int(spans.sum()), **{k: x for k, x in work.items() if k != "ops"},
+        **spectra_live_work(torch, lay, vc_t, v_box, n_images, profile),
+        "max_abs_err": err, "rel_err": rel,
+        "ms": cuda_ms(lambda: spectra_tiles(*args, **kw), reps),
+        "plain_ms": cuda_ms(lambda: spectra_tiles_plain(*args, **kw), 1),
+        **bound(nbytes(*args, got), work["ops"]),
+    }
+    case["bound_share"] = case["bound_ms"] / case["ms"]
+    check(bool(torch.isfinite(got).all()), f"non-finite spectra kernel output {case}")
+    check(rel <= REL_TOL, f"spectra kernel disagrees with its plain version: {case}")
+    return case
+
+
+def check_spectra_bound(case: dict, what: str) -> None:
+    """A kernel faster than the least time for its work means the work was
+    miscounted: fail, rather than print a share over 100 %."""
+    check(case["ms"] >= case["bound_ms"],
+          f"{what}: kernel #5 took {case['ms']} ms, under its bound {case['bound_ms']} ms: the count is wrong")
 
 
 def phase_spectra_kernel(torch, device, sl, n_rays: int = 256, n_bins: int = 512):
     """Kernel #5 vs its plain version on the fused layout of the config-4
-    particles."""
-    from astro_sph_tools_tpu_torch.ops.spectra import _resolve_profile
-    from astro_sph_tools_tpu_torch.ops.spectra_fused import _spectra_layout, spectra_tiles, spectra_tiles_plain
-
+    particles, and on ``awkward_lines``."""
+    pos, h, m, v_pec, T, rx, ry, box = awkward_lines(sl["cosmology"], n_bins=n_bins)
+    f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32, device=device)
+    awk = {"pos": f32(pos), "h": f32(h), "m": f32(m), "v_pec": f32(v_pec), "T": f32(T), "rx": rx, "ry": ry,
+           "cosmology": sl["cosmology"]}
     out = []
-    for periodic in (True, False):
-        for profile in ("gaussian", "voigt"):
-            lay, vc, v_box, n_images = _spectra_layout(
-                sl["pos"], sl["h"], sl["m"], sl["v_pec"], sl["T"], sl["rx"][:n_rays], sl["ry"][:n_rays],
-                cosmology=sl["cosmology"], box_size=SIGHT_BOX, atomic_weight=1.008, n_bins=n_bins,
-                kernel="cubic_spline", periodic=periodic, profile=profile, device=device,
-            )
-            vc_t = torch.as_tensor(vc, device=device)
-            args = (lay.packed, lay.rx, lay.ry, lay.lo, lay.hi, vc_t)
-            kw = dict(kernel="cubic_spline", periodic=lay.periodic, Lx=lay.Lx, Ly=lay.Ly, v_box=v_box,
-                      n_images=n_images, profile=profile,
-                      voigt_k=_resolve_profile(profile, GAMMA_LYA, 1215.67))
-            got = spectra_tiles(*args, **kw)
-            ref = spectra_tiles_plain(*args, **kw)
-            torch.cuda.synchronize()
-            err, rel = rel_err(got, ref)
-            spans = (lay.hi - lay.lo).clamp_min(0).sum(dim=1)
-            work = spectra_work(torch, sl, n_rays, n_bins, periodic, profile, n_images)
-            case = {
-                "phase": "spectra_kernel_vs_plain", "profile": profile, "periodic": periodic,
-                "n": sl["pos"].shape[0], "n_rays": n_rays, "n_bins": n_bins, "n_blocks": lay.n_blocks,
-                "n_levels": len(lay.rorders), "n_images": n_images, "particles_scanned": int(spans.sum()),
-                **{k: x for k, x in work.items() if k != "ops"}, "max_abs_err": err, "rel_err": rel,
-                "ms": cuda_ms(lambda: spectra_tiles(*args, **kw), 3),
-                "plain_ms": cuda_ms(lambda: spectra_tiles_plain(*args, **kw), 1),
-                **bound(nbytes(*args, got), work["ops"]),
-            }
-            emit(case)
-            check(bool(torch.isfinite(got).all()), f"non-finite spectra kernel output {case}")
-            check(rel <= REL_TOL, f"spectra kernel disagrees with its plain version: {case}")
-            out.append(case)
-            del lay, args
+    for name, data, rays, data_box in (("config4", sl, n_rays, SIGHT_BOX), ("awkward", awk, len(rx), box)):
+        for periodic in (True, False):
+            for profile in ("gaussian", "voigt"):
+                case = {"phase": "spectra_kernel_vs_plain", "input": name,
+                        **_spectra_case(torch, device, data, rays, n_bins, periodic, profile, data_box, 3)}
+                emit(case)
+                check_spectra_bound(case, f"phase 11 {name} {profile} periodic={periodic}")
+                out.append(case)
     return out
 
 
@@ -1108,10 +1247,17 @@ def phase_sightlines(torch, device, sl, n_check: int = 256, n_bins: int = 512):
             lay.packed, lay.rx, lay.ry, lay.lo, lay.hi, vc_t, kernel="cubic_spline", periodic=True,
             Lx=lay.Lx, Ly=lay.Ly, v_box=v_box, n_images=n_img, profile=prof,
             voigt_k=_resolve_profile(prof, GAMMA_LYA, 1215.67)), 3)
-        # each full-size launch's bound beside its time
+        # each full-size launch's bound beside its time, and what the kernel did
         work = spectra_work(torch, sl, n_rays, n_bins, True, prof, n_img)
-        kernel_bound[f"spectra_{prof}"] = {**{k: x for k, x in work.items() if k != "ops"}, **bound(
-            nbytes(lay.packed, lay.rx, lay.ry, lay.lo, lay.hi, vc_t) + n_rays * n_bins * 4, work["ops"])}
+        kernel_bound[f"spectra_{prof}"] = {
+            **{k: x for k, x in work.items() if k != "ops"},
+            **spectra_live_work(torch, lay, vc_t, v_box, n_img, prof),
+            **bound(nbytes(lay.packed, lay.rx, lay.ry, lay.lo, lay.hi, vc_t) + n_rays * n_bins * 4, work["ops"]),
+            "ms": kernel_ms[f"spectra_{prof}"],
+        }
+        kernel_bound[f"spectra_{prof}"]["bound_share"] = kernel_bound[f"spectra_{prof}"]["bound_ms"] / kernel_ms[
+            f"spectra_{prof}"]
+        check_spectra_bound(kernel_bound[f"spectra_{prof}"], f"phase 12 {prof}")
     del lay
 
     # the velocity integral of each spectrum is its column (unit-integral
@@ -1158,6 +1304,78 @@ def phase_sightlines(torch, device, sl, n_check: int = 256, n_bins: int = 512):
     check(flux_err < 2e-2, f"spectra lose their columns: {flux_err}")
     bad = {k: r for k, (_, r) in errs.items() if not r <= PATH_TOL}
     check(not bad, f"config-4 path off its oracles: {bad}")
+    return out
+
+
+# kernel #5's variants timed against the built kernel (phase 19): (tag,
+# edits of csrc/sightlines.cu, whether it computes the same function); the
+# others leave out a part of the work, to time the rest. The variants run
+# in the kernel's launch order without the wrapper, so "as_built" shows the
+# wrapper's own time.
+SPECTRA_VARIANTS = (
+    ("as_built", {}, True),  # the kernel's own source: what the wrapper adds
+    ("registers_as_ptxas_chooses", {"__global__ void __launch_bounds__(kSpecThreads, 3)\nspectra_kernel(":
+                                    "__global__ void __launch_bounds__(kSpecThreads)\nspectra_kernel("}, True),
+    ("voigt_far_tested_per_image", {"if (0.5f * vb_ib >= kVoigtFarZ) {": "if (false) {"}, True),
+    ("scan_only", {"for (int sub = 0; sub < n_live; sub += 32) {": "for (int sub = 0; sub < 0 * n_live; sub += 32) {"},
+     False),
+    ("scan_without_weights", {
+        "for (int sub = 0; sub < n_live; sub += 32) {": "for (int sub = 0; sub < 0 * n_live; sub += 32) {",
+        "s_w[slot][r] = ast::clenshaw(2.0f * fminf(fmaxf(tq, 0.0f), 1.0f) - 1.0f, s_cheb, n_cheb) *":
+        "s_w[slot][r] = tq *"}, False),
+    ("profile_only", {"(pmask >> r) & 1u) & touch; hit;": "(pmask >> r) & 1u) & touch & 0u; hit;"}, False),
+)
+
+
+def phase_spectra_variants(torch, device, sl, n_bins: int = 512):
+    """Kernel #5 against variants of its design constants
+    (``SPECTRA_VARIANTS``, each built by ``_build.load_variant``) on the
+    config-4 layouts at full size, Gaussian and Voigt: each variant's output
+    against the kernel's, and three alternating pairs of their times; and
+    the kernel launched in the layout's block order against
+    ``spectra_tiles``'s heaviest-first order."""
+    from astro_sph_tools_tpu_torch import _build
+    from astro_sph_tools_tpu_torch.ops.spectra import _resolve_profile
+    from astro_sph_tools_tpu_torch.ops.spectra_fused import (
+        _spectra_launch, _spectra_layout, heaviest_first, spectra_tiles,
+    )
+
+    built, _ = _build.load("sightlines")
+    variants = [("layout_order", built, None, True)]
+    for tag, edits, same in SPECTRA_VARIANTS:
+        lib, info = _build.load_variant("sightlines", tag, edits)
+        emit({"phase": "spectra_variant_build", "variant": tag, "nvcc_seconds": info.seconds,
+              "ptxas": [ln.strip() for ln in info.log.splitlines() if "spectra_kernel" in ln
+                        or "registers" in ln or "spill" in ln]})
+        variants.append((tag, lib, edits, same))
+    out = []
+    for prof in ("gaussian", "voigt"):
+        lay, vc, v_box, n_img = _spectra_layout(
+            sl["pos"], sl["h"], sl["m"], sl["v_pec"], sl["T"], sl["rx"], sl["ry"], cosmology=sl["cosmology"],
+            box_size=SIGHT_BOX, atomic_weight=1.008, n_bins=n_bins, kernel="cubic_spline", periodic=True,
+            profile=prof, device=device)
+        args = (lay.packed, lay.rx, lay.ry, lay.lo, lay.hi, torch.as_tensor(vc, device=device))
+        kw = dict(kernel="cubic_spline", periodic=True, Lx=lay.Lx, Ly=lay.Ly, v_box=v_box, n_images=n_img,
+                  profile=prof, voigt_k=_resolve_profile(prof, GAMMA_LYA, 1215.67))
+        ref = spectra_tiles(*args, **kw)
+        order, blocks = heaviest_first(*args[1:5])
+        for tag, lib, edits, same in variants:
+            # the variants in the kernel's launch order; layout_order in the layout's
+            vargs = args if edits is None else (lay.packed, *blocks, args[5])
+            want = ref if edits is None else ref[order]
+            got = torch.empty_like(ref)
+            variant = lambda: _spectra_launch(lib, *vargs, got, **kw)
+            variant()
+            torch.cuda.synchronize()
+            err, rel = rel_err(got, want)
+            case = {"phase": "spectra_variant", "variant": tag, "same_function": same, "profile": prof,
+                    "max_abs_err": err, "rel_err": rel, "same_bits": bool(torch.equal(got, want)),
+                    "kernel_vs_variant_ms": alternating_ms(lambda: spectra_tiles(*args, **kw), variant, 3, 3)}
+            emit(case)
+            check(rel <= REL_TOL or not same, f"spectra variant disagrees with the kernel: {case}")
+            check(case["same_bits"] or edits is not None, f"another block order gives other bits: {case}")
+            out.append(case)
+        del lay, args, ref
     return out
 
 
@@ -1751,7 +1969,7 @@ def phase_random(torch, device, particles, gen_s):
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,16,17",
-                        help="comma-separated phases to run (15 and 18 only when named)")
+                        help="comma-separated phases to run (15, 18 and 19 only when named)")
     parser.add_argument("--log2n", type=int, default=MAIN_LOG2N, help="log2 of the main path's particle count")
     parser.add_argument("--sight-n", type=int, default=SIGHT_N, help="gas particles of phases 10-12")
     parser.add_argument("--vox-log2n", type=int, default=VOX_LOG2N, help="log2 of phase 14's particle count")
@@ -1787,10 +2005,12 @@ def main() -> None:
         phase_render_coherent(torch, device, particles)
     del particles
     torch.cuda.empty_cache()
-    sl = sightline_setup(torch, device, args.sight_n) if phases & {10, 11, 12} else None
+    sl = sightline_setup(torch, device, args.sight_n) if phases & {10, 11, 12, 19} else None
     col_cases = phase_columns_kernel(torch, device, sl) if 10 in phases else []
     spec_cases = phase_spectra_kernel(torch, device, sl) if 11 in phases else []
     sight_out = phase_sightlines(torch, device, sl) if 12 in phases else None
+    if 19 in phases:
+        phase_spectra_variants(torch, device, sl)
     del sl
     torch.cuda.empty_cache()
     vox_cases = phase_voxel_kernel(torch, device) if 13 in phases else []
@@ -1822,7 +2042,7 @@ def main() -> None:
     coh_case = pick(coh_cases, F=2, projection="kernel3d")
     launches = coh_out["launches_synced"] if coh_out else {}
     col_case = pick(col_cases, projection="integrated", periodic=True, F=1)
-    spec_case = pick(spec_cases, profile="gaussian", periodic=True)
+    spec_case = pick(spec_cases, input="config4", profile="gaussian", periodic=True)
     vox_case = pick(vox_cases, K=8, F=4, periodic=True)
     app_case = pick(app_cases, case="coarse")
     sight_launches = sight_out["launches"] if sight_out else {}

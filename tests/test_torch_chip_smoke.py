@@ -1,7 +1,10 @@
 """chip_smoke.py's bound for the spectra kernel (#5) counts the work its
 function needs: ``spectra_work``'s expected counts over uniform random rays,
 held against a brute-force count of this seed's (particle, ray) hits and of
-the profile terms that are not 0 in f32, on a small CPU case."""
+the profile terms, on a small CPU case: the Gaussian terms that are not 0 in
+f32, each Voigt term by the branch ``voigt_hjerting`` takes (the Chebyshev
+core for |z| <= 7, the series and exp to |z| = 10.16, the series alone
+beyond)."""
 
 import os
 import sys
@@ -19,7 +22,6 @@ sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
 
 N, N_RAYS, N_BINS = 20000, 256, 512
-TERM_OPS = {"gaussian": 10, "voigt": 60}
 
 
 def small_sightlines(rng):
@@ -56,17 +58,26 @@ def test_spectra_bound_counts_the_needed_work(periodic, profile):
         dy -= cs.SIGHT_BOX * torch.round(dy / cs.SIGHT_BOX)
     n_hits = ((dx * dx + dy * dy) < (2.0 * h.double()[:, None]) ** 2).sum(1)
     hit = n_hits > 0
-    # profile terms (bin, velocity image) that are not 0 in f32
+    # profile terms (bin, velocity image): the Gaussian's where it is not 0
+    # in f32, the Voigt's each by its branch
     d = torch.as_tensor(vc)[None, :] - v[hit][:, None]
     if periodic:
         d = d - torch.round(d / v_box) * v_box
     terms = torch.zeros_like(d)
+    term_ops = torch.zeros_like(d, dtype=torch.float64)
     for k in range(-n_img, n_img + 1):
         z = (d + k * v_box) / b[hit][:, None]
-        terms += 1.0 if profile == "voigt" else (torch.exp(-(z * z)) > 0).float()
+        if profile == "voigt":
+            x = z.abs().double()
+            terms += 1.0
+            term_ops += torch.where(x <= 7.0, cs.VOIGT_CORE_OPS, torch.where(
+                x <= cs.GAUSS_Z_MAX, cs.VOIGT_WING_EXP_OPS, cs.VOIGT_SERIES_OPS))
+        else:
+            live = (torch.exp(-(z * z)) > 0).float()
+            terms += live
+            term_ops += live.double() * cs.GAUSS_TERM_OPS
     live_bins = (terms > 0).sum(1).double()
-    brute = (terms.sum(1).double() * TERM_OPS[profile]).sum() + (
-        n_hits[hit].double() * (2.0 * live_bins + cs.pair_ops(0, "integrated"))).sum()
+    brute = term_ops.sum() + (n_hits[hit].double() * (2.0 * live_bins + cs.pair_ops(0, "integrated"))).sum()
 
     assert work["velocity_images"] == 2 * n_img + 1
     assert abs(work["hits"] / float(n_hits.sum()) - 1.0) < 0.05

@@ -14,6 +14,9 @@ runs low in the damping wings near the antipode (ROADMAP.md §3). The wing
 test below holds the port to the JAX dense engine there, bin by bin.
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -35,6 +38,9 @@ from astro_sph_tools_tpu_torch.ops import (
     voigt_hjerting,
 )
 import astro_sph_tools_tpu_torch.ops.spectra_fused as SPF
+
+# chip_smoke.py (the repository root) holds the awkward-line generator
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 TOL = 1e-5
 FUSED_TOL = 2e-5
@@ -227,6 +233,175 @@ def test_wrapper_runs_plain_on_cpu():
         SPF.spectra_tiles(*args, **{**kw, "profile": "lorentz"})
 
 
+# ---------------------------------------------------------------------------
+# The kernel's line windows (ops/spectra_fused.py::line_windows, mirrored by
+# csrc/sightlines.cu::line_window) and a torch emulation of its sum
+# ---------------------------------------------------------------------------
+
+
+def _window_lines(v_lo, v_hi, dvb, v_box):
+    """Line centres at and beside the velocity edges and inside, times
+    Doppler widths from a tenth of a bin to beyond the box."""
+    eps = 1e-3 * dvb
+    vs = [v_lo, 0.5 * (v_lo + v_hi), v_hi - eps, v_lo - dvb / 3, v_hi + dvb / 3, v_lo + 0.37 * dvb,
+          v_lo + 0.5 * dvb, v_hi - 2.5 * dvb, v_lo - 0.6 * v_box, v_hi + 1.3 * v_box]
+    bs = [0.1 * dvb, 0.35 * dvb, dvb, 2.5 * dvb, 11.0 * dvb, 0.45 * v_box / 10.2, 0.52 * v_box / 10.2,
+          0.3 * v_box, 0.6 * v_box, 1.3 * v_box]
+    v, b = np.meshgrid(np.array(vs), np.array(bs), indexing="ij")
+    return torch.as_tensor(v.ravel(), dtype=torch.float32), torch.as_tensor(b.ravel(), dtype=torch.float32)
+
+
+@pytest.mark.parametrize("n_bins", [128, 384])
+@pytest.mark.parametrize("n_images", [0, 1, 2, 3])
+@pytest.mark.parametrize("periodic", [True, False])
+def test_line_windows_hold_every_nonzero_gaussian_term(periodic, n_images, n_bins):
+    """Brute force: every (line, bin, image) Gaussian term that is not 0 in
+    f32, with the plain version's arithmetic, lies in the line's window and
+    image range; narrow windows stay within 2 * 10.2 b plus 4 bins; and the
+    kernel's once-a-line wrap gives the plain version's wrapped offsets."""
+    v_box = 1000.0
+    lo, hi = (0.0, v_box) if periodic else (-300.0, 1300.0)
+    edges = np.linspace(lo, hi, n_bins + 1)
+    vc = torch.as_tensor((0.5 * (edges[:-1] + edges[1:])).astype(np.float32))
+    dvb = (hi - lo) / n_bins
+    v, b = _window_lines(lo, hi, dvb, v_box)
+    wrap = v_box if periodic else None
+    win = SPF.line_windows(v, b, vc, v_box=wrap, n_images=n_images, profile="gaussian")
+    j = torch.arange(n_bins)
+    in_win = torch.remainder(j[None, :] - win.first[:, None], n_bins) < win.length[:, None]
+    assert bool(((win.length >= 0) & (win.length <= n_bins)).all())
+    assert bool(((win.first >= 0) & ((win.first < n_bins) | (win.length == 0))).all())
+
+    dv = vc[None, :] - v[:, None]
+    if periodic:
+        dv = dv - torch.round(dv / v_box) * v_box
+    ib = 1.0 / b
+    n_live = 0
+    for k in range(-n_images, n_images + 1) if periodic else [0]:
+        z = (dv + k * v_box) * ib[:, None]
+        live = torch.exp(-(z * z)) > 0
+        n_live += int(live.sum())
+        assert not bool((live & ~in_win).any()), f"image {k}: a non-zero term outside its window"
+        assert not bool((live & (abs(k) > win.images)[:, None]).any()), f"image {k} outside the image range"
+    assert n_live > 0
+    narrow = win.length < n_bins
+    assert bool((win.length[narrow] <= 2.0 * 10.2 * b[narrow] / dvb + 4.0).all())
+    assert bool((win.images <= (n_images if periodic else 0)).all())
+    if periodic:
+        # the wrap, taken once a line, against the plain version's per bin
+        dvk = (vc[None, :] - v[:, None]) - torch.where(
+            j[None, :] >= win.wrap_bin[:, None], win.shift_hi[:, None], win.shift_lo[:, None])
+        assert bool((dvk.abs() <= 0.5 * v_box + 1e-3 * dvb).all())
+        away = dv.abs() < 0.5 * v_box - 1e-3 * dvb
+        assert torch.equal(dvk[away], dv[away])
+
+
+def test_bin_grid_refuses_what_the_kernel_cannot_window():
+    vc = torch.linspace(0.5, 127.5, 128)
+    assert SPF.bin_grid(vc, 128.0) == (0.5, pytest.approx(1.0))
+    with pytest.raises(ValueError, match="uniformly spaced"):
+        SPF.bin_grid(vc ** 1.01, None)
+    with pytest.raises(ValueError, match="tile one v_box"):
+        SPF.bin_grid(vc, 200.0)
+    with pytest.raises(ValueError, match="at least 2"):
+        SPF.bin_grid(vc[:1], None)
+
+
+def test_variant_build_refuses_an_edit_that_does_not_match():
+    """``_build.load_variant`` (chip_smoke.py phase 19) applies each edit of
+    the kernel source exactly once, or raises before it writes anything."""
+    from astro_sph_tools_tpu_torch import _build
+
+    with pytest.raises(ValueError, match="occurs 0 times"):
+        _build.load_variant("sightlines", "never", {"constexpr int kNoSuchConstant = 1;": ""})
+    import chip_smoke
+
+    src = (_build._SRC_DIR / "sightlines.cu").read_text()
+    for _, edits, _ in chip_smoke.SPECTRA_VARIANTS:
+        assert all(src.count(old) == 1 for old in edits)
+
+
+def _spectra_emulated(packed, rx, ry, lo, hi, v_centres, *, kernel, periodic, Lx, Ly, v_box, n_images,
+                      profile, voigt_k):
+    """Torch emulation of ``csrc/sightlines.cu::spectra_kernel``'s sum: for
+    each (ray block, live particle) pair, the line profile only at the bins
+    of the particle's window and its images (``line_windows``), with the
+    kernel's once-a-line velocity wrap, added only into the rays that hit
+    the particle. Returns (tau (n_blocks, 32, n_bins), the live pairs, the
+    profile terms evaluated)."""
+    from astro_sph_tools_tpu_torch.kernels.splines import clenshaw, get_kernel, integrated_kernel_chebyshev
+    from astro_sph_tools_tpu_torch.ops.sightlines_fused import _pair_geometry, _span_entries
+
+    S = get_kernel(kernel).support_factor
+    n_blocks, B = rx.shape
+    n = v_centres.shape[0]
+    blk, idx = _span_entries(lo, hi)
+    b2, hs, inv_h = _pair_geometry(packed, rx, ry, blk, idx, periodic, Lx, Ly)
+    inv_sh = inv_h[:, None] * (1.0 / S)
+    tq = b2 * (inv_sh * inv_sh)
+    hit = (tq < 1.0) & (hs > 0.0)[:, None]
+    live = hit.any(dim=1)
+    blk, idx, hit, tq, inv_h = blk[live], idx[live], hit[live], tq[live], inv_h[live]
+    cheb = integrated_kernel_chebyshev(kernel)
+    w = clenshaw(2.0 * torch.clamp(tq, 0.0, 1.0) - 1.0, cheb) * (inv_h * inv_h * packed[3, idx])[:, None]
+    v, bd = packed[4, idx], packed[5, idx]
+    win = SPF.line_windows(v, bd, v_centres, v_box=v_box, n_images=n_images, profile=profile)
+    j = torch.arange(n)
+    in_win = torch.remainder(j[None, :] - win.first[:, None], n) < win.length[:, None]
+    dv = (v_centres[None, :] - v[:, None]) - torch.where(
+        j[None, :] >= win.wrap_bin[:, None], win.shift_hi[:, None], win.shift_lo[:, None])
+    ib = 1.0 / bd
+    phi = torch.zeros_like(dv)
+    terms = 0
+    for k in range(-n_images, n_images + 1) if v_box is not None else [0]:
+        use = in_win & (abs(k) <= win.images)[:, None]
+        z = (dv + k * (v_box or 0.0)) * ib[:, None]
+        term = voigt_hjerting(voigt_k * ib[:, None], z) if profile == "voigt" else torch.exp(-(z * z))
+        phi += torch.where(use, term, 0.0)
+        terms += int(use.sum())
+    phi *= (1.0 / np.sqrt(np.pi)) * ib[:, None]
+    e, r = torch.nonzero(hit, as_tuple=True)  # the rays that hit, only
+    tau = torch.zeros((n_blocks * B, n), dtype=torch.float32)
+    tau.index_add_(0, blk[e] * B + r, w[e, r, None] * phi[e])
+    return tau.view(n_blocks, B, n), int(live.sum()), terms
+
+
+def _awkward():
+    """chip_smoke.py's awkward_lines: lines at the velocity edges, Doppler
+    widths from a tenth of a bin to 0.6 v_box."""
+    import chip_smoke
+
+    return chip_smoke.awkward_lines(Cosmology(**_COSMO), n=1500, n_rays=48)
+
+
+@pytest.mark.parametrize("profile", ["gaussian", "voigt"])
+@pytest.mark.parametrize("periodic", [True, False])
+@pytest.mark.parametrize("inputs", ["data", "awkward"])
+def test_windowed_emulation_matches_plain_and_jax_dense(inputs, periodic, profile):
+    """The kernel's windowed, hit-rays-only sum, emulated in torch, against
+    ``spectra_tiles_plain`` (1e-5 of max) and, through the unsort, against
+    the JAX dense engine (the fused tolerance)."""
+    pos, h, vals, vpec, T, rx, ry, box = _data() if inputs == "data" else _awkward()
+    n_bins = 512 if periodic else 256
+    lay, vc, v_box, n_img = SPF._spectra_layout(
+        pos, h, vals, vpec, T, rx, ry, cosmology=Cosmology(**_COSMO), box_size=box, atomic_weight=1.008,
+        n_bins=n_bins, kernel="cubic_spline", periodic=periodic, profile=profile, device="cpu",
+    )
+    kw = dict(kernel="cubic_spline", periodic=lay.periodic, Lx=lay.Lx, Ly=lay.Ly, v_box=v_box, n_images=n_img,
+              profile=profile, voigt_k=voigt_damping_kms(GAMMA_LYA, 1215.67) if profile == "voigt" else 0.0)
+    args = (lay.packed, lay.rx, lay.ry, lay.lo, lay.hi, torch.as_tensor(vc))
+    got, pairs, terms = _spectra_emulated(*args, **kw)
+    assert _rel(got, SPF.spectra_tiles_plain(*args, **kw)) <= TOL
+    jkw, _ = _kw(True, periodic, box, profile, n_bins=n_bins)
+    ref, _ = j_absorption_spectra(pos, h, vals, vpec, T, rx, ry, **jkw)
+    assert _rel(SPF.unsort_sum(got, lay), ref) <= FUSED_TOL
+    images = 2 * n_img + 1
+    if profile == "voigt":
+        assert terms == pairs * n_bins * images
+    else:  # the windows drop terms (the data's lines are up to ~1/2 box wide)
+        assert 0 < terms < 0.9 * pairs * n_bins * images
+
+
 @pytest.mark.slow
 def test_fused_matches_jax_pallas_interpret():
     """The port's fused engine against the JAX fused engine itself
@@ -251,8 +426,9 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("profile", ["gaussian", "voigt"])
 @pytest.mark.parametrize("periodic", [True, False])
-def test_cuda_spectra_kernel_matches_plain(cuda_device, profile, periodic):
-    pos, h, vals, vpec, T, rx, ry, box = _data()
+@pytest.mark.parametrize("inputs", ["data", "awkward"])
+def test_cuda_spectra_kernel_matches_plain(cuda_device, inputs, profile, periodic):
+    pos, h, vals, vpec, T, rx, ry, box = _data() if inputs == "data" else _awkward()
     lay, vc, v_box, n_img = SPF._spectra_layout(
         pos, h, vals, vpec, T, rx, ry, cosmology=Cosmology(**_COSMO), box_size=box, atomic_weight=1.008,
         n_bins=512, kernel="cubic_spline", periodic=periodic, profile=profile, device=cuda_device,
