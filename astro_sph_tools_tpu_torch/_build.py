@@ -86,7 +86,7 @@ _SIGNATURES = {
         ],
         "sightline_spectra_launch": [
             _P, _LL,  # packed channel rows, row stride
-            _P, _P, _P, _P, _I,  # rx, ry (n_blocks, 32), lo, hi (n_blocks, 10), n_blocks
+            _P, _P, _P, _P, _P, _I,  # rx, ry (n_blocks, 32), lo, hi (n_blocks, 10), block order, n_blocks
             _P, _I, _P,  # v_centres, n_bins, out (n_blocks, 32, n_bins)
             _I, _F, _F, _F,  # periodic, Lx, Ly, support_factor
             _P, _I,  # chebyshev coefficients, count
@@ -176,13 +176,13 @@ def library_path(name: str, src_dir: Path = _SRC_DIR, build_dir: Path = _BUILD_D
     return build_dir / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def _build(name: str, src_dir: Path = _SRC_DIR, build_dir: Path = _BUILD_DIR) -> BuildInfo:
-    src = src_dir / f"{name}.cu"
-    lib_path = library_path(name, src_dir, build_dir)
+def _build(name: str) -> BuildInfo:
+    src = _SRC_DIR / f"{name}.cu"
+    lib_path = library_path(name)
     if lib_path.exists():
         return BuildInfo(lib_path, 0.0, False, "")
     nvcc = _find_nvcc()
-    build_dir.mkdir(parents=True, exist_ok=True)
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib_path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
     t0 = time.perf_counter()
@@ -217,27 +217,6 @@ def load(name: str = "deposit2d") -> tuple[ctypes.CDLL, BuildInfo]:
             info = _build(name)
             _loaded[name] = (_open(name, info), info)
         return _loaded[name]
-
-
-def load_variant(name: str, tag: str, edits: dict[str, str]) -> tuple[ctypes.CDLL, BuildInfo]:
-    """Build ``csrc/<name>.cu`` with each ``old -> new`` text edit applied
-    (each ``old`` must occur once) under ``_build/variant_<tag>/``, and load
-    it with the library's C signatures: a variant of a kernel's design
-    constants, for an A/B measurement beside the package's own build. The
-    package never calls it."""
-    src = _SRC_DIR / f"{name}.cu"
-    text = src.read_text()
-    for old, new in edits.items():
-        if text.count(old) != 1:
-            raise ValueError(f"variant {tag!r}: {old!r} occurs {text.count(old)} times in {src.name}")
-        text = text.replace(old, new)
-    var_dir = _BUILD_DIR / f"variant_{tag}"
-    var_dir.mkdir(parents=True, exist_ok=True)
-    (var_dir / src.name).write_text(text)
-    for hdr in _headers(src, _SRC_DIR):
-        shutil.copyfile(hdr, var_dir / hdr.name)
-    info = _build(name, var_dir, var_dir)
-    return _open(name, info), info
 
 
 def load_all() -> dict[str, tuple[ctypes.CDLL, BuildInfo]]:

@@ -67,12 +67,13 @@
 //          registers), the batch's particles it hits (a ballot of their mask
 //          bits: the mask matrix transposed), in order.
 //     Each bin's sum is taken in one thread in a fixed order: the same bits
-//     every run and in any block order, no atomics. The wrapper
-//     (ops/spectra_fused.py::spectra_tiles) launches the blocks heaviest
-//     first, so that no heavy block starts last. The TPU's bf16 hi/lo matmul splits are not
-//     carried over: the sums are plain f32 FMAs. The Voigt wing's 1/x^2 is
-//     the hardware reciprocal (within an ulp of the plain version's
-//     division).
+//     every run and in any block order, no atomics. Thread blocks take
+//     the ray blocks in the order the wrapper gives
+//     (ops/spectra_fused.py::heaviest_first), so that no heavy block starts
+//     last; each writes its own block's rows. The TPU's bf16 hi/lo matmul
+//     splits are not carried over: the sums are plain f32 FMAs. The Voigt
+//     wing's 1/x^2 is the hardware reciprocal (within an ulp of the plain
+//     version's division).
 //
 // Bound on the card. Columns: the pair tests (8 rays x candidate particles)
 // and device-memory reads of each span, a few bytes per pair. Spectra: the
@@ -373,8 +374,8 @@ __global__ void __launch_bounds__(kSpecThreads, 3)
 spectra_kernel(const float* __restrict__ packed, long long stride,
                const float* __restrict__ rx, const float* __restrict__ ry,
                const int* __restrict__ lo, const int* __restrict__ hi,
-               const float* __restrict__ v_centres, int n_bins,
-               float* __restrict__ out, int periodic, float Lx, float Ly,
+               const int* __restrict__ order, const float* __restrict__ v_centres,
+               int n_bins, float* __restrict__ out, int periodic, float Lx, float Ly,
                float invLx, float invLy, float inv_sf,
                const float* __restrict__ cheb, int n_cheb, int wrap, float v_box,
                int n_images, float voigt_k) {
@@ -389,7 +390,7 @@ spectra_kernel(const float* __restrict__ packed, long long stride,
   __shared__ int s_first[kSpecThreads], s_len[kSpecThreads], s_img[kSpecThreads];
   __shared__ int s_jw[kSpecThreads];
   __shared__ int s_count[kSpecWarps];
-  const int blk = blockIdx.x;
+  const int blk = order[blockIdx.x];  // the wrapper's launch order
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   for (int k = t; k < n_cheb; k += blockDim.x) s_cheb[k] = cheb[k];
   if (t < kSpecRays) {
@@ -585,13 +586,14 @@ int sightline_columns_launch(const float* packed, long long stride, int n_fields
 
 // Optical depth of n_blocks ray blocks into out (n_blocks, 32, n_bins), on
 // n_bins >= 2 uniformly spaced bin centres (which tile one v_box when
-// wrapping). wrap != 0: velocities wrap over v_box and the profile sums
+// wrapping). The i-th thread block runs ray block order[i] (a permutation
+// of the blocks). wrap != 0: velocities wrap over v_box and the profile sums
 // images -n_images .. n_images (at most kMaxImages). voigt != 0:
 // Voigt-Hjerting profile with a = voigt_k / b per particle, else Gaussian.
 int sightline_spectra_launch(const float* packed, long long stride, const float* rx,
-                             const float* ry, const int* lo, const int* hi, int n_blocks,
-                             const float* v_centres, int n_bins, float* out, int periodic,
-                             float Lx, float Ly, float support_factor, const float* cheb,
+                             const float* ry, const int* lo, const int* hi, const int* order,
+                             int n_blocks, const float* v_centres, int n_bins, float* out,
+                             int periodic, float Lx, float Ly, float support_factor, const float* cheb,
                              int n_cheb, int wrap, float v_box, int n_images, int voigt,
                              float voigt_k, void* stream) {
   if (n_blocks <= 0 || n_bins <= 0) return cudaSuccess;
@@ -606,9 +608,9 @@ int sightline_spectra_launch(const float* packed, long long stride, const float*
   auto run = [&](auto kern) {
     cudaError_t e = ast::allow_smem(kern, kSpecSmem);
     if (e != cudaSuccess) return e;
-    kern<<<grid, kSpecThreads, kSpecSmem, s>>>(packed, stride, rx, ry, lo, hi, v_centres, n_bins,
-                                               out, periodic, Lx, Ly, invLx, invLy, inv_sf, cheb,
-                                               n_cheb, wrap, v_box, n_images, voigt_k);
+    kern<<<grid, kSpecThreads, kSpecSmem, s>>>(packed, stride, rx, ry, lo, hi, order, v_centres,
+                                               n_bins, out, periodic, Lx, Ly, invLx, invLy, inv_sf,
+                                               cheb, n_cheb, wrap, v_box, n_images, voigt_k);
     return cudaGetLastError();
   };
   switch (wrap ? n_images : 0) {

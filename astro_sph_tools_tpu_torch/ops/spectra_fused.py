@@ -87,7 +87,7 @@ class LineWindows(NamedTuple):
 
 def bin_grid(v_centres: Tensor, v_box: Optional[float]) -> tuple[float, float]:
     """(first centre, 1 / bin width) of the kernel's uniform velocity grid,
-    each an f32 value, as ``csrc/sightlines.cu`` computes them. Raises when
+    each an f32 value, which ``csrc/sightlines.cu`` takes. Raises when
     the centres are not uniform to a tenth of a bin, or when, with a velocity
     wrap, the bins do not tile one ``v_box``: the kernel locates each line's
     window by arithmetic on this grid."""
@@ -230,10 +230,11 @@ def spectra_tiles(
     On a CUDA tensor this launches the hand-written kernel
     ``csrc/sightlines.cu`` (built at first use) and raises if the build or
     the launch fails; on a CPU tensor it runs :func:`spectra_tiles_plain`.
-    The kernel takes at least 2 uniformly spaced bin centres that tile one
-    ``v_box`` when it is given (:func:`bin_grid`, as the engines make them)
-    and at most ``_MAX_IMAGES`` images a side. It runs the blocks heaviest
-    first (:func:`heaviest_first`).
+    The kernel takes at most ``_MAX_IMAGES`` images a side, and at least 2
+    uniformly spaced bin centres that tile one ``v_box`` when it is given:
+    :func:`_spectra_layout` checks them (:func:`bin_grid`) where it makes
+    them on the host. The kernel runs the blocks heaviest first
+    (:func:`heaviest_first`) and writes each block's rows in place.
     """
     if profile not in ("gaussian", "voigt"):
         raise ValueError(f"unknown line profile {profile!r}")
@@ -250,37 +251,17 @@ def spectra_tiles(
     out = torch.empty((n_blocks, _B, n_bins), dtype=torch.float32, device=packed.device)
     if n_blocks == 0 or n_bins == 0:
         return out.zero_()
-    bin_grid(v_centres, v_box)
     if v_box is not None and not 0 <= n_images <= _MAX_IMAGES:
         raise ValueError(f"the spectra kernel sums 0 to {_MAX_IMAGES} velocity images a side, not {n_images}")
     lib, _ = _build.load("sightlines")
-    order, blocks = heaviest_first(rx, ry, lo, hi)
-    _spectra_launch(lib, packed, *blocks, v_centres, out, **args)
-    spectra_tiles.launches += 1
-    return torch.empty_like(out).index_copy_(0, order, out)
-
-
-def heaviest_first(rx: Tensor, ry: Tensor, lo: Tensor, hi: Tensor) -> tuple[Tensor, tuple]:
-    """The launch order of :func:`spectra_tiles`: blocks by particles
-    scanned, most first, so that no heavy block starts last and runs alone
-    (each block's sums do not depend on it). Returns (order, the blocks' rx,
-    ry, lo, hi in it)."""
-    order = torch.argsort((hi - lo).clamp_min(0).sum(dim=1), descending=True, stable=True)
-    return order, tuple(a[order].contiguous() for a in (rx, ry, lo, hi))
-
-
-def _spectra_launch(lib, packed, rx, ry, lo, hi, v_centres, out, *, kernel, periodic, Lx, Ly, v_box, n_images,
-                    profile, voigt_k) -> None:
-    """Launch ``lib``'s spectra kernel on inputs :func:`spectra_tiles` has
-    checked, into ``out``, on the current stream; raises if the launch
-    fails."""
+    order = heaviest_first(lo, hi)
     cheb = device_const(integrated_kernel_chebyshev(kernel), torch.float32, packed.device)
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream(packed.device).cuda_stream
         code = lib.sightline_spectra_launch(
             packed.data_ptr(), packed.stride(0),
-            rx.data_ptr(), ry.data_ptr(), lo.data_ptr(), hi.data_ptr(), rx.shape[0],
-            v_centres.data_ptr(), v_centres.shape[0], out.data_ptr(),
+            rx.data_ptr(), ry.data_ptr(), lo.data_ptr(), hi.data_ptr(), order.data_ptr(), n_blocks,
+            v_centres.data_ptr(), n_bins, out.data_ptr(),
             int(periodic), float(Lx), float(Ly), float(get_kernel(kernel).support_factor),
             cheb.data_ptr(), cheb.numel(),
             int(v_box is not None), float(v_box or 1.0), int(n_images),
@@ -291,6 +272,17 @@ def _spectra_launch(lib, packed, rx, ry, lo, hi, v_centres, out, *, kernel, peri
         raise RuntimeError(
             f"sightline spectra kernel launch failed: {lib.cuda_error_string(code).decode()} ({code})"
         )
+    spectra_tiles.launches += 1
+    return out
+
+
+def heaviest_first(lo: Tensor, hi: Tensor) -> Tensor:
+    """The order in which :func:`spectra_tiles`'s kernel runs the ray
+    blocks (int32): by particles scanned, most first, ties in block order,
+    so that no heavy block starts last and runs alone. Each block writes
+    its own rows, whose sums do not depend on the order."""
+    scanned = (hi - lo).clamp_min(0).sum(dim=1)
+    return torch.argsort(scanned, descending=True, stable=True).to(torch.int32)
 
 
 #: kernel launches made by :func:`spectra_tiles` in this process (CUDA only)
@@ -360,12 +352,14 @@ def absorption_spectra_pallas(
 def _spectra_layout(pos, h, values, velocities_los, temperatures, ray_x, ray_y, *, cosmology, box_size,
                     atomic_weight, n_bins, kernel, periodic, profile, device):
     """(RayLayout or None, v_centres, wrapped v_box or None, n_images) of a
-    spectra pass on ``device``."""
+    spectra pass on ``device``. Raises if the spectra kernel could not
+    window lines on these bins (:func:`bin_grid`)."""
     (x, y, h_t, col, v_eff, b_dopp), v_box, v_centres = _spectra_inputs(
         pos, h, values, velocities_los, temperatures, cosmology=cosmology, box_size=box_size,
         atomic_weight=atomic_weight, n_bins=n_bins, periodic=periodic, device=device,
     )
     wrap = v_box if (periodic and v_box is not None) else None
+    bin_grid(torch.from_numpy(v_centres), wrap)
     n_images = 0
     if wrap is not None:
         b_max = float(b_dopp.max()) if b_dopp.numel() else 1.0

@@ -100,10 +100,7 @@ fails (non-zero exit) if any phase fails:
     each routed tail level, each against its plain version;
 18. (only when named in ``--phases``) kernel #6's time per level on phase
     14's layout at region splits of 512, 2048, 8192 (the default) and 32768
-    candidates per block, each held against the default's cube;
-19. (only when named in ``--phases``) kernel #5 against variants of its
-    design constants (``SPECTRA_VARIANTS``), on the config-4 layouts at full
-    size: outputs held to the kernel's, alternating pairs of times.
+    candidates per block, each held against the default's cube.
 
 Every phase prints one JSON line; the kernels' summary line and the card's
 ``nvidia-smi`` line come before the last line, which is
@@ -969,18 +966,23 @@ def phase_columns_kernel(torch, device, sl, n_rays: int = 2048):
 # exp(-z^2) rounds to 0 in f32 once z^2 > 103.3 (below the least subnormal)
 GAUSS_Z_MAX = math.sqrt(103.3)
 VOIGT_CORE_X = 7.0  # ops/spectra.py::voigt_hjerting: the Chebyshev fit of corr(x) for |x| <= 7
-# FP32 operations of one profile term (a bin at one velocity image), from
-# ops/spectra.py's arithmetic; an FMA counts 2:
-TERM_BASE_OPS = 5  # the offset from the line and its wrap, the image offset, the scale by 1/b, the sum
+# FP32 operations of a line profile, from ops/spectra.py's arithmetic (an
+# FMA counts 2). A term is one bin at one velocity image, z = (dv + k v_box) / b.
+TERM_OPS = 2  # each term: the scale by 1/b, x^2
+IMAGE_OPS = 2  # each term past the first of its bin: the image offset k v_box, the sum over images
 EXP_OPS = 4  # exp(-x^2): range reduction and scaling around the hardware exp2
 CHEB_OPS = 96  # corr(x), |x| <= 7: u = x / 3.5 - 1 and 2u (3), 30 Clenshaw steps (90), the last (3)
 SERIES_OPS = 12  # corr(x), |x| > 7: t = 1/x^2 (1), five Horner steps (10), times -t (1)
-GAUSS_TERM_OPS = TERM_BASE_OPS + 1 + EXP_OPS  # x^2 and exp: 10
-# exp(-x^2) (1 + a^2 (1 - 2 x^2)): x^2 (1), the factor (4), the product (1)
-VOIGT_EXP_OPS = 1 + EXP_OPS + 4 + 1
-VOIGT_CORE_OPS = TERM_BASE_OPS + CHEB_OPS + VOIGT_EXP_OPS + 2  # ... - a/sqrt(pi) corr (2): 113
-VOIGT_WING_EXP_OPS = TERM_BASE_OPS + SERIES_OPS + VOIGT_EXP_OPS + 2  # 29
-VOIGT_SERIES_OPS = TERM_BASE_OPS + 1 + SERIES_OPS + 2  # x^2, the series, combined: 20
+GAUSS_TERM_OPS = TERM_OPS + EXP_OPS  # 6
+# exp(-x^2) (1 + a^2 (1 - 2 x^2)): exp (4), the factor (4), the product (1)
+VOIGT_EXP_OPS = EXP_OPS + 4 + 1
+VOIGT_CORE_OPS = TERM_OPS + CHEB_OPS + VOIGT_EXP_OPS  # 107
+VOIGT_WING_EXP_OPS = TERM_OPS + SERIES_OPS + VOIGT_EXP_OPS  # 23
+VOIGT_SERIES_OPS = TERM_OPS + SERIES_OPS  # 14
+# once a (particle, bin): the offset from the line, its wrap, the scale by
+# 1 / (sqrt(pi) b); a Voigt also H = g - a / sqrt(pi) corr over the images' sums (2)
+BIN_OPS = 3
+VOIGT_BIN_OPS = BIN_OPS + 2
 
 
 def spectra_work(torch, sl, n_rays: int, n_bins: int, periodic: bool, profile: str, n_images: int,
@@ -992,21 +994,28 @@ def spectra_work(torch, sl, n_rays: int, n_bins: int, periodic: bool, profile: s
 
     * per hit, its column weight (``pair_ops(0, "integrated")``);
     * per particle hit at all, its profile once (the rays share it), term by
-      term (a term: one bin at one velocity image, at z = dv / b):
+      term (a term: one bin at one velocity image, at z = (dv + k v_box) / b):
 
-      - Gaussian, ``GAUSS_TERM_OPS`` = 10, only where |z| < ``GAUSS_Z_MAX``
+      - Gaussian, ``GAUSS_TERM_OPS`` = 6, only where |z| < ``GAUSS_Z_MAX``
         (exp(-z^2) is 0 in f32 beyond): a window of 2 * 10.16 b around the
         line, folded over the 2n + 1 images when the velocities wrap, cut at
         the bin range when they do not; for config 4, ~160 of 2,560 terms;
       - Voigt, by the branch ``voigt_hjerting`` takes: ``VOIGT_CORE_OPS`` =
-        113 where |z| <= 7 (the Chebyshev core and exp), ``VOIGT_WING_EXP_OPS``
-        = 29 where 7 < |z| <= 10.16 (the series and exp) and
-        ``VOIGT_SERIES_OPS`` = 20 beyond (the series alone, exp being 0).
+        107 where |z| <= 7 (the Chebyshev core and exp), ``VOIGT_WING_EXP_OPS``
+        = 23 where 7 < |z| <= 10.16 (the series and exp) and
+        ``VOIGT_SERIES_OPS`` = 14 beyond (the series alone, exp being 0).
         Each line's bins at the 2n + 1 images cover |z| up to (n + 1/2)
         v_box / b, so the counts are 14 b / dv, 6.3 b / dv and the rest of
         the n_bins (2n + 1) terms, each cut as the Gaussian's window is; at
         config 4's temperatures (median b 18 km/s, dv = 2.9 km/s, 7 images)
         3.1 % core, 1.4 % series and exp, 95.5 % series alone;
+      - ``IMAGE_OPS`` = 2 for each term past the first of its bin (its image
+        offset and the sum over images; a Voigt term's second sum, into the
+        exp part, is not counted: the bound errs low), and once per bin where
+        the profile is not 0, ``BIN_OPS`` = 3 (the offset from the line, its
+        wrap, the normalisation), ``VOIGT_BIN_OPS`` = 5 with the Voigt's
+        combination of its two sums; so a Voigt term that is series alone
+        costs 16 and 5/7 at 7 images;
     * per hit, one multiply-add into tau at every bin where the profile is
       not 0.
 
@@ -1040,14 +1049,17 @@ def spectra_work(torch, sl, n_rays: int, n_bins: int, periodic: bool, profile: s
         terms = torch.full_like(h, total)
         term_ops = core * VOIGT_CORE_OPS + (near - core) * VOIGT_WING_EXP_OPS + series * VOIGT_SERIES_OPS
         bins = torch.full_like(h, float(n_bins))
+        bin_ops = VOIGT_BIN_OPS
         shares = {"voigt_core_share": float((hit_any * core).sum() / (hit_any * terms).sum()),
                   "voigt_wing_exp_share": float((hit_any * (near - core)).sum() / (hit_any * terms).sum())}
     else:
         terms = near
         term_ops = terms * GAUSS_TERM_OPS
         bins = torch.clamp(terms, max=float(n_bins))
+        bin_ops = BIN_OPS
         shares = {}
-    ops = hit_any * term_ops + lam * (2.0 * bins + pair_ops(0, "integrated"))
+    profile_ops = term_ops + (terms - bins) * IMAGE_OPS + bins * bin_ops
+    ops = hit_any * profile_ops + lam * (2.0 * bins + pair_ops(0, "integrated"))
     return {"ops": float(ops.sum()), "hits": float(lam.sum()), "particles_hit": float(hit_any.sum()),
             "profile_terms_per_particle_hit": float((hit_any * terms).sum() / hit_any.sum()),
             "velocity_images": images, **shares}
@@ -1304,78 +1316,6 @@ def phase_sightlines(torch, device, sl, n_check: int = 256, n_bins: int = 512):
     check(flux_err < 2e-2, f"spectra lose their columns: {flux_err}")
     bad = {k: r for k, (_, r) in errs.items() if not r <= PATH_TOL}
     check(not bad, f"config-4 path off its oracles: {bad}")
-    return out
-
-
-# kernel #5's variants timed against the built kernel (phase 19): (tag,
-# edits of csrc/sightlines.cu, whether it computes the same function); the
-# others leave out a part of the work, to time the rest. The variants run
-# in the kernel's launch order without the wrapper, so "as_built" shows the
-# wrapper's own time.
-SPECTRA_VARIANTS = (
-    ("as_built", {}, True),  # the kernel's own source: what the wrapper adds
-    ("registers_as_ptxas_chooses", {"__global__ void __launch_bounds__(kSpecThreads, 3)\nspectra_kernel(":
-                                    "__global__ void __launch_bounds__(kSpecThreads)\nspectra_kernel("}, True),
-    ("voigt_far_tested_per_image", {"if (0.5f * vb_ib >= kVoigtFarZ) {": "if (false) {"}, True),
-    ("scan_only", {"for (int sub = 0; sub < n_live; sub += 32) {": "for (int sub = 0; sub < 0 * n_live; sub += 32) {"},
-     False),
-    ("scan_without_weights", {
-        "for (int sub = 0; sub < n_live; sub += 32) {": "for (int sub = 0; sub < 0 * n_live; sub += 32) {",
-        "s_w[slot][r] = ast::clenshaw(2.0f * fminf(fmaxf(tq, 0.0f), 1.0f) - 1.0f, s_cheb, n_cheb) *":
-        "s_w[slot][r] = tq *"}, False),
-    ("profile_only", {"(pmask >> r) & 1u) & touch; hit;": "(pmask >> r) & 1u) & touch & 0u; hit;"}, False),
-)
-
-
-def phase_spectra_variants(torch, device, sl, n_bins: int = 512):
-    """Kernel #5 against variants of its design constants
-    (``SPECTRA_VARIANTS``, each built by ``_build.load_variant``) on the
-    config-4 layouts at full size, Gaussian and Voigt: each variant's output
-    against the kernel's, and three alternating pairs of their times; and
-    the kernel launched in the layout's block order against
-    ``spectra_tiles``'s heaviest-first order."""
-    from astro_sph_tools_tpu_torch import _build
-    from astro_sph_tools_tpu_torch.ops.spectra import _resolve_profile
-    from astro_sph_tools_tpu_torch.ops.spectra_fused import (
-        _spectra_launch, _spectra_layout, heaviest_first, spectra_tiles,
-    )
-
-    built, _ = _build.load("sightlines")
-    variants = [("layout_order", built, None, True)]
-    for tag, edits, same in SPECTRA_VARIANTS:
-        lib, info = _build.load_variant("sightlines", tag, edits)
-        emit({"phase": "spectra_variant_build", "variant": tag, "nvcc_seconds": info.seconds,
-              "ptxas": [ln.strip() for ln in info.log.splitlines() if "spectra_kernel" in ln
-                        or "registers" in ln or "spill" in ln]})
-        variants.append((tag, lib, edits, same))
-    out = []
-    for prof in ("gaussian", "voigt"):
-        lay, vc, v_box, n_img = _spectra_layout(
-            sl["pos"], sl["h"], sl["m"], sl["v_pec"], sl["T"], sl["rx"], sl["ry"], cosmology=sl["cosmology"],
-            box_size=SIGHT_BOX, atomic_weight=1.008, n_bins=n_bins, kernel="cubic_spline", periodic=True,
-            profile=prof, device=device)
-        args = (lay.packed, lay.rx, lay.ry, lay.lo, lay.hi, torch.as_tensor(vc, device=device))
-        kw = dict(kernel="cubic_spline", periodic=True, Lx=lay.Lx, Ly=lay.Ly, v_box=v_box, n_images=n_img,
-                  profile=prof, voigt_k=_resolve_profile(prof, GAMMA_LYA, 1215.67))
-        ref = spectra_tiles(*args, **kw)
-        order, blocks = heaviest_first(*args[1:5])
-        for tag, lib, edits, same in variants:
-            # the variants in the kernel's launch order; layout_order in the layout's
-            vargs = args if edits is None else (lay.packed, *blocks, args[5])
-            want = ref if edits is None else ref[order]
-            got = torch.empty_like(ref)
-            variant = lambda: _spectra_launch(lib, *vargs, got, **kw)
-            variant()
-            torch.cuda.synchronize()
-            err, rel = rel_err(got, want)
-            case = {"phase": "spectra_variant", "variant": tag, "same_function": same, "profile": prof,
-                    "max_abs_err": err, "rel_err": rel, "same_bits": bool(torch.equal(got, want)),
-                    "kernel_vs_variant_ms": alternating_ms(lambda: spectra_tiles(*args, **kw), variant, 3, 3)}
-            emit(case)
-            check(rel <= REL_TOL or not same, f"spectra variant disagrees with the kernel: {case}")
-            check(case["same_bits"] or edits is not None, f"another block order gives other bits: {case}")
-            out.append(case)
-        del lay, args, ref
     return out
 
 
@@ -1969,7 +1909,7 @@ def phase_random(torch, device, particles, gen_s):
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,16,17",
-                        help="comma-separated phases to run (15, 18 and 19 only when named)")
+                        help="comma-separated phases to run (15 and 18 only when named)")
     parser.add_argument("--log2n", type=int, default=MAIN_LOG2N, help="log2 of the main path's particle count")
     parser.add_argument("--sight-n", type=int, default=SIGHT_N, help="gas particles of phases 10-12")
     parser.add_argument("--vox-log2n", type=int, default=VOX_LOG2N, help="log2 of phase 14's particle count")
@@ -2005,12 +1945,10 @@ def main() -> None:
         phase_render_coherent(torch, device, particles)
     del particles
     torch.cuda.empty_cache()
-    sl = sightline_setup(torch, device, args.sight_n) if phases & {10, 11, 12, 19} else None
+    sl = sightline_setup(torch, device, args.sight_n) if phases & {10, 11, 12} else None
     col_cases = phase_columns_kernel(torch, device, sl) if 10 in phases else []
     spec_cases = phase_spectra_kernel(torch, device, sl) if 11 in phases else []
     sight_out = phase_sightlines(torch, device, sl) if 12 in phases else None
-    if 19 in phases:
-        phase_spectra_variants(torch, device, sl)
     del sl
     torch.cuda.empty_cache()
     vox_cases = phase_voxel_kernel(torch, device) if 13 in phases else []

@@ -4,7 +4,8 @@ held against a brute-force count of this seed's (particle, ray) hits and of
 the profile terms, on a small CPU case: the Gaussian terms that are not 0 in
 f32, each Voigt term by the branch ``voigt_hjerting`` takes (the Chebyshev
 core for |z| <= 7, the series and exp to |z| = 10.16, the series alone
-beyond)."""
+beyond), the terms past the first of each bin, and each bin's own work
+once."""
 
 import os
 import sys
@@ -59,7 +60,8 @@ def test_spectra_bound_counts_the_needed_work(periodic, profile):
     n_hits = ((dx * dx + dy * dy) < (2.0 * h.double()[:, None]) ** 2).sum(1)
     hit = n_hits > 0
     # profile terms (bin, velocity image): the Gaussian's where it is not 0
-    # in f32, the Voigt's each by its branch
+    # in f32, the Voigt's each by its branch; then, per bin where the
+    # profile is not 0, its terms past the first and the bin's own work
     d = torch.as_tensor(vc)[None, :] - v[hit][:, None]
     if periodic:
         d = d - torch.round(d / v_box) * v_box
@@ -76,7 +78,10 @@ def test_spectra_bound_counts_the_needed_work(periodic, profile):
             live = (torch.exp(-(z * z)) > 0).float()
             terms += live
             term_ops += live.double() * cs.GAUSS_TERM_OPS
-    live_bins = (terms > 0).sum(1).double()
+    live_bin = terms > 0
+    bin_ops = cs.VOIGT_BIN_OPS if profile == "voigt" else cs.BIN_OPS
+    term_ops += (terms - 1.0).clamp_min(0.0).double() * cs.IMAGE_OPS + live_bin.double() * bin_ops
+    live_bins = live_bin.sum(1).double()
     brute = term_ops.sum() + (n_hits[hit].double() * (2.0 * live_bins + cs.pair_ops(0, "integrated"))).sum()
 
     assert work["velocity_images"] == 2 * n_img + 1

@@ -307,18 +307,23 @@ def test_bin_grid_refuses_what_the_kernel_cannot_window():
         SPF.bin_grid(vc[:1], None)
 
 
-def test_variant_build_refuses_an_edit_that_does_not_match():
-    """``_build.load_variant`` (chip_smoke.py phase 19) applies each edit of
-    the kernel source exactly once, or raises before it writes anything."""
-    from astro_sph_tools_tpu_torch import _build
-
-    with pytest.raises(ValueError, match="occurs 0 times"):
-        _build.load_variant("sightlines", "never", {"constexpr int kNoSuchConstant = 1;": ""})
-    import chip_smoke
-
-    src = (_build._SRC_DIR / "sightlines.cu").read_text()
-    for _, edits, _ in chip_smoke.SPECTRA_VARIANTS:
-        assert all(src.count(old) == 1 for old in edits)
+def test_kernel_runs_the_ray_blocks_heaviest_first():
+    """``heaviest_first``: the ray-block order the CUDA kernel's thread blocks
+    take, a permutation of the blocks by particles scanned, most first, ties
+    (and the empty spans, lo >= hi) in block order."""
+    rng = np.random.default_rng(5)
+    n_blocks = 300
+    lo = torch.as_tensor(rng.integers(0, 1000, (n_blocks, 10)), dtype=torch.int32)
+    hi = lo + torch.as_tensor(rng.integers(-5, 40, (n_blocks, 10)), dtype=torch.int32)
+    hi[::7] = lo[::7]  # blocks that scan nothing
+    order = SPF.heaviest_first(lo, hi)
+    assert order.dtype == torch.int32
+    assert torch.equal(torch.sort(order.long()).values, torch.arange(n_blocks))
+    scanned = (hi - lo).clamp_min(0).sum(dim=1)[order.long()]
+    assert bool((scanned[:-1] >= scanned[1:]).all())
+    ties = scanned[:-1] == scanned[1:]
+    assert bool((order[:-1][ties] < order[1:][ties]).all())
+    assert int(scanned[-1]) == 0 and int(order[-1]) == n_blocks - 1 - (n_blocks - 1) % 7
 
 
 def _spectra_emulated(packed, rx, ry, lo, hi, v_centres, *, kernel, periodic, Lx, Ly, v_box, n_images,
