@@ -53,6 +53,7 @@ _SIGNATURES = {
             _F, _F, _F,  # offset, psx, psy
             _I, _I, _F, _F,  # kernel id, integrated, norm_3d, support_factor
             _P, _I,  # chebyshev coefficients, count
+            _I,  # blocks a tile (cluster size)
             _P,  # cudaStream_t
         ],
     },
@@ -70,6 +71,7 @@ _SIGNATURES = {
             _I, _I, _F, _F, _F,  # K, R, offset, psx, psy
             _I, _I, _F, _F,  # kernel id, integrated, norm_3d, support_factor
             _P, _I,  # chebyshev coefficients, count
+            _I,  # blocks a tile (cluster size)
             _P,  # cudaStream_t
         ],
         "coherent_prep_param_counts": [ctypes.POINTER(_I), ctypes.POINTER(_I)],

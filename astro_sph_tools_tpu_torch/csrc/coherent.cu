@@ -36,22 +36,33 @@
 //
 // 2. coherent_deposit_kernel replaces the TPU kernel
 //    astro_sph_tools_tpu/ops/deposit_coherent.py::_deposit_kernel_coherent.
-//    One block per level-0 tile t walks its slice [cstart[t], cend[t]) of
-//    the tile-sorted candidate list (cand_row holds each candidate's packed
-//    row). For each candidate row it stages the indices of the lanes whose
-//    f32 key channel equals t into shared memory (warp ballots and a shared
-//    counter), then deposits them with the footprint math of
-//    deposit_common.cuh into the tile's (F*R, 128) shared accumulator, and
-//    finally writes the accumulator out once; a tile without candidates
-//    writes zeros. The TPU's packed schedule word (work, kclass, tile, row
-//    bits) exists for its sequential grid and its scalar memory and has no
-//    counterpart. Its K4 column loop (kclass) changes no value: the
-//    support-bounded loop already skips the columns the TPU summed as
+//    Each level-0 tile t owns the slice [cstart[t], cend[t]) of the
+//    tile-sorted candidate list (cand_row holds each candidate's packed
+//    row). A cluster of C blocks shares the tile (C <= 8; the wrapper
+//    takes 2, ops/deposit_tiled.py::_CLUSTER, never from counts):
+//    rank r takes every C-th candidate row from the r-th (cluster_groups in
+//    deposit_common.cuh), so that each block's rows spread over the whole
+//    tile. Within a block a warp takes one (row, 256-lane chunk) item at a
+//    time from a shared counter, so that the block's 8 warps deposit 8
+//    parts of the tile at once and no barrier follows a row (the TPU's grid
+//    walked the rows in order, one after another). For its chunk the warp
+//    ballots the lanes whose f32 key channel equals t into its own list in
+//    shared memory, reads their channels 32 at a time (mostly consecutive
+//    lanes: coalesced) and deposits them with deposit_balanced: the warp's
+//    (particle, pixel) pairs balanced over its lanes, adds into the block's
+//    (F*R, 128) shared accumulator. The cluster then reduce-scatters: block
+//    r adds slice r of the C accumulators in rank order through distributed
+//    shared memory and writes it, zeros included (a tile without
+//    candidates writes zeros). The TPU's packed schedule word (work, kclass,
+//    tile, row bits) exists for its sequential grid and its scalar memory
+//    and has no counterpart. Its K4 column loop (kclass) changes no value:
+//    the support-bounded loop already skips the columns the TPU summed as
 //    zeros, so the per-candidate K4 flags the layout carries are not read.
-//    Bound on the card: one block per tile serialises the densest tile's
-//    candidates (a clustered map holds tiles with many times the mean
-//    candidate count), and the shared-memory atomic adds (one per pixel per
-//    field) within a block.
+//    Bound on the card: device-memory bytes (each candidate row's key
+//    channel, the u, v, h and value channels of its matching lanes, the
+//    candidate arrays and the accumulators written once). The split keeps
+//    a dense tile's rows (up to ~9x the mean on the clustered main path)
+//    from serialising in one block.
 
 #include <float.h>
 #include <limits.h>
@@ -72,6 +83,7 @@ constexpr int kMaxLevels = 4;
 constexpr int kAuxW = 128;
 constexpr int kMaxFields = 4;       // the key channel takes the 8th slot
 constexpr int kMaxD = 60;           // 2 * d_max + 3 + n_levels <= kAuxW
+constexpr int kChunkLanes = 256;    // lanes of a row a warp stages at once (deposit)
 
 struct PrepParams {
   float x0, y0, inv_psx, inv_psy, nxf, nyf, sf, inv_minps;
@@ -280,56 +292,76 @@ coherent_deposit_kernel(const float* __restrict__ packed, int n_fields,
                         const int* __restrict__ cand_row,
                         const int* __restrict__ cstart,
                         const int* __restrict__ cend, float* __restrict__ out,
-                        Footprint p, const float* __restrict__ cheb, int n_cheb) {
-  extern __shared__ float smem[];
+                        Footprint p, const float* __restrict__ cheb, int n_cheb, int C) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
   float* s_cheb = smem;          // kMaxCheb
   float* acc = smem + kMaxCheb;  // n_fields * R * kLanes
   const int plane = p.R * kLanes;
   const int n_acc = n_fields * plane;
-  unsigned short* s_idx = reinterpret_cast<unsigned short*>(acc + n_acc);  // kC
-  __shared__ int s_count;
+  // each warp's matching lanes of one 256-lane chunk of its row
+  unsigned short* s_list = reinterpret_cast<unsigned short*>(acc + n_acc) + (threadIdx.x >> 5) * kChunkLanes;
+  __shared__ int s_next;
 
-  const int t = blockIdx.x;
+  const int t = blockIdx.x / C;
+  const int rank = blockIdx.x - t * C;  // the cluster's block rank (1D clusters)
   const int tid = threadIdx.x;
-  const int lane_id = tid & 31;
+  const int lane = tid & 31;
   for (int i = tid; i < n_acc; i += blockDim.x) acc[i] = 0.0f;
   if constexpr (INTEG) {
     for (int i = tid; i < n_cheb; i += blockDim.x) s_cheb[i] = cheb[i];
   }
-  // keys are integers < 2^24, exact in the f32 channel
+  if (tid == 0) s_next = 0;
+  __syncthreads();
+  // keys are integers < 2^24, exact in the f32 key channel
   const float tkey = (float)t;
   const int key_ch = 3 + n_fields;
-  const unsigned lt_mask = (1u << lane_id) - 1u;
-  const int c1 = cend[t];
-  for (int c = cstart[t]; c < c1; ++c) {
-    const float* rowp = packed + (long long)cand_row[c] * 8 * kC;
+  const unsigned lt_mask = (1u << lane) - 1u;
+  // this rank's candidate rows: every C-th of the tile's, from `rank`; the
+  // warps take their (row, 256-lane chunk) items one at a time from a
+  // shared counter
+  const int c0 = cstart[t];
+  constexpr int kChunks = kC / kChunkLanes;
+  const int n_items = ast::cluster_groups(cend[t] - c0, 1, rank, C) * kChunks;
+  for (;;) {
+    int i = 0;
+    if (lane == 0) i = atomicAdd(&s_next, 1);
+    i = __shfl_sync(0xffffffffu, i, 0);
+    if (i >= n_items) break;
+    const float* rowp = packed + (long long)cand_row[c0 + rank + (i / kChunks) * C] * 8 * kC;
     const float* keyp = rowp + key_ch * kC;
-    if (tid == 0) s_count = 0;
-    __syncthreads();
-    // stage the lanes of this tile (blockDim divides kC: every thread runs
-    // the same trip count, so the full-warp ballot is safe)
-    for (int lane = tid; lane < kC; lane += blockDim.x) {
-      const bool match = keyp[lane] == tkey;
-      const unsigned mask = __ballot_sync(0xffffffffu, match);
-      int base = 0;
-      if (lane_id == 0 && mask) base = atomicAdd(&s_count, __popc(mask));
-      base = __shfl_sync(0xffffffffu, base, 0);
-      if (match) s_idx[base + __popc(mask & lt_mask)] = (unsigned short)lane;
+    {
+      const int ch = (i % kChunks) * kChunkLanes;
+      // the chunk's lanes whose key is this tile, in lane order
+      int cnt = 0;
+#pragma unroll
+      for (int k = 0; k < kChunkLanes / 32; ++k) {
+        const int ln = ch + k * 32 + lane;
+        const bool match = keyp[ln] == tkey;
+        const unsigned mask = __ballot_sync(0xffffffffu, match);
+        if (match) s_list[cnt + __popc(mask & lt_mask)] = (unsigned short)ln;
+        cnt += __popc(mask);
+      }
+      __syncwarp();
+      // deposit them 32 at a time, the warp's pairs balanced over its lanes
+      for (int g = 0; g < cnt; g += 32) {
+        float pu = 0.0f, pv = 0.0f, ph = 0.0f, pval[ast::kMaxFields] = {};
+        if (g + lane < cnt) {
+          const int ln = s_list[g + lane];
+          pu = rowp[ln];
+          pv = rowp[kC + ln];
+          ph = rowp[2 * kC + ln];
+#pragma unroll
+          for (int f = 0; f < kMaxFields; ++f)
+            if (f < n_fields) pval[f] = rowp[(3 + f) * kC + ln];
+        }
+        ast::deposit_balanced<KID, INTEG>(acc, plane, n_fields, p, s_cheb, n_cheb, pu, pv, ph, pval, 1);
+      }
+      __syncwarp();  // s_list is reused by the next chunk
     }
-    __syncthreads();
-    const int n = s_count;
-    for (int i = tid; i < n; i += blockDim.x) {
-      const int lane = s_idx[i];
-      ast::deposit_particle<KID, INTEG>(acc, plane, n_fields, p, s_cheb, n_cheb,
-                                        rowp[lane], rowp[kC + lane],
-                                        rowp[2 * kC + lane], rowp + 3 * kC + lane,
-                                        kC);
-    }
-    __syncthreads();  // s_count and s_idx are reused by the next candidate
   }
   __syncthreads();
-  float* dst = out + (long long)t * n_acc;
-  for (int i = tid; i < n_acc; i += blockDim.x) dst[i] = acc[i];
+  ast::cluster_reduce_store(acc, n_acc, out + (long long)t * n_acc, C);
 }
 
 }  // namespace
@@ -376,25 +408,25 @@ int coherent_prep_launch(const float* x, const float* y, const float* h,
 }
 
 // Coherent deposit of n_tiles level-0 tiles from packed (n_rows, 8, 2048)
-// rows; tile t reads candidates [cstart[t], cend[t]) of cand_row. Writes
-// out (n_tiles, F*R, 128). Returns the cudaError_t of the first failing
-// attribute call or launch.
+// rows over clusters of C blocks a tile; tile t reads candidates
+// [cstart[t], cend[t]) of cand_row. Writes out (n_tiles, F*R, 128).
+// Returns the cudaError_t of the first failing attribute call or launch.
 int coherent_deposit_launch(const float* packed, int n_fields,
                             const int* cand_row, const int* cstart,
                             const int* cend, int n_tiles, float* out, int K,
                             int R, float offset, float psx, float psy,
                             int kernel_id, int integrated, float norm3d,
                             float support_factor, const float* cheb,
-                            int n_cheb, void* stream) {
+                            int n_cheb, int C, void* stream) {
   if (n_tiles <= 0) return cudaSuccess;
   if (n_fields < 1 || n_fields > kMaxFields || n_cheb > kMaxCheb || R <= 0 ||
-      K <= 0)
+      K <= 0 || C < 1 || C > 8)
     return cudaErrorInvalidValue;
   int optin = 0;
   cudaError_t err = ast::smem_optin(&optin);
   if (err != cudaSuccess) return err;
   const size_t smem = (kMaxCheb + (size_t)n_fields * R * kLanes) * sizeof(float) +
-                      kC * sizeof(unsigned short);
+                      kWarps * kChunkLanes * sizeof(unsigned short);
   if (smem > (size_t)optin) return cudaErrorInvalidConfiguration;
   const Footprint p = ast::make_footprint(K, R, offset, psx, psy, norm3d,
                                           support_factor, integrated);
@@ -403,9 +435,8 @@ int coherent_deposit_launch(const float* packed, int n_fields,
     auto kern = coherent_deposit_kernel<decltype(kid)::value, decltype(integ)::value>;
     cudaError_t e = ast::allow_smem(kern, smem);
     if (e != cudaSuccess) return e;
-    kern<<<n_tiles, kThreads, smem, s>>>(packed, n_fields, cand_row, cstart,
-                                         cend, out, p, cheb, n_cheb);
-    return cudaGetLastError();
+    return ast::launch_clusters(kern, n_tiles, C, kThreads, smem, s, packed, n_fields,
+                                cand_row, cstart, cend, out, p, cheb, n_cheb, C);
   });
 }
 

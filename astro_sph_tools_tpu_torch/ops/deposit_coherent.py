@@ -17,9 +17,11 @@ consecutive particles instead:
    coherent_prep.py``, ``csrc/coherent.cu``), a stable two-sided partition;
    ``prep="xla"`` runs :func:`_assign_and_rowsort`, a plain torch batched
    row sort. Both give valid layouts; their lane orders differ.
-2. **Coherent pass**: one CUDA block per level-0 tile deposits the lanes of
-   its candidate rows whose key equals the tile, reading the rows in place
-   (:func:`deposit_coherent_tiles`, ``csrc/coherent.cu``).
+2. **Coherent pass**: a cluster of CUDA blocks per level-0 tile deposits
+   the lanes of its candidate rows whose key equals the tile, reading the
+   rows in place, each block every C-th of the tile's candidate rows, a
+   warp a row at a time (:func:`deposit_coherent_tiles`,
+   ``csrc/coherent.cu``).
 3. **Tail**: each row's last ``tail_eff`` lanes (its level >= 1 lanes, or
    all C for a heavy row) are pulled into one compact array, sorted by key,
    and rendered per level through the sorted engine's kernel
@@ -47,6 +49,7 @@ from .deposit import MapSpec, deposit_2d
 from .deposit_tiled import (
     PALLAS_LEVELS,
     PallasDepositConfig,
+    _CLUSTER,
     _as_field_matrix,
     _check_precision,
     _level_geometry,
@@ -404,8 +407,11 @@ def deposit_coherent_tiles(
     lane; ``cand_tile``/``cand_row`` (int32, sorted by tile; pads carry tile
     ``n_tiles``) list each (tile, row) pair whose row holds lanes of that
     tile. On a CUDA tensor this launches the hand-written kernel
-    ``csrc/coherent.cu`` (built at first use) and raises if the build or the
-    launch fails; on a CPU tensor it runs
+    ``csrc/coherent.cu`` (built at first use) over clusters of
+    ``_CLUSTER`` thread blocks a tile, rank r taking every C-th of the
+    tile's candidate rows from the r-th (``cluster_rank(..., group=1)``),
+    and raises if the build or the launch fails, naming the
+    cluster size; on a CPU tensor it runs
     :func:`deposit_coherent_tiles_plain`. The sums are f32.
     """
     if projection not in ("kernel3d", "integrated"):
@@ -439,6 +445,7 @@ def deposit_coherent_tiles(
     integrated = projection == "integrated"
     cheb = device_const(integrated_kernel_chebyshev(kernel), torch.float32, dev) if integrated else None
     lib, _ = _build.load("coherent")
+    C = _CLUSTER
     with torch.cuda.device(dev):
         code = lib.coherent_deposit_launch(
             packed.data_ptr(), n_fields, cand_row.data_ptr(), cstart.data_ptr(),
@@ -446,11 +453,12 @@ def deposit_coherent_tiles(
             float(offset), float(psx), float(psy),
             kspec.kernel_id, int(integrated), float(kspec.norm_3d), float(kspec.support_factor),
             cheb.data_ptr() if integrated else None, cheb.numel() if integrated else 0,
-            torch.cuda.current_stream(dev).cuda_stream,
+            C, torch.cuda.current_stream(dev).cuda_stream,
         )
     if code != 0:
         raise RuntimeError(
-            f"coherent deposit kernel launch failed: {lib.cuda_error_string(code).decode()} ({code})"
+            f"coherent deposit kernel launch failed with clusters of {C} blocks (F={n_fields}): "
+            f"{lib.cuda_error_string(code).decode()} ({code})"
         )
     deposit_coherent_tiles.launches += 1
     return out

@@ -19,7 +19,9 @@ its values are the JAX engine's; its TPU workarounds are gone:
    layout of :mod:`.layout_shear` instead, pad slots included.
 3. **Deposit**: per populated level, :func:`deposit_tiles` fills the
    (n_tiles, F*R, 128) extended tile accumulators — the CUDA kernel
-   ``csrc/deposit2d.cu`` on a CUDA tensor, the plain torch version
+   ``csrc/deposit2d.cu`` on a CUDA tensor (each tile's particles split
+   over a cluster of ``_CLUSTER`` thread blocks in groups of 8,
+   :func:`cluster_rank`), the plain torch version
    :func:`deposit_tiles_plain` on a CPU tensor.
 4. **Overlap-add**: extended tiles are summed into the (F, ny, nx) image
    with nine band adds (:func:`_overlap_add`).
@@ -237,6 +239,44 @@ def deposit_tiles_plain(
     return out.view(n_tiles, n_fields * R, S)
 
 
+# thread blocks a tile's work is split over on the card (a thread-block
+# cluster), in both 2D deposit kernels (csrc/deposit2d.cu, csrc/coherent.cu)
+# and at every level: fixed, never taken from particle counts, so that a
+# render sized from capacities needs no count on the host. Two blocks halve
+# the densest tile's walk; more blocks walk it faster but cost every light
+# tile their zeroing and their share of the cluster's sum (PERF.md
+# section 6)
+_CLUSTER = 2
+
+
+#: particles a group of the sorted engine's cluster split: one 32-byte
+#: sector of each input array; the coherent engine splits candidate rows one
+#: by one
+CLUSTER_GROUP = 8
+
+
+def cluster_rank(offset: Tensor, C: int, group: int = CLUSTER_GROUP) -> Tensor:
+    """The block of a tile's C-block cluster that deposits the item at
+    ``offset`` in the tile: the items form groups of ``group``, and rank r
+    takes groups r, r + C, r + 2 C, ..., so that every block's share covers
+    the whole tile (``csrc/deposit_common.cuh::cluster_groups``)."""
+    return torch.div(offset, group, rounding_mode="floor") % C
+
+
+def cluster_share_sizes(count: Tensor, C: int, group: int = CLUSTER_GROUP) -> Tensor:
+    """Items each rank of each tile's cluster deposits, (n_tiles, C) int64,
+    step for step as the kernels count them: the rank's groups
+    (``cluster_groups``), all full but the tile's last, which may be short.
+    The shares differ by at most ``group`` items."""
+    count = count.to(torch.int64)[:, None]
+    r = torch.arange(C, dtype=torch.int64, device=count.device)[None, :]
+    n_groups = (count + group - 1) // group
+    mine = torch.where(r < n_groups, (n_groups - r + C - 1) // C, 0)
+    last = n_groups - 1
+    short = torch.where((mine > 0) & (last % C == r), (last + 1) * group - count, 0)
+    return mine * group - short
+
+
 _CONSTS: dict = {}
 
 
@@ -291,8 +331,10 @@ def deposit_tiles(
     ``u, v, h`` (n,) and ``values`` (F, n) are the level's tile-sorted,
     tile-local particles; tile t owns ``[pstart[t], pstart[t] + pcount[t])``.
     On a CUDA tensor this launches the hand-written kernel
-    ``csrc/deposit2d.cu`` (built at first use) and raises if the build or the
-    launch fails; on a CPU tensor it runs :func:`deposit_tiles_plain`.
+    ``csrc/deposit2d.cu`` (built at first use) over clusters of
+    ``_CLUSTER`` thread blocks a tile and raises if the build or the launch
+    fails, naming the cluster size; on a CPU tensor it runs
+    :func:`deposit_tiles_plain`.
 
     Precision: the kernel sums in f32 FMA arithmetic whatever ``precision=``
     the caller chose — at least as accurate as each of the TPU engine's bf16
@@ -314,6 +356,7 @@ def deposit_tiles(
     lib, _ = _build.load()
     integrated = projection == "integrated"
     cheb = device_const(integrated_kernel_chebyshev(kernel), torch.float32, u.device) if integrated else None
+    C = _CLUSTER
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
         code = lib.deposit2d_launch(
@@ -324,11 +367,12 @@ def deposit_tiles(
             float(offset), float(psx), float(psy),
             kspec.kernel_id, int(integrated), float(kspec.norm_3d), float(kspec.support_factor),
             cheb.data_ptr() if integrated else None, cheb.numel() if integrated else 0,
-            stream,
+            C, stream,
         )
     if code != 0:
         raise RuntimeError(
-            f"deposit2d kernel launch failed: {lib.cuda_error_string(code).decode()} ({code})"
+            f"deposit2d kernel launch failed with clusters of {C} blocks (K={cfg.K}, "
+            f"F={values.shape[0]}): {lib.cuda_error_string(code).decode()} ({code})"
         )
     deposit_tiles.launches += 1
     return out

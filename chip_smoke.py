@@ -17,21 +17,41 @@ fails (non-zero exit) if any phase fails:
 1. build: compile every CUDA kernel library (``csrc/deposit2d.cu``,
    ``csrc/coherent.cu``, ``csrc/sightlines.cu``, ``csrc/deposit3d.cu``,
    ``csrc/layout_shear.cu``), one nvcc per source, all started together;
-2. sorted-engine deposit kernel vs its plain torch version on the card, for
-   every level K in {8, 16, 32, 64} x F in {2, 5} x projection, on a 1024^2
-   map with 2^18 particles whose h lies inside the level;
+2. sorted-engine deposit kernel (#1) vs its plain torch version on the
+   card, for every level K in {8, 16, 32, 64} x F in {2, 5} x projection,
+   on a 1024^2 map: 2^18 uniform particles whose h lies inside the level,
+   and dense tiles (``DENSE_N[K]`` Morton-ordered clustered particles on
+   4 x 4 of the level's tiles, a few hundred footprints a pixel; at K = 8
+   also 2^20 on 2 x 2 tiles, radii uniform in the level, thousands a
+   pixel), with the plain version's own run-to-run spread on the dense
+   inputs and kernel and plain against the f64 sum of the plain version's
+   terms (``plain_f64_sum``, the yardstick of the 2 x 2 case); each case's
+   cluster size, largest share a block, densest tile's time alone, and a
+   check that no kernel time is under its bound; at K = 8 and 32 with F =
+   5 the dense tiles also over clusters of 1 and 8 blocks;
 3. sorted main path: ``deposit_2d_auto`` on 2^26 Morton-ordered clustered
    particles with adaptive h, 1024^2 periodic map, 2 fields; checks the
    kernel launch count, finiteness, mass conservation in the integrated
    projection, and agreement with the plain version on a 2^22 subset; each
-   level's kernel time beside its bound at this size, counted as phase 2's;
+   level's kernel time beside its bound at this size, counted as phase 2's,
+   its cluster size, largest share a block and densest tile's time alone
+   (no kernel time may fall under its bound), and the densest tile against
+   the plain version at full size, with plain's own spread and both
+   against ``plain_f64_sum``;
 4. ``render_map_stack`` at 1024^2 on an in-memory snapshot;
 5. host-f64 quality path against the f64 oracle of ``tests/oracles.py``;
 6. row-prep kernel vs its plain version, bit for bit, on phase 3's
    particles, on 2^22 of them shuffled (most rows heavy) and on a
    non-periodic map with every 131st particle off the extent;
-7. coherent deposit kernel vs its plain version on the layout of phase 3's
-   particles, F in {1, 2, 4} x projection;
+7. coherent deposit kernel (#2) vs its plain version on the layout of phase
+   3's particles, F in {1, 2, 4} x projection, and on dense tiles (2^20
+   Morton-ordered clustered particles on 4 x 4 level-0 tiles, F in {2, 4},
+   split over more than one block; F = 4 also over clusters of 1 and 8
+   blocks); each case's cluster size, largest
+   share of candidate rows a block, densest tile's time alone, and its
+   bound (``coherent_bytes``: the key channel of each distinct candidate
+   row, the other channels of the lanes that match, the candidate arrays
+   and the output), which no kernel time may fall under;
 8. coherent main path at 2^26 (phase 3's particles): ``deposit_2d_coherent``
    and, with capacities from its layout, ``deposit_2d_coherent_fused``
    (the latter once more under ``torch.cuda.set_sync_debug_mode("error")``),
@@ -100,7 +120,7 @@ fails (non-zero exit) if any phase fails:
     each routed tail level, each against its plain version;
 18. (only when named in ``--phases``) kernel #6's time per level on phase
     14's layout at region splits of 512, 2048, 8192 (the default) and 32768
-    candidates per block, each held against the default's cube.
+    candidates per block, each held against the default's cube;
 
 Every phase prints one JSON line; the kernels' summary line and the card's
 ``nvidia-smi`` line come before the last line, which is
@@ -386,7 +406,188 @@ def _level_inputs(torch, cfg, lo_s, hi_s, n_fields, n, spec, seed, device):
     return geom, (u_loc[perm], v_loc[perm], h[perm], vals[:, perm].contiguous(), pstart, pcount)
 
 
+def morton_key(torch, ix, iy):
+    """Morton (z-order) key of non-negative int64 cell coordinates < 2^16."""
+    key = torch.zeros_like(ix)
+    for b in range(16):
+        key |= ((ix >> b) & 1) << (2 * b)
+        key |= ((iy >> b) & 1) << (2 * b + 1)
+    return key
+
+
+def dense_positions(torch, n: int, w: float, hgt: float, seed: int, device):
+    """``n`` clustered positions in a ``w`` x ``hgt`` box from the origin
+    (half in a Gaussian blob of a sixth of the box, half uniform; the blob's
+    centre holds ~3.4x the mean density), in Morton order over the box, as a
+    snapshot's space-filling curve keeps them."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    half = n // 2
+    x = torch.cat([w * (0.5 + torch.randn(half, generator=g, device=device) / 6.0),
+                   w * torch.rand(n - half, generator=g, device=device)]).clamp(0.0, w * (1 - 1e-6))
+    y = torch.cat([hgt * (0.5 + torch.randn(half, generator=g, device=device) / 6.0),
+                   hgt * torch.rand(n - half, generator=g, device=device)]).clamp(0.0, hgt * (1 - 1e-6))
+    ix = (x / w * 65536).long().clamp(0, 65535)
+    iy = (y / hgt * 65536).long().clamp(0, 65535)
+    order = torch.argsort(morton_key(torch, ix, iy))
+    return x[order], y[order], g
+
+
+# dense-tile cases of phase 2: particles on 4 x 4 of the level's tiles, so
+# many that a pixel lies in a few hundred footprints on average, as in the
+# main path's densest tiles (342,485 particles on one K = 8 tile's 8 x 64
+# pixels, with h falling where they crowd)
+DENSE_N = {8: 1 << 20, 16: 1 << 17, 32: 1 << 15, 64: 1 << 14}
+
+
+def _dense_level_inputs(torch, cfg, lo_s, hi_s, n_fields, n, spec, seed, device, side: int = 4,
+                        radii: str = "log"):
+    """Tile-sorted tile-local inputs of one level, with ``n`` Morton-ordered
+    clustered particles on ``side`` x ``side`` of the level's tiles, their
+    support radii log-uniform (``radii="log"``) or uniform in (lo_s, hi_s]
+    px: the dense tiles a clustered snapshot makes."""
+    from astro_sph_tools_tpu_torch.ops.deposit_tiled import _level_geometry, _tile_local_coords, _tile_ranges
+
+    geom = _level_geometry(cfg, spec)
+    px = spec.extent[1] / spec.shape[1]
+    x, y, g = dense_positions(torch, n, side * geom.tx * px, side * cfg.TY * px, seed, device)
+    r = 1.0 - torch.rand(n, generator=g, device=device)
+    s_pix = lo_s * (hi_s / lo_s) ** r if radii == "log" else lo_s + (hi_s - lo_s) * r
+    h = s_pix * px / 2.0
+    vals = 0.5 + 1.5 * torch.rand((n_fields, n), generator=g, device=device)
+    tile, u_loc, v_loc = _tile_local_coords(x, y, geom, spec)
+    tile, perm = torch.sort(tile, stable=True)
+    pstart, pcount = _tile_ranges(tile, geom.n_tiles)
+    return geom, (u_loc[perm], v_loc[perm], h[perm], vals[:, perm].contiguous(), pstart, pcount)
+
+
+def _deposit_module():
+    import importlib
+
+    return importlib.import_module("astro_sph_tools_tpu_torch.ops.deposit_tiled")
+
+
+def with_cluster(module, C: int, fn):
+    """``fn()`` with the module's blocks a tile (``_CLUSTER``) set to C."""
+    old = module._CLUSTER
+    module._CLUSTER = C
+    try:
+        return fn()
+    finally:
+        module._CLUSTER = old
+
+
+def plain_f64_sum(torch, deposit_tiles_plain, args, kw, run: int = 8):
+    """Kernel #1's function with the plain version's f32 terms summed in
+    f64: each tile's particles cut into runs of ``run``, each run through
+    the plain version as a tile of its own (a pixel sums at most ``run``
+    terms in f32), the runs added into their tile in f64. The yardstick for
+    f32 summation order."""
+    u, v, h, vals, pstart, pcount = args
+    n_tiles = pstart.shape[0]
+    counts = pcount.to(torch.int64)
+    n_runs = (counts + run - 1) // run
+    tile_of = torch.repeat_interleave(torch.arange(n_tiles, device=u.device), n_runs)
+    k = torch.arange(tile_of.shape[0], device=u.device) - torch.repeat_interleave(torch.cumsum(n_runs, 0) - n_runs,
+                                                                                  n_runs)
+    rstart = (pstart.to(torch.int64)[tile_of] + k * run).to(torch.int32)
+    rcount = torch.clamp(counts[tile_of] - k * run, max=run).to(torch.int32)
+    cfg = kw["cfg"]
+    out = torch.zeros((n_tiles, vals.shape[0] * cfg.R, cfg.S), dtype=torch.float64, device=u.device)
+    step = max(1, (1 << 28) // (vals.shape[0] * cfg.R * cfg.S))
+    for i in range(0, tile_of.shape[0], step):
+        part = deposit_tiles_plain(u, v, h, vals, rstart[i:i + step], rcount[i:i + step], **kw)
+        out.index_add_(0, tile_of[i:i + step], part.double())
+    return out
+
+
+def split_stats(torch, C: int, pcount, group: int) -> dict:
+    """The cluster split of one launch: its blocks a tile (C), and the
+    largest share a block takes (particles for #1, split in groups of 8;
+    candidate rows for #2, one by one)."""
+    from astro_sph_tools_tpu_torch.ops.deposit_tiled import cluster_share_sizes
+
+    share = cluster_share_sizes(pcount, C, group)
+    return {"cluster": C, "max_share": int(share.max()) if share.numel() else 0}
+
+
+def check_bound(case: dict, what: str) -> None:
+    """No kernel time may fall under the least time the card could take."""
+    check(case["ms"] >= case["bound_ms"], f"{what}: kernel {case['ms']} ms under its bound {case['bound_ms']} ms")
+
+
+def _deposit_case(torch, deposit_tiles, deposit_tiles_plain, geom, args, kw, n_fields, projection,
+                  plain_reps: int, **tags):
+    """Kernel #1 vs its plain version on one level's inputs, timed beside its
+    bound, with the launch's split and its densest tile's time alone. On
+    dense inputs also the plain version's own run-to-run spread and both
+    against ``plain_f64_sum``; the ``dense_2x2`` case (thousands of
+    footprints a pixel) is held to that f64 sum, the others to plain."""
+    got = deposit_tiles(*args, **kw)
+    ref = deposit_tiles_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, ref)
+    dense_case = tags.get("case", "").startswith("dense")
+    extra = {}
+    if dense_case:
+        # the plain version's own run-to-run spread (index_add_ sums with
+        # atomics on the card), and both against the f64 sum of its terms
+        ref64 = plain_f64_sum(torch, deposit_tiles_plain, args, kw)
+        extra = {"plain_repeat_rel_err": rel_err(deposit_tiles_plain(*args, **kw), ref)[1],
+                 "f64_max_abs_err": rel_err(got, ref64)[0], "f64_rel_err": rel_err(got, ref64)[1],
+                 "plain_f64_rel_err": rel_err(ref, ref64)[1]}
+        del ref64
+    del ref
+    pstart, pcount = args[4], args[5]
+    t = int(torch.argmax(pcount))
+    dense = args[:4] + (pstart[t:t + 1], pcount[t:t + 1])
+    px = kw["psx"]
+    case = {
+        **tags, "K": geom.cfg.K, "F": n_fields, "projection": projection,
+        "n": int(args[0].shape[0]), "n_tiles": geom.n_tiles,
+        "max_pcount": int(pcount.max()), **split_stats(torch, _deposit_module()._CLUSTER, pcount, 8),
+        "max_abs_err": err, "rel_err": rel, **extra,
+        "ms": cuda_ms(lambda: deposit_tiles(*args, **kw), 5),
+        "densest_tile_ms": cuda_ms(lambda: deposit_tiles(*dense, **kw), 5),
+        "plain_ms": cuda_ms(lambda: deposit_tiles_plain(*args, **kw), plain_reps),
+        **bound(nbytes(*args, got), support_points(args[2], 2.0, px, 2) * pair_ops(n_fields, projection)),
+    }
+    emit({"phase": "kernel_vs_plain", **case})
+    check(bool(torch.isfinite(got).all()), f"non-finite kernel output {case}")
+    if tags.get("case") == "dense_2x2":
+        check(case["f64_rel_err"] <= REL_TOL, f"kernel off the f64 sum of the plain version's terms: {case}")
+    else:
+        check(rel <= REL_TOL, f"kernel disagrees with the plain version: {case}")
+    check_bound(case, f"kernel #1 {tags} K={geom.cfg.K} F={n_fields} {projection}")
+    return case
+
+
+def _cluster_extremes(torch, deposit_tiles, deposit_tiles_plain, geom, args, kw, n_fields, projection):
+    """Kernel #1 on one level's inputs with its tiles split over 1 and over 8
+    blocks (the largest portable cluster) against the plain version."""
+    T = _deposit_module()
+    ref = deposit_tiles_plain(*args, **kw)
+    out = []
+    for C in (1, 8):
+        got = with_cluster(T, C, lambda: deposit_tiles(*args, **kw))
+        err, rel = rel_err(got, ref)
+        row = {"phase": "kernel_vs_plain_cluster", "kernel": "deposit2d", "K": geom.cfg.K, "F": n_fields,
+               "projection": projection, "cluster": C, "max_abs_err": err, "rel_err": rel,
+               "ms": cuda_ms(lambda: with_cluster(T, C, lambda: deposit_tiles(*args, **kw)), 3)}
+        emit(row)
+        check(rel <= REL_TOL, f"kernel #1 at C={C} disagrees with the plain version: {row}")
+        out.append(row)
+    return out
+
+
 def phase_kernels(torch, device, n: int = 1 << 18):
+    """Kernel #1 vs its plain version, every level x F in {2, 5} x
+    projection: on ``n`` uniform particles (no tile split matters, no pixel
+    stacks), and on ``DENSE_N[K]`` Morton-ordered clustered particles on
+    4 x 4 tiles of the level; at K = 8 also on 2^20 of them on 2 x 2 tiles
+    with radii uniform in the level (thousands of footprints a pixel); at
+    K = 8 and 32 with F = 5 the dense tiles also at clusters of 1 and 8
+    blocks."""
     from astro_sph_tools_tpu_torch.ops import MapSpec
     from astro_sph_tools_tpu_torch.ops.deposit_tiled import PALLAS_LEVELS, deposit_tiles, deposit_tiles_plain
 
@@ -396,32 +597,27 @@ def phase_kernels(torch, device, n: int = 1 << 18):
     for li, cfg in enumerate(PALLAS_LEVELS):
         for n_fields in (2, 5):
             for projection in ("kernel3d", "integrated"):
-                geom, args = _level_inputs(
-                    torch, cfg, bounds[li], bounds[li + 1], n_fields, n, spec,
-                    seed=100 + 10 * li + n_fields, device=device,
-                )
                 kw = dict(
                     cfg=cfg, kernel="cubic_spline", projection=projection,
                     psx=25.0 / 1024, psy=25.0 / 1024, offset=spec.sample_offset,
                 )
-                got = deposit_tiles(*args, **kw)
-                ref = deposit_tiles_plain(*args, **kw)
-                torch.cuda.synchronize()
-                err, rel = rel_err(got, ref)
-                ms = cuda_ms(lambda: deposit_tiles(*args, **kw), 5)
-                plain_ms = cuda_ms(lambda: deposit_tiles_plain(*args, **kw), 5)
-                case = {
-                    "K": cfg.K, "F": n_fields, "projection": projection,
-                    "n": n, "n_tiles": geom.n_tiles,
-                    "max_pcount": int(args[5].max()), "max_abs_err": err,
-                    "rel_err": rel, "ms": ms, "plain_ms": plain_ms,
-                    **bound(nbytes(*args, got), support_points(args[2], 2.0, 25.0 / 1024, 2)
-                            * pair_ops(n_fields, projection)),
-                }
-                emit({"phase": "kernel_vs_plain", **case})
-                check(bool(torch.isfinite(got).all()), f"non-finite kernel output {case}")
-                check(rel <= REL_TOL, f"kernel disagrees with the plain version: {case}")
-                cases.append(case)
+                seed = 100 + 10 * li + n_fields
+                geom, args = _level_inputs(torch, cfg, bounds[li], bounds[li + 1], n_fields, n, spec, seed, device)
+                cases.append(_deposit_case(torch, deposit_tiles, deposit_tiles_plain, geom, args, kw, n_fields,
+                                           projection, 5, case="uniform"))
+                geom, args = _dense_level_inputs(torch, cfg, bounds[li], bounds[li + 1], n_fields,
+                                                 DENSE_N[cfg.K], spec, seed + 1000, device)
+                cases.append(_deposit_case(torch, deposit_tiles, deposit_tiles_plain, geom, args, kw, n_fields,
+                                           projection, 1, case="dense"))
+                if cfg.K in (8, 32) and n_fields == 5:
+                    _cluster_extremes(torch, deposit_tiles, deposit_tiles_plain, geom, args, kw, n_fields,
+                                      projection)
+                if cfg.K == 8:
+                    geom, args = _dense_level_inputs(torch, cfg, bounds[li], bounds[li + 1], n_fields, 1 << 20,
+                                                     spec, seed + 2000, device, side=2, radii="uniform")
+                    cases.append(_deposit_case(torch, deposit_tiles, deposit_tiles_plain, geom, args, kw,
+                                               n_fields, projection, 1, case="dense_2x2"))
+                del args
     return cases
 
 
@@ -436,7 +632,7 @@ def main_particles(torch, device, n_log2: int):
 
 def phase_main(torch, device, particles, gen_s):
     from astro_sph_tools_tpu_torch.ops import MapSpec, deposit_2d_auto, deposit_tiled, tile_particles
-    from astro_sph_tools_tpu_torch.ops.deposit_tiled import _tile_ranges, deposit_tiles
+    from astro_sph_tools_tpu_torch.ops.deposit_tiled import _tile_ranges, deposit_tiles, deposit_tiles_plain
 
     x, y, h, m, t, box = particles
     n = x.shape[0]
@@ -475,6 +671,23 @@ def phase_main(torch, device, particles, gen_s):
         lev.update(bound(nbytes(*args, deposit_tiles(*args, **kw)),
                          support_points(args[2], 2.0, box / 1024, 2) * pair_ops(2, "kernel3d")))
         lev["excess_ms"] = lev["kernel_ms"] - lev["bound_ms"]
+        # the launch's split, and its densest tile alone
+        lev.update(split_stats(torch, _deposit_module()._CLUSTER, pcount, 8))
+        t = int(torch.argmax(pcount))
+        dense = args[:4] + (pstart[t:t + 1], pcount[t:t + 1])
+        lev["densest_tile_ms"] = cuda_ms(lambda: deposit_tiles(*dense, **kw), 3)
+        # the densest tile against the plain version at full size, beside
+        # the plain version's own spread and both against the f64 sum
+        got = deposit_tiles(*dense, **kw)
+        ref = deposit_tiles_plain(*dense, **kw)
+        ref64 = plain_f64_sum(torch, deposit_tiles_plain, dense, kw)
+        lev["densest_tile_max_abs_err"], lev["densest_tile_rel_err"] = rel_err(got, ref)
+        lev["densest_tile_plain_repeat_rel_err"] = rel_err(deposit_tiles_plain(*dense, **kw), ref)[1]
+        lev["densest_tile_f64_rel_err"] = rel_err(got, ref64)[1]
+        lev["densest_tile_plain_f64_rel_err"] = rel_err(ref, ref64)[1]
+        del got, ref, ref64
+        check(lev["densest_tile_rel_err"] <= REL_TOL, f"phase 3 K={geom.cfg.K}: densest tile off plain: {lev}")
+        check_bound({"ms": lev["kernel_ms"], "bound_ms": lev["bound_ms"]}, f"phase 3 K={geom.cfg.K}")
     busy_ms, prof_wall_ms = device_busy_ms(lambda: deposit_2d_auto(x, y, h, fields, spec, device=device))
 
     integ = deposit_2d_auto(x, y, h, fields, spec, projection="integrated", device=device)
@@ -662,16 +875,38 @@ def phase_prep(torch, device, particles):
     return [_prep_vs_plain(torch, name, spec, cx, cy, ch, cv) for name, spec, cx, cy, ch, cv in cases]
 
 
+def coherent_bytes(torch, packed, cand_tile, cand_row, n_fields: int, n_tiles: int, out) -> int:
+    """Bytes kernel #2's function must move: the key channel of each
+    distinct candidate row (a heavy row, which no candidate names, is not
+    read), the u, v, h and value channels of the lanes that match a
+    candidate's tile, the candidate arrays, and the accumulators written
+    once."""
+    C = packed.shape[2]
+    key_ch = 3 + n_fields
+    live = cand_tile < n_tiles
+    rows = cand_row[live].long()
+    tiles = cand_tile[live].float()
+    matched = 0
+    step = 1 << 14  # candidates a chunk of (chunk, C) key compares
+    for i in range(0, rows.shape[0], step):
+        matched += int((packed[rows[i:i + step], key_ch, :] == tiles[i:i + step, None]).sum())
+    n_rows = int(torch.unique(rows).numel())
+    f32 = 4
+    return (n_rows * C + matched * (3 + n_fields)) * f32 + nbytes(cand_tile, cand_row, out)
+
+
 def _coherent_vs_plain(torch, lay, spec, h, projection, plain_reps: int, **tags):
     """Kernel #2 (coherent deposit) vs its plain version on a coherent
-    layout's candidates; ``h`` is the layout's particles' smoothing lengths
-    (for the bound)."""
+    layout's candidates, timed beside its bound, with the launch's split and
+    its densest tile alone (the other tiles' candidates left out); ``h`` is
+    the layout's particles' smoothing lengths (for the bound)."""
     TC = _coherent_module()
     g0 = lay.geom0
     n_fields = lay.n_fields
     psy, psx = spec.pixel_size
     tr = torch.arange(g0.n_tiles, dtype=torch.int32, device=lay.cand_tile.device)
-    per_tile = torch.searchsorted(lay.cand_tile, tr, right=True) - torch.searchsorted(lay.cand_tile, tr)
+    cstart = torch.searchsorted(lay.cand_tile, tr)
+    per_tile = torch.searchsorted(lay.cand_tile, tr, right=True) - cstart
     kw = dict(n_fields=n_fields, n_tiles=g0.n_tiles, cfg=g0.cfg, kernel="cubic_spline",
               projection=projection, psx=psx, psy=psy, offset=spec.sample_offset)
     args = (lay.packed, lay.cand_tile, lay.cand_row)
@@ -680,24 +915,45 @@ def _coherent_vs_plain(torch, lay, spec, h, projection, plain_reps: int, **tags)
     torch.cuda.synchronize()
     err, rel = rel_err(got, ref)
     del ref
+    t = int(torch.argmax(per_tile))
+    sel = slice(int(cstart[t]), int(cstart[t] + per_tile[t]))
+    dense = (lay.packed, lay.cand_tile[sel], lay.cand_row[sel])
     case = {
         "phase": "coherent_kernel_vs_plain", **tags, "F": n_fields, "projection": projection,
         "n_candidates": lay.n_cand, "n_tiles": g0.n_tiles,
         "max_candidates_per_tile": int(per_tile.max()),
         "mean_candidates_per_tile": lay.n_cand / g0.n_tiles,
+        **split_stats(torch, TC._CLUSTER, per_tile, 1),
         "max_abs_err": err, "rel_err": rel,
         "ms": cuda_ms(lambda: TC.deposit_coherent_tiles(*args, **kw), 5),
+        "densest_tile_ms": cuda_ms(lambda: TC.deposit_coherent_tiles(*dense, **kw), 5),
         "plain_ms": cuda_ms(lambda: TC.deposit_coherent_tiles_plain(*args, **kw), plain_reps),
-        **bound(nbytes(*args, got), support_points(h, 2.0, psx, 2) * pair_ops(n_fields, projection)),
+        **bound(coherent_bytes(torch, *args, n_fields, g0.n_tiles, got),
+                support_points(h, 2.0, psx, 2) * pair_ops(n_fields, projection)),
     }
     emit(case)
     check(bool(torch.isfinite(got).all()), f"non-finite coherent kernel output {case}")
     check(rel <= REL_TOL, f"coherent kernel disagrees with its plain version: {case}")
+    check_bound(case, f"kernel #2 {tags} F={n_fields} {projection}")
     return case
 
 
-def phase_coherent_kernel(torch, device, particles):
-    """Kernel #2 (coherent deposit) vs its plain version on the main path's layout."""
+def dense_coherent_particles(torch, device, n: int, box: float, seed: int):
+    """``n`` Morton-ordered clustered particles on 4 x 4 level-0 tiles of
+    the 1024^2 map (a pixel in a few hundred footprints on average), support
+    radii log-uniform in (0.05, 3] px (the K = 8 level), 4 fields: each tile
+    is named by tens of candidate rows."""
+    px = box / 1024
+    x, y, g = dense_positions(torch, n, 256 * px, 32 * px, seed, device)
+    s_pix = 0.05 * 60.0 ** (1.0 - torch.rand(n, generator=g, device=device))
+    h = s_pix * px / 2.0
+    vals = 0.5 + 1.5 * torch.rand((4, n), generator=g, device=device)
+    return x, y, h, vals
+
+
+def phase_coherent_kernel(torch, device, particles, n_dense: int = 1 << 20):
+    """Kernel #2 (coherent deposit) vs its plain version on the main path's
+    layout, F in {1, 2, 4} x projection, and on dense tiles (F in {2, 4})."""
     from astro_sph_tools_tpu_torch.ops import MapSpec, tile_particles_coherent
 
     x, y, h, m, t, box = particles
@@ -707,7 +963,33 @@ def phase_coherent_kernel(torch, device, particles):
     for n_fields in (1, 2, 4):
         lay = tile_particles_coherent(x, y, h, torch.stack(all_fields[:n_fields]), spec, device=device)
         for projection in ("kernel3d", "integrated"):
-            out.append(_coherent_vs_plain(torch, lay, spec, h, projection, 3))
+            out.append(_coherent_vs_plain(torch, lay, spec, h, projection, 3, case="main"))
+        del lay
+    dx, dy, dh, dv = dense_coherent_particles(torch, device, n_dense, box, seed=17)
+    TC = _coherent_module()
+    for n_fields in (2, 4):
+        lay = tile_particles_coherent(dx, dy, dh, dv[:n_fields], spec, device=device)
+        for projection in ("kernel3d", "integrated"):
+            case = _coherent_vs_plain(torch, lay, spec, dh, projection, 1, case="dense")
+            check(case["cluster"] > 1, f"dense coherent case without a cluster split: {case}")
+            out.append(case)
+            if n_fields == 4:
+                # the same tiles over 1 and over 8 blocks (the largest portable cluster)
+                g0 = lay.geom0
+                psy, psx = spec.pixel_size
+                kw = dict(n_fields=n_fields, n_tiles=g0.n_tiles, cfg=g0.cfg, kernel="cubic_spline",
+                          projection=projection, psx=psx, psy=psy, offset=spec.sample_offset)
+                args = (lay.packed, lay.cand_tile, lay.cand_row)
+                ref = TC.deposit_coherent_tiles_plain(*args, **kw)
+                for C in (1, 8):
+                    err, rel = rel_err(with_cluster(TC, C, lambda: TC.deposit_coherent_tiles(*args, **kw)), ref)
+                    row = {"phase": "kernel_vs_plain_cluster", "kernel": "coherent_deposit", "F": n_fields,
+                           "projection": projection, "cluster": C, "max_abs_err": err, "rel_err": rel,
+                           "ms": cuda_ms(lambda: with_cluster(TC, C, lambda: TC.deposit_coherent_tiles(*args, **kw)),
+                                         3)}
+                    emit(row)
+                    check(rel <= REL_TOL, f"kernel #2 at C={C} disagrees with the plain version: {row}")
+                del ref
         del lay
     return out
 
@@ -734,6 +1016,7 @@ def _tail_levels_vs_plain(torch, lay, spec, **tags):
         case = {
             "phase": "kernel_vs_plain", **tags, "K": geom.cfg.K, "F": lay.n_fields, "projection": "kernel3d",
             "n": count, "n_tiles": geom.n_tiles, "max_pcount": int(pcount.max()),
+            **split_stats(torch, _deposit_module()._CLUSTER, pcount, 8),
             "max_abs_err": err, "rel_err": rel,
             "ms": cuda_ms(lambda: deposit_tiles(*args, cfg=geom.cfg, **kw), 5),
             "plain_ms": cuda_ms(lambda: deposit_tiles_plain(*args, cfg=geom.cfg, **kw), 1),
@@ -743,6 +1026,7 @@ def _tail_levels_vs_plain(torch, lay, spec, **tags):
         emit(case)
         check(bool(torch.isfinite(got).all()), f"non-finite tail-level kernel output {case}")
         check(rel <= REL_TOL, f"tail-level kernel disagrees with its plain version: {case}")
+        check_bound(case, f"kernel #1 {tags} tail K={geom.cfg.K}")
         out.append(case)
         del got
     return out
@@ -1964,7 +2248,7 @@ def main() -> None:
     del rp
 
     def pick(rows, **match):
-        return next((c for c in rows if all(c[k] == v for k, v in match.items())), None)
+        return next((c for c in rows if all(c.get(k) == v for k, v in match.items())), None)
 
     def bound_keys(case):
         """The case's bound; no single PyTorch call computes the functions
@@ -1975,9 +2259,10 @@ def main() -> None:
             "library_ms": None,
         }
 
-    ref_case = pick(cases, K=8, F=2, projection="kernel3d")
+    ref_case = pick(cases, case="uniform", K=8, F=2, projection="kernel3d")
+    main_k8 = pick(main_out["levels"], K=8) if main_out else None
     prep_case = pick(prep_cases, case="coherent_order")
-    coh_case = pick(coh_cases, F=2, projection="kernel3d")
+    coh_case = pick(coh_cases, case="main", F=2, projection="kernel3d")
     launches = coh_out["launches_synced"] if coh_out else {}
     col_case = pick(col_cases, projection="integrated", periodic=True, F=1)
     spec_case = pick(spec_cases, input="config4", profile="gaussian", periodic=True)
@@ -2000,6 +2285,9 @@ def main() -> None:
             "ms": ref_case["ms"] if ref_case else None,
             "plain_ms": ref_case["plain_ms"] if ref_case else None,
             **bound_keys(ref_case),
+            # the main path's K = 8 level at 2^26 (phase 3)
+            "main_path_k8_ms": main_k8["kernel_ms"] if main_k8 else None,
+            "main_path_k8_bound_ms": main_k8["bound_ms"] if main_k8 else None,
         },
         {
             "name": "coherent_prep",
@@ -2022,6 +2310,9 @@ def main() -> None:
             "ms": coh_case["ms"] if coh_case else None,
             "plain_ms": coh_case["plain_ms"] if coh_case else None,
             **bound_keys(coh_case),
+            # the main path's layout (phase 7's case, its K = 8 level-0 tiles)
+            "main_path_k8_ms": coh_case["ms"] if coh_case else None,
+            "main_path_k8_bound_ms": coh_case["bound_ms"] if coh_case else None,
         },
         {
             "name": "sightline_columns",

@@ -1,11 +1,20 @@
-"""chip_smoke.py's bound for the spectra kernel (#5) counts the work its
-function needs: ``spectra_work``'s expected counts over uniform random rays,
-held against a brute-force count of this seed's (particle, ray) hits and of
-the profile terms, on a small CPU case: the Gaussian terms that are not 0 in
-f32, each Voigt term by the branch ``voigt_hjerting`` takes (the Chebyshev
-core for |z| <= 7, the series and exp to |z| = 10.16, the series alone
-beyond), the terms past the first of each bin, and each bin's own work
-once."""
+"""chip_smoke.py's bounds count the work the kernels' functions need.
+
+- Kernel #5 (spectra): ``spectra_work``'s expected counts over uniform
+  random rays, held against a brute-force count of this seed's (particle,
+  ray) hits and of the profile terms, on a small CPU case: the Gaussian
+  terms that are not 0 in f32, each Voigt term by the branch
+  ``voigt_hjerting`` takes (the Chebyshev core for |z| <= 7, the series and
+  exp to |z| = 10.16, the series alone beyond), the terms past the first of
+  each bin, and each bin's own work once.
+- Kernel #2 (coherent deposit): ``coherent_bytes``, held against a count
+  made candidate by candidate and lane by lane on a small CPU layout with
+  heavy rows (which no candidate names and the kernel does not read).
+
+And kernel #1's f64 yardstick: ``plain_f64_sum`` (the plain version's f32
+terms, runs of a few particles at a time, summed in f64) equals the same
+terms taken one particle at a time, with no f32 sum at all.
+"""
 
 import os
 import sys
@@ -21,6 +30,7 @@ from astro_sph_tools_tpu_torch.ops.spectra_fused import n_velocity_images
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
+from test_torch_coherent_prep import prep_inputs  # noqa: E402
 
 N, N_RAYS, N_BINS = 20000, 256, 512
 
@@ -88,3 +98,58 @@ def test_spectra_bound_counts_the_needed_work(periodic, profile):
     assert abs(work["hits"] / float(n_hits.sum()) - 1.0) < 0.05
     assert abs(work["particles_hit"] / float(hit.sum()) - 1.0) < 0.05
     assert abs(work["ops"] / float(brute) - 1.0) < 0.05
+
+
+@pytest.mark.parametrize("n_fields", [1, 4])
+def test_coherent_bound_counts_what_the_kernel_reads(n_fields):
+    import importlib
+
+    from astro_sph_tools_tpu_torch.ops import tile_particles_coherent
+
+    TC = importlib.import_module("astro_sph_tools_tpu_torch.ops.deposit_coherent")
+    spec, x, y, h, vals = prep_inputs(37 + n_fields, 8, periodic=True, heavy_rows=(1, 6), n_fields=n_fields)
+    lay = tile_particles_coherent(x, y, h, vals, spec, device="cpu")
+    assert lay.stats["heavy_rows"] >= 2 and lay.n_cand > 0
+    g0 = lay.geom0
+    psy, psx = spec.pixel_size
+    out = TC.deposit_coherent_tiles_plain(
+        lay.packed, lay.cand_tile, lay.cand_row, n_fields=n_fields, n_tiles=g0.n_tiles, cfg=g0.cfg,
+        kernel="cubic_spline", projection="kernel3d", psx=psx, psy=psy, offset=0.5,
+    )
+    # a pad candidate (tile n_tiles) names a row but is not read
+    cand_tile = torch.cat([lay.cand_tile, torch.tensor([g0.n_tiles], dtype=torch.int32)])
+    cand_row = torch.cat([lay.cand_row, torch.tensor([1], dtype=torch.int32)])
+    got = cs.coherent_bytes(torch, lay.packed, cand_tile, cand_row, n_fields, g0.n_tiles, out)
+
+    keys = lay.packed[:, 3 + n_fields, :].numpy()
+    rows, lanes = set(), 0
+    for tile, row in zip(cand_tile.tolist(), cand_row.tolist()):
+        if tile >= g0.n_tiles:
+            continue
+        rows.add(row)
+        lanes += sum(1 for k in keys[row] if k == tile)
+    heavy = {r for r in range(lay.packed.shape[0]) if r not in rows}
+    assert heavy  # rows no candidate names, their channels not counted
+    brute = 4 * (len(rows) * 2048 + lanes * (3 + n_fields)) + 4 * (2 * cand_tile.numel() + out.numel())
+    assert got == brute
+    assert got < cs.nbytes(lay.packed, cand_tile, cand_row, out)  # below the old count: all 8 channels of all rows
+
+
+@pytest.mark.parametrize("side,radii", [(4, "log"), (2, "uniform")])
+def test_plain_f64_sum_is_the_f64_sum_of_the_plain_terms(side, radii):
+    from astro_sph_tools_tpu_torch.ops import MapSpec
+    from astro_sph_tools_tpu_torch.ops.deposit_tiled import PALLAS_LEVELS, deposit_tiles_plain
+
+    spec = MapSpec(shape=(1024, 1024), extent=(0.0, 25.0, 0.0, 25.0), periodic_wrap=True)
+    cfg = PALLAS_LEVELS[0]
+    geom, args = cs._dense_level_inputs(torch, cfg, 0.02, cfg.max_s_pix, 2, 1 << 12, spec, 31 + side, "cpu",
+                                        side=side, radii=radii)
+    assert int((args[5] > 0).sum()) > 1 and int(args[5].max()) > 8 * 64  # several dense tiles
+    kw = dict(cfg=cfg, kernel="cubic_spline", projection="kernel3d", psx=25 / 1024, psy=25 / 1024,
+              offset=spec.sample_offset)
+    got = cs.plain_f64_sum(torch, deposit_tiles_plain, args, kw)
+    exact = cs.plain_f64_sum(torch, deposit_tiles_plain, args, kw, run=1)  # one term a pixel a particle
+    plain = deposit_tiles_plain(*args, **kw)
+    assert got.dtype == torch.float64 and got.shape == plain.shape
+    assert cs.rel_err(got, exact)[1] <= 1e-7
+    assert cs.rel_err(plain, exact)[1] <= 1e-5

@@ -45,6 +45,7 @@ from test_torch_coherent_prep import as_torch, prep_inputs
 # both packages export a function named like the module: import the modules
 JC = importlib.import_module("astro_sph_tools_tpu.ops.deposit_coherent")
 TC = importlib.import_module("astro_sph_tools_tpu_torch.ops.deposit_coherent")
+T = importlib.import_module("astro_sph_tools_tpu_torch.ops.deposit_tiled")
 
 TOL = 1e-5
 ENGINE_TOL = 5e-6
@@ -113,6 +114,103 @@ def test_plain_coherent_kernel_matches_pallas(n_fields, projection, kclass):
     )
     ref = np.asarray(call(sched, jnp.asarray(packed.numpy())))
     assert tuple(got.shape) == ref.shape == (g0.n_tiles, n_fields * g0.cfg.R, 128)
+    assert rel_err(got, ref) <= TOL
+
+
+def dense_coherent_inputs(seed, n_rows, n_fields=2):
+    """Morton-ordered clustered particles on 2 x 2 level-0 tiles of a 128^2
+    periodic map, support radii log-uniform in the K = 8 level: every tile
+    named by several candidate rows."""
+    rng = np.random.default_rng(seed)
+    npix, box = 128, 10.0
+    px = box / npix
+    n = n_rows * 2048
+    w, hgt = 128.0, 16.0  # pixels: two 64-wide tiles across, two 8-high tiles up
+    u = np.clip(w * (0.5 + rng.normal(0, 0.25, n)), 0, w - 1e-3)
+    v = np.clip(hgt * (0.5 + rng.normal(0, 0.25, n)), 0, hgt - 1e-3)
+    iu, iv = (u * 8).astype(np.int64), (v * 64).astype(np.int64)
+    key = np.zeros(n, np.int64)
+    for b in range(11):
+        key |= ((iu >> b) & 1) << (2 * b) | ((iv >> b) & 1) << (2 * b + 1)
+    order = np.argsort(key, kind="stable")
+    x = (u[order] * px).astype(np.float32)
+    y = (v[order] * px).astype(np.float32)
+    h = (0.05 * 60.0 ** rng.uniform(0, 1, n) * px / 2.0).astype(np.float32)
+    vals = rng.uniform(0.5, 2.0, (n_fields, n)).astype(np.float32)
+    spec = MapSpec(shape=(npix, npix), extent=(0.0, box, 0.0, box), periodic_wrap=True)
+    return spec, x, y, h, vals
+
+
+def _candidate_ranges(cand_tile, n_tiles):
+    tr = torch.arange(n_tiles, dtype=torch.int32)
+    cstart = torch.searchsorted(cand_tile, tr)
+    return cstart, torch.searchsorted(cand_tile, tr, right=True) - cstart
+
+
+@pytest.mark.parametrize("C", [1, 2, 8])
+def test_candidate_row_shares_cover_each_row_once(C):
+    """The kernel splits each tile's candidate rows over its C blocks with
+    the sorted engine's cluster_rank in groups of one row: every candidate
+    in one share, shares within one row of even; tiles without candidates
+    and with one included."""
+    spec, x, y, h, vals = dense_coherent_inputs(61, 16)
+    st = TC._setup(spec, "cubic_spline", TC.PALLAS_LEVELS, TC._D_MAX)
+    _, sk, _, _, _, _, counts = _stage_a_prep(*as_torch(x, y, h, vals), st)
+    cand_tile = sk[:int(counts[0])]
+    cstart, per_tile = _candidate_ranges(cand_tile, st.geom0.n_tiles)
+    assert int((per_tile == 0).sum()) > 0 and int(per_tile.max()) >= 4
+    sizes = T.cluster_share_sizes(per_tile, C, 1)
+    for t, n in enumerate(per_tile.tolist()):
+        ranks = T.cluster_rank(torch.arange(n), C, 1).tolist()
+        assert sorted(ranks) == sorted(r for r in range(C) for _ in range(int(sizes[t, r])))
+        assert ranks == [i % C for i in range(n)]  # rank r: rows r, r + C, ...
+        assert int(sizes[t].max() - sizes[t].min()) <= 1
+
+
+def split_coherent_emulated(packed, cand_tile, cand_row, C, **kw):
+    """Torch emulation of the coherent kernel's cluster split: rank r's
+    candidate rows of every tile (every C-th from the r-th, ``cluster_rank``
+    with groups of one) through the plain version, the C partial
+    accumulators summed in rank order."""
+    cstart, per_tile = _candidate_ranges(cand_tile, kw["n_tiles"])
+    counts = per_tile.to(torch.int64)
+    offset = torch.arange(cand_tile.shape[0]) - torch.repeat_interleave(cstart[counts > 0], counts[counts > 0])
+    rank = T.cluster_rank(offset, C, 1)
+    total = None
+    for r in range(C):
+        part = TC.deposit_coherent_tiles_plain(packed, cand_tile[rank == r], cand_row[rank == r], **kw)
+        total = part if total is None else total + part
+    return total
+
+
+@pytest.mark.parametrize("C", [2, 8])
+def test_split_coherent_sum_matches_plain_and_pallas(C):
+    """The split sum on dense tiles equals the unsplit plain version and the
+    JAX Pallas coherent kernel (interpret mode) on the same packed rows."""
+    spec, x, y, h, vals = dense_coherent_inputs(62, 16)
+    st = TC._setup(spec, "cubic_spline", TC.PALLAS_LEVELS, TC._D_MAX)
+    packed, sk, sr, _, _, _, counts = _stage_a_prep(*as_torch(x, y, h, vals), st)
+    n_cand = int(counts[0])
+    cand_tile, cand_row = sk[:n_cand], sr[:n_cand]
+    g0 = st.geom0
+    psy, psx = spec.pixel_size
+    kw = dict(n_fields=2, n_tiles=g0.n_tiles, cfg=g0.cfg, kernel="cubic_spline",
+              projection="kernel3d", psx=psx, psy=psy, offset=0.5)
+    assert int(counts[1]) == 0 and int(_candidate_ranges(cand_tile, g0.n_tiles)[1].max()) >= 4
+    got = split_coherent_emulated(packed, cand_tile, cand_row, C, **kw)
+    assert rel_err(got, TC.deposit_coherent_tiles_plain(packed, cand_tile, cand_row, **kw)) <= TOL
+
+    n_rows = packed.shape[0]
+    row_bits = max(1, max(1, n_rows - 1).bit_length())
+    n_steps = n_cand + g0.n_tiles
+    sched = JC._coherent_schedule(
+        jnp.asarray(cand_tile.numpy()), jnp.asarray(cand_row.numpy()), g0.n_tiles, n_steps, row_bits, None,
+    )
+    call = JC._cached_coherent_call(
+        JC.PALLAS_LEVELS[0], g0.n_tiles, n_steps, n_rows, 2, row_bits, "cubic_spline",
+        2.0, psx, psy, 0.5, "f32", True, "kernel3d", 0, False,
+    )
+    ref = np.asarray(call(sched, jnp.asarray(packed.numpy())))
     assert rel_err(got, ref) <= TOL
 
 
@@ -360,3 +458,24 @@ def test_cuda_engine_moves_launch_counters(cuda_device):
     assert all(a > b for a, b in zip(after, before))
     ref = deposit_2d_auto(x, y, h, m, spec, device=cuda_device)
     assert rel_err(img.cpu(), ref.cpu()) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 8])
+def test_cuda_dense_tile_split_matches_plain(cuda_device, monkeypatch, C):
+    """Dense tiles, each named by several candidate rows, split over C
+    blocks (and not split) against the plain version on the card."""
+    monkeypatch.setattr(TC, "_CLUSTER", C)
+    spec, x, y, h, vals = dense_coherent_inputs(93, 24, n_fields=4)
+    lay = tile_particles_coherent(x, y, h, vals, spec, device=cuda_device)
+    g0 = lay.geom0
+    psy, psx = spec.pixel_size
+    for projection in ("kernel3d", "integrated"):
+        kw = dict(n_fields=4, n_tiles=g0.n_tiles, cfg=g0.cfg, kernel="cubic_spline",
+                  projection=projection, psx=psx, psy=psy, offset=0.5)
+        before = TC.deposit_coherent_tiles.launches
+        got = TC.deposit_coherent_tiles(lay.packed, lay.cand_tile, lay.cand_row, **kw)
+        ref = TC.deposit_coherent_tiles_plain(lay.packed, lay.cand_tile, lay.cand_row, **kw)
+        torch.cuda.synchronize()
+        assert TC.deposit_coherent_tiles.launches == before + 1
+        assert rel_err(got.cpu(), ref.cpu()) <= TOL

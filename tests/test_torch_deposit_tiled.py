@@ -267,6 +267,126 @@ def test_wrapper_takes_plain_version_only_on_cpu():
     assert bool((out == 0).all())
 
 
+# ---------------------------------------------------------------------------
+# The CUDA kernel's split of a tile over a cluster of blocks, mirrored in torch
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("group", [8, 1])
+@pytest.mark.parametrize("C", [1, 2, 8])
+def test_cluster_split_covers_each_item_once(C, group):
+    """cluster_rank and cluster_share_sizes (mirrored by
+    csrc/deposit_common.cuh::cluster_groups and the kernels' share counts):
+    every item of a tile in exactly one rank's share, rank r taking groups
+    r, r + C, ... of ``group`` items, shares within one group of even;
+    empty and one-item tiles included."""
+    rng = np.random.default_rng(90 + C + group)
+    count = torch.as_tensor(np.concatenate([[0, 1, 0, 2, 7, 8, 9, 63, 64, 65, 1000], rng.integers(0, 300, 40)]))
+    sizes = T.cluster_share_sizes(count, C, group)
+    assert sizes.shape == (count.shape[0], C)
+    for t, n in enumerate(count.tolist()):
+        ranks = T.cluster_rank(torch.arange(n), C, group).tolist()
+        for r in range(C):
+            # brute force: the groups r, r + C, ... and their items
+            mine = [o for g in range(r, -(-n // group), C) for o in range(g * group, min(n, (g + 1) * group))]
+            assert mine == [o for o in range(n) if ranks[o] == r]
+            assert int(sizes[t, r]) == len(mine)
+        assert int(sizes[t].sum()) == n
+        assert int(sizes[t].max() - sizes[t].min()) <= group
+
+
+def dense_level_inputs(rng, li, n, n_fields, spec, n_tiles_used=3):
+    """Tile-sorted tile-local inputs of level ``li``: ``n`` particles in
+    Morton order clustered on a few tiles, tens a pixel, h inside the level."""
+    cfg = T.PALLAS_LEVELS[li]
+    geom = T._level_geometry(cfg, spec)
+    px = BOX / spec.shape[1]
+    w, hgt = min(geom.tx, spec.shape[1]) * px, n_tiles_used * cfg.TY * px  # a column of tiles
+    x = np.clip(w * (0.5 + rng.normal(0, 0.2, n)), 0, w * (1 - 1e-6))
+    y = np.clip(hgt * (0.5 + rng.normal(0, 0.2, n)), 0, hgt * (1 - 1e-6))
+    ix, iy = (x / w * 1024).astype(np.int64), (y / hgt * 1024).astype(np.int64)
+    key = np.zeros(n, np.int64)
+    for b in range(10):
+        key |= ((ix >> b) & 1) << (2 * b) | ((iy >> b) & 1) << (2 * b + 1)
+    order = np.argsort(key, kind="stable")
+    x, y = x[order], y[order]
+    lo = 0.05 if li == 0 else T.PALLAS_LEVELS[li - 1].max_s_pix
+    h = rng.uniform(lo, cfg.max_s_pix, n) * px / 2.0
+    vals = rng.uniform(0.5, 2.0, (n_fields, n))
+    tile, u, v = T._tile_local_coords(torch.from_numpy(x), torch.from_numpy(y), geom, spec)
+    order = torch.argsort(tile, stable=True)
+    h32 = torch.as_tensor(h, dtype=torch.float32)[order]
+    vals32 = torch.as_tensor(vals, dtype=torch.float32)[:, order].contiguous()
+    return geom, tile[order], u[order], v[order], h32, vals32
+
+
+def split_deposit_emulated(u, v, h, vals, pstart, pcount, C, **kw):
+    """Torch emulation of the kernel's cluster split: rank r's share of every
+    tile (its groups of 8 particles, ``cluster_rank``) through the plain
+    version, the C partial accumulators summed in rank order, as
+    csrc/deposit_common.cuh::cluster_reduce_store sums them."""
+    n_tiles = pstart.shape[0]
+    counts = pcount.to(torch.int64)
+    tile_of = torch.repeat_interleave(torch.arange(n_tiles), counts)
+    offset = torch.arange(int(counts.sum())) - torch.repeat_interleave(torch.cumsum(counts, 0) - counts, counts)
+    index = torch.repeat_interleave(pstart.to(torch.int64), counts) + offset
+    rank = T.cluster_rank(offset, C)
+    total = None
+    for r in range(C):
+        sel = index[rank == r]  # tile-sorted: the tile order is kept
+        ps, pc = T._tile_ranges(tile_of[rank == r], n_tiles)
+        part = T.deposit_tiles_plain(u[sel], v[sel], h[sel], vals[:, sel], ps, pc, **kw)
+        total = part if total is None else total + part
+    return total
+
+
+@pytest.mark.parametrize("li,C", [(0, 2), (0, 8), (1, 8)])
+def test_split_sum_matches_plain_and_pallas_kernel(li, C):
+    """The split sum on dense clustered tiles equals the unsplit plain
+    version and the JAX Pallas kernel (interpret mode) on the same inputs."""
+    rng = np.random.default_rng(95 + li + C)
+    spec = MapSpec(shape=(64, 64), extent=(0.0, BOX, 0.0, BOX))
+    n, n_fields = J._CHUNK, 2  # the Pallas kernel takes whole 2048-particle chunk rows
+    geom, tile, u, v, h, vals = dense_level_inputs(rng, li, n, n_fields, spec)
+    px = BOX / 64
+    pstart, pcount = T._tile_ranges(tile, geom.n_tiles)
+    assert int((pcount > 0).sum()) >= 2 and int(pcount.max()) > 8 * C  # dense tiles, every rank busy
+    kw = dict(cfg=geom.cfg, kernel="cubic_spline", projection="kernel3d", psx=px, psy=px, offset=0.5)
+    got = split_deposit_emulated(u, v, h, vals, pstart, pcount, C, **kw)
+    plain = T.deposit_tiles_plain(u, v, h, vals, pstart, pcount, **kw)
+    assert rel_err(got, plain) <= TOL
+
+    jps, jpc, block_start, nchunks = J._tile_ranges(jnp.asarray(tile.numpy()), geom.n_tiles, n)
+    n_steps = 1 + 2 * geom.n_tiles
+    sched, tile_off = J._step_schedule(nchunks, geom.n_tiles, n_steps)
+    ops = [jnp.asarray(a.numpy()) for a in (u, v, h)] + [jnp.asarray(vals[f].numpy()) for f in range(n_fields)]
+    packed = J._pack_channels(ops, n_fields, 1, n)
+    call = J._cached_deposit_call(
+        J.PALLAS_LEVELS[li], geom.n_tiles_x, geom.n_tiles_y, n_steps, 1, n_fields,
+        geom.tx, "cubic_spline", 2.0, px, px, 0.5, "f32", True, "kernel3d",
+    )
+    ref = np.asarray(call(sched, block_start, tile_off, jps, jpc, packed))
+    assert rel_err(got, ref) <= TOL
+
+
+def test_cluster_argument_is_checked(monkeypatch):
+    """The cluster size is one constant of the geometry, shared by both 2D
+    deposit kernels, and not a caller's argument; on the CPU any size gives
+    the plain version's sums."""
+    rng = np.random.default_rng(97)
+    spec = MapSpec(shape=(64, 64), extent=(0.0, BOX, 0.0, BOX))
+    geom, tile, u, v, h, vals = level_inputs(rng, 0, 300, 1, spec)
+    pstart, pcount = T._tile_ranges(tile, geom.n_tiles)
+    kw = dict(cfg=geom.cfg, kernel="cubic_spline", projection="kernel3d", psx=BOX / 64, psy=BOX / 64, offset=0.5)
+    with pytest.raises(TypeError, match="cluster"):
+        T.deposit_tiles(u, v, h, vals, pstart, pcount, cluster=8, **kw)
+    TC = importlib.import_module("astro_sph_tools_tpu_torch.ops.deposit_coherent")
+    assert T._CLUSTER == TC._CLUSTER == 2
+    monkeypatch.setattr(T, "_CLUSTER", 8)
+    assert torch.equal(T.deposit_tiles(u, v, h, vals, pstart, pcount, **kw),
+                       T.deposit_tiles_plain(u, v, h, vals, pstart, pcount, **kw))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -304,3 +424,27 @@ def test_cuda_call_moves_launch_counter(cuda_device):
     assert T.deposit_tiles.launches - before == len(tp.geoms) > 0
     ref = T.deposit_2d_auto(x, y, h, m, spec, device=cuda_device, plain=True)
     assert rel_err(got.cpu(), ref.cpu()) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 8])
+@pytest.mark.parametrize("li", [0, 2])
+def test_cuda_dense_tile_split_matches_plain(cuda_device, monkeypatch, li, C):
+    """(g) a dense tile split over C blocks (and not split) against the
+    plain version on the card, both projections, F = 5 (at K = 32 in two
+    field groups of shared memory at most)."""
+    monkeypatch.setattr(T, "_CLUSTER", C)
+    rng = np.random.default_rng(73 + li)
+    spec = MapSpec(shape=(256, 256), extent=(0.0, BOX, 0.0, BOX), periodic_wrap=True)
+    geom, tile, u, v, h, vals = dense_level_inputs(rng, li, 60000, 5, spec, n_tiles_used=2)
+    args = [a.to(cuda_device) for a in (u, v, h, vals)]
+    pstart, pcount = T._tile_ranges(tile.to(cuda_device), geom.n_tiles)
+    for projection in ("kernel3d", "integrated"):
+        kw = dict(cfg=geom.cfg, kernel="cubic_spline", projection=projection,
+                  psx=BOX / 256, psy=BOX / 256, offset=0.5)
+        before = T.deposit_tiles.launches
+        got = T.deposit_tiles(*args, pstart, pcount, **kw)
+        ref = T.deposit_tiles_plain(*args, pstart, pcount, **kw)
+        torch.cuda.synchronize()
+        assert T.deposit_tiles.launches == before + 1
+        assert rel_err(got.cpu(), ref.cpu()) <= TOL
