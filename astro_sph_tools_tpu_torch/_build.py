@@ -62,6 +62,7 @@ _SIGNATURES = {
             _P, _P, _P, _P, _LL, _I,  # x, y, h, values, values row stride, n_fields
             _I, _P, _P,  # n_rows, packed (n_rows, 8, 2048), aux (n_rows, 128)
             ctypes.POINTER(_F), ctypes.POINTER(_I),  # host float / int parameters
+            _I,  # bulk copy of each row's image (else 16-byte stores)
             _P,  # cudaStream_t
         ],
         "coherent_deposit_launch": [
@@ -78,9 +79,10 @@ _SIGNATURES = {
     },
     "sightlines": {
         "sightline_columns_launch": [
-            _P, _LL, _I,  # packed channel rows, row stride, n_fields
-            _P, _P, _P, _P, _I,  # rx, ry (n_blocks, 8), lo, hi (n_blocks, 10), n_blocks
-            _P,  # out (n_blocks, 8, F)
+            _P, _LL, _I, _I,  # packed channel rows, row stride, particles, n_fields
+            _P, _P, _P, _P, _I,  # bounds, rx, ry (n_rays,), rays (2, n_levels, n_rays), n_rays
+            ctypes.POINTER(_I), _I,  # host grids (n_levels x (ncx, ncy, offset)), n_levels
+            _P, _P,  # item sums (n_rays, n_levels * 3, F), out (F, n_rays)
             _I, _F, _F,  # periodic, Lx, Ly
             _I, _I, _F, _F,  # kernel id, integrated, norm_3d, support_factor
             _P, _I,  # chebyshev coefficients, count

@@ -1,9 +1,13 @@
 // The coherent-order engine's two kernels, for Hopper.
 //
 // 1. coherent_prep_kernel replaces the TPU kernel
-//    astro_sph_tools_tpu/ops/coherent_prep_pallas.py::_prep_kernel. For each
-//    2048-lane row of the particle arrays (one thread block per row, each of
-//    256 threads owning 8 consecutive lanes):
+//    astro_sph_tools_tpu/ops/coherent_prep_pallas.py::_prep_kernel. One
+//    thread block of 256 threads per 2048-lane row:
+//    - loads: thread t of warp w owns two runs of 4 lanes, 256 w + 4 t and
+//      the 4 lanes 128 after it (ops/coherent_prep.py::prep_lanes), each
+//      read as one float4 from x, y, h and every value channel, so that
+//      each load instruction of a warp reads 512 contiguous bytes. The
+//      wrapper hands the kernel 16-byte aligned inputs.
 //    - assignment: pixel coordinates, support radius in pixels, footprint
 //      level, tile and tile-local coordinates, and the composite key
 //      ckey = bases[level] + tile, bit for bit as the plain torch version
@@ -19,20 +23,33 @@
 //      bases[1]) move left to their head rank, the rest ("tails") to
 //      C - n_tail + their tail rank, keeping lane order within each side.
 //      The TPU routes the channels through 2 x 11 butterfly stages; here a
-//      block-wide exclusive scan of the tail flag (warp shuffles + shared
-//      memory) gives every lane its destination and the channels are written
-//      there directly.
-//    - the packed row (8, C): [u_loc, v_loc, h, val_0..val_{F-1}, ckey, 0..].
-//    - the aux row (128 floats): the row's <= d_max smallest distinct head
-//      keys (d_max rounds of a block-wide min; the pad key when the row runs
-//      out), tail_eff, n_l0, heavy, the per-level lane counts of levels
-//      1..n_levels (the last is oversize) and one K4 flag per candidate,
-//      zeros after. A row with more than d_max distinct head keys is heavy:
-//      tail_eff = C and its candidate keys are the pad key.
+//      warp scan of each thread's tail counts (both runs in one int) and
+//      one barrier give every lane its destination, and the channels are
+//      written there in a shared-memory image of the packed row (8, C)
+//      f32, 64 KiB: [u_loc, v_loc, h, val_0..val_{F-1}, ckey, 0..]. The
+//      image, zero channels included, then leaves as one contiguous
+//      64-KiB run of `packed`: coalesced 16-byte stores, or (BULK) one
+//      cp.async.bulk shared -> global copy that one thread issues and that
+//      runs on while the block takes its candidates.
+//    - candidates: round d takes the block-wide min of the head keys not
+//      yet taken (warp minima by __reduce_min_sync, then one barrier; each
+//      round's barrier also carries the K4 flag of the key the round
+//      took, and the rounds alternate between two shared buffers, so that
+//      no second barrier guards them). The first min and the per-level
+//      lane counts ride on the scan's barrier, the first round on the
+//      image's. The rounds stop, for the whole block at once, when a
+//      round's min is the pad key: every later candidate slot is then the
+//      pad key with K4 flag 1 and the row is not heavy, as the plain
+//      version writes them. A row with more than d_max distinct head keys
+//      is heavy: tail_eff = C and its candidate keys are the pad key.
+//    - the aux row (128 floats), one slot a thread: the row's <= d_max
+//      smallest distinct head keys, tail_eff, n_l0, heavy, the per-level
+//      lane counts of levels 1..n_levels (the last is oversize) and one K4
+//      flag per candidate, zeros after.
 //    Bound on the card: device-memory traffic (each row reads 3 + F floats
-//    and writes 8 + 0.0625 floats per lane) plus the 2 * d_max + 5 block
-//    reductions per row; the block-per-row design has 2^15 independent
-//    blocks at 2^26 particles, so the card is full.
+//    and writes 8 + 0.0625 floats per lane). A row takes 2 to d_max + 1
+//    barriers (about 45 in the kernel this one replaced); 64 KiB of shared
+//    memory a block lets 3 blocks share an SM.
 //
 // 2. coherent_deposit_kernel replaces the TPU kernel
 //    astro_sph_tools_tpu/ops/deposit_coherent.py::_deposit_kernel_coherent.
@@ -77,13 +94,16 @@ using ast::kMaxCheb;
 
 constexpr int kC = 2048;            // lanes per row
 constexpr int kThreads = 256;
-constexpr int kPer = kC / kThreads; // lanes per thread (prep)
 constexpr int kWarps = kThreads / 32;
+constexpr int kRun = 4;             // lanes of one float4 load (prep)
+constexpr int kRunGap = 32 * kRun;  // a thread's second run starts 128 lanes after its first
+constexpr int kPer = 2 * kRun;      // lanes per thread (prep)
 constexpr int kMaxLevels = 4;
 constexpr int kAuxW = 128;
 constexpr int kMaxFields = 4;       // the key channel takes the 8th slot
 constexpr int kMaxD = 60;           // 2 * d_max + 3 + n_levels <= kAuxW
 constexpr int kChunkLanes = 256;    // lanes of a row a warp stages at once (deposit)
+constexpr unsigned kImgBytes = 8 * kC * sizeof(float);  // one packed row, 64 KiB
 
 struct PrepParams {
   float x0, y0, inv_psx, inv_psy, nxf, nyf, sf, inv_minps;
@@ -96,59 +116,39 @@ struct PrepParams {
 constexpr int kPrepFloats = 8 + 3 * kMaxLevels;
 constexpr int kPrepInts = 3 + 5 * kMaxLevels + kMaxLevels + 1;
 
-__device__ __forceinline__ int warp_min(int v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+__device__ __forceinline__ float f4_at(const float4& v, int e) {
+  return e == 0 ? v.x : (e == 1 ? v.y : (e == 2 ? v.z : v.w));
 }
 
-__device__ __forceinline__ int warp_sum(int v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
 }
 
-// Block-wide min / sum of one int per thread; every thread gets the result.
-// `red` holds kWarps + 1 ints; the trailing barrier lets it be reused.
-__device__ __forceinline__ int block_min(int v, int* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = warp_min(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = warp_min(lane < kWarps ? red[lane] : INT_MAX);
-    if (lane == 0) red[kWarps] = v;
-  }
-  __syncthreads();
-  v = red[kWarps];
-  __syncthreads();
-  return v;
+// One bulk copy of `bytes` (a multiple of 16) from shared to global memory
+// by the tensor memory accelerator; the caller fenced the generic-proxy
+// writes of the source and passed a barrier.
+__device__ __forceinline__ void bulk_store(float* gdst, const float* ssrc, unsigned bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(ssrc));
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+               :: "l"(gdst), "r"(s), "r"(bytes) : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
 }
 
-__device__ __forceinline__ int block_sum(int v, int* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = warp_sum(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = warp_sum(lane < kWarps ? red[lane] : 0);
-    if (lane == 0) red[kWarps] = v;
-  }
-  __syncthreads();
-  v = red[kWarps];
-  __syncthreads();
-  return v;
-}
-
+template <bool BULK>
 __global__ void __launch_bounds__(kThreads)
 coherent_prep_kernel(const float* __restrict__ x, const float* __restrict__ y,
                      const float* __restrict__ h, const float* __restrict__ vals,
                      long long ld_vals, int n_fields,
                      float* __restrict__ packed, float* __restrict__ aux,
                      PrepParams P) {
-  __shared__ int red[kWarps + 1];
-  __shared__ int s_warp_tails[kWarps];
-  __shared__ float s_aux[kAuxW];
+  extern __shared__ float4 s_img4[];  // the packed row (8, kC)
+  float* img = reinterpret_cast<float*>(s_img4);
+  // per warp: its tail counts (run 0 in the low 16 bits, run 1 in the
+  // high), its least head key and its lanes of levels 1..n_levels
+  __shared__ int s_scan[kWarps][2 + kMaxLevels];
+  // per warp and round: the least head key left, and whether a lane of
+  // the key the round took has s_pix > 1 (two buffers, rounds alternate)
+  __shared__ int2 s_round[2][kWarps];
 
   const int row = blockIdx.x;
   const int tid = threadIdx.x;
@@ -157,18 +157,29 @@ coherent_prep_kernel(const float* __restrict__ x, const float* __restrict__ y,
   const int nl = P.n_levels;
   const int tail_base = P.base[1];
   const int pad_key = P.base[nl] + 1;
+  const int first = warp * (2 * kRunGap) + lane_id * kRun;  // run g: lanes first + g * kRunGap + [0, 4)
 
-  // --- assignment, 8 consecutive lanes per thread ---
+  float4 xv[2], yv[2], hv[2];
+#pragma unroll
+  for (int g = 0; g < 2; ++g) {
+    const long long i = rbase + first + g * kRunGap;
+    xv[g] = ld4(x + i);
+    yv[g] = ld4(y + i);
+    hv[g] = ld4(h + i);
+  }
+
+  // --- assignment, lane j of the thread = element j % 4 of run j / 4 ---
   float uloc[kPer], vloc[kPer], hh[kPer];
-  int key[kPer], lev[kPer];
-  bool big[kPer];
-  int n_tail_mine = 0;
+  int key[kPer], mk[kPer];
+  unsigned big = 0u;  // bit j: lane j is a head with s_pix > 1 (_K4_MAX_S)
+  int tails = 0;      // run 0's tail lanes + (run 1's << 16)
+  int lev_cnt[kMaxLevels] = {};
+  int mine = INT_MAX;
 #pragma unroll
   for (int j = 0; j < kPer; ++j) {
-    const long long i = rbase + tid * kPer + j;
-    const float hi = h[i];
-    float u = __fmul_rn(__fsub_rn(x[i], P.x0), P.inv_psx);
-    float v = __fmul_rn(__fsub_rn(y[i], P.y0), P.inv_psy);
+    const float hi = f4_at(hv[j / kRun], j % kRun);
+    float u = __fmul_rn(__fsub_rn(f4_at(xv[j / kRun], j % kRun), P.x0), P.inv_psx);
+    float v = __fmul_rn(__fsub_rn(f4_at(yv[j / kRun], j % kRun), P.y0), P.inv_psy);
     if (P.periodic) {
       // torch.remainder: fmod, then add the divisor to a negative result
       u = fmodf(u, P.nxf);
@@ -180,17 +191,16 @@ coherent_prep_kernel(const float* __restrict__ x, const float* __restrict__ y,
     int level = nl;
     for (int li = nl - 1; li >= 0; --li)
       if (P.bound[li] >= 0.0f && s_pix <= P.bound[li]) level = li;
-    int ck, tile = 0;
+    int ck;
     float ul = u, vl = v;
     if (level < nl) {
       int txi = (int)__fmul_rn(u, P.inv_tx[level]);
       int tyi = (int)__fmul_rn(v, P.inv_ty[level]);
       txi = min(max(txi, 0), P.ntx[level] - 1);
       tyi = min(max(tyi, 0), P.nty[level] - 1);
-      tile = tyi * P.ntx[level] + txi;
       ul = __fsub_rn(u, (float)(txi * P.tx[level] - P.m[level]));
       vl = __fsub_rn(v, (float)(tyi * P.ty[level] - P.m[level]));
-      ck = P.base[level] + tile;
+      ck = P.base[level] + tyi * P.ntx[level] + txi;
     } else {
       ck = P.base[nl];
     }
@@ -198,92 +208,139 @@ coherent_prep_kernel(const float* __restrict__ x, const float* __restrict__ y,
     vloc[j] = vl;
     hh[j] = hi;
     key[j] = ck;
-    lev[j] = level;
     const bool is_tail = ck >= tail_base;
-    big[j] = !is_tail && s_pix > 1.0f;  // _K4_MAX_S
-    n_tail_mine += is_tail;
+    if (!is_tail && s_pix > 1.0f) big |= 1u << j;
+    tails += (int)is_tail << (16 * (j / kRun));
+#pragma unroll
+    for (int li = 1; li <= kMaxLevels; ++li) lev_cnt[li - 1] += level == li;
+    mk[j] = is_tail ? pad_key : ck;
+    mine = min(mine, mk[j]);
   }
 
-  // --- exclusive scan of the tail counts over the block ---
-  int incl = n_tail_mine;
+  // --- the scan's barrier: tail counts, the first min, level counts ---
+  int incl = tails;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
     const int t = __shfl_up_sync(0xffffffffu, incl, o);
     if (lane_id >= o) incl += t;
   }
-  if (lane_id == 31) s_warp_tails[warp] = incl;
-  __syncthreads();
-  int warp_prefix = 0, n_tail = 0;
-  for (int w = 0; w < kWarps; ++w) {
-    const int c = s_warp_tails[w];
-    if (w < warp) warp_prefix += c;
-    n_tail += c;
+  mine = __reduce_min_sync(0xffffffffu, mine);
+#pragma unroll
+  for (int li = 0; li < kMaxLevels; ++li) lev_cnt[li] = __reduce_add_sync(0xffffffffu, lev_cnt[li]);
+  if (lane_id == 31) s_scan[warp][0] = incl;
+  if (lane_id == 0) {
+    s_scan[warp][1] = mine;
+#pragma unroll
+    for (int li = 0; li < kMaxLevels; ++li) s_scan[warp][2 + li] = lev_cnt[li];
   }
-  int tb = warp_prefix + incl - n_tail_mine;  // tails before my first lane
+  __syncthreads();
+  int before = 0, n_tail = 0, m = INT_MAX;  // tails in earlier warps; in the row
+  int lev_total[kMaxLevels] = {};
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const int c = s_scan[w][0];
+    const int cw = (c & 0xffff) + (c >> 16);
+    if (w < warp) before += cw;
+    n_tail += cw;
+    m = min(m, s_scan[w][1]);
+#pragma unroll
+    for (int li = 0; li < kMaxLevels; ++li) lev_total[li] += s_scan[w][2 + li];
+  }
+  const int excl = incl - tails;  // tails of this warp's earlier threads, both runs
+  // tails before each run's first lane
+  int tb[2] = {before + (excl & 0xffff), before + (s_scan[warp][0] & 0xffff) + (excl >> 16)};
 
-  // --- stable two-sided partition, written straight to the destination ---
-  float* prow = packed + rbase * 8;
+  // --- the partition, into the row's image ---
   const int key_ch = 3 + n_fields;
+  int dest[kPer];
 #pragma unroll
   for (int j = 0; j < kPer; ++j) {
-    const int lane = tid * kPer + j;
+    const int g = j / kRun;
     const bool is_tail = key[j] >= tail_base;
-    const int dest = is_tail ? kC - n_tail + tb : lane - tb;
-    tb += is_tail;
-    prow[dest] = uloc[j];
-    prow[kC + dest] = vloc[j];
-    prow[2 * kC + dest] = hh[j];
-    for (int f = 0; f < n_fields; ++f)
-      prow[(3 + f) * kC + dest] = vals[f * ld_vals + rbase + lane];
-    prow[key_ch * kC + dest] = (float)key[j];
-    for (int c = key_ch + 1; c < 8; ++c) prow[c * kC + lane] = 0.0f;
+    dest[j] = is_tail ? kC - n_tail + tb[g] : first + g * kRunGap + j % kRun - tb[g];
+    tb[g] += is_tail;
+    img[dest[j]] = uloc[j];
+    img[kC + dest[j]] = vloc[j];
+    img[2 * kC + dest[j]] = hh[j];
+    img[key_ch * kC + dest[j]] = (float)key[j];  // keys < 2^24: exact
   }
+  for (int f = 0; f < n_fields; ++f) {
+    const float* vf = vals + f * ld_vals + rbase + first;
+    const float4 v0 = ld4(vf), v1 = ld4(vf + kRunGap);
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) img[(3 + f) * kC + dest[j]] = f4_at(j < kRun ? v0 : v1, j % kRun);
+  }
+  for (int q = (key_ch + 1) * (kC / 4) + tid; q < 8 * (kC / 4); q += kThreads)
+    s_img4[q] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if constexpr (BULK) asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 
-  // --- candidates: d_max rounds of a block-wide min over the head keys ---
-  int mk[kPer];
-#pragma unroll
-  for (int j = 0; j < kPer; ++j) mk[j] = key[j] >= tail_base ? pad_key : key[j];
+  // --- candidate rounds: round d takes m, the d-th key; its barrier
+  //     brings the next min and m's K4 flag. Round 0's barrier also
+  //     completes the image, which then leaves for `packed`. ---
   const int d_max = P.d_max;
-  for (int d = 0; d < d_max; ++d) {
-    int mine = INT_MAX;
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) mine = min(mine, mk[j]);
-    const int m = block_min(mine, red);
+  const int flag0 = d_max + 3 + nl;
+  float slot = 0.0f;  // this thread's aux slot, where a round fills it
+  int d = 0;
+  for (;;) {
+    if (tid == d) slot = (float)m;
     int any_big = 0;
+    mine = INT_MAX;
 #pragma unroll
     for (int j = 0; j < kPer; ++j) {
-      any_big |= (key[j] == m) & big[j];
+      any_big |= (key[j] == m) & (int)((big >> j) & 1u);
       if (mk[j] == m) mk[j] = pad_key;
+      mine = min(mine, mk[j]);
     }
-    any_big = __syncthreads_or(any_big);
-    if (tid == 0) {
-      s_aux[d] = (float)m;
-      s_aux[d_max + 3 + nl + d] = any_big ? 0.0f : 1.0f;
+    mine = __reduce_min_sync(0xffffffffu, mine);
+    any_big = (int)__reduce_or_sync(0xffffffffu, (unsigned)any_big);
+    if (lane_id == 0) s_round[d & 1][warp] = make_int2(mine, any_big);
+    __syncthreads();
+    if (d == 0) {
+      float* prow = packed + rbase * 8;
+      if constexpr (BULK) {
+        if (tid == 0) bulk_store(prow, img, kImgBytes);
+      } else {
+        float4* dst = reinterpret_cast<float4*>(prow);
+        for (int q = tid; q < 8 * (kC / 4); q += kThreads) dst[q] = s_img4[q];
+      }
     }
-  }
-  int mine = INT_MAX;
+    m = INT_MAX;
+    any_big = 0;
 #pragma unroll
-  for (int j = 0; j < kPer; ++j) mine = min(mine, mk[j]);
-  const bool heavy = block_min(mine, red) < tail_base;
+    for (int w = 0; w < kWarps; ++w) {
+      m = min(m, s_round[d & 1][w].x);
+      any_big |= s_round[d & 1][w].y;
+    }
+    if (tid == flag0 + d) slot = any_big ? 0.0f : 1.0f;
+    ++d;
+    if (d == d_max || m == pad_key) break;  // block-uniform
+  }
+  // d rounds ran; m is the least head key left after them
+  const bool heavy = d == d_max && m < tail_base;
 
-  int lev_count[kMaxLevels];
-  for (int li = 1; li <= nl; ++li) {
-    int c = 0;
+  if (tid < kAuxW) {
+    float a = 0.0f;
+    if (tid < d_max) {
+      a = heavy || tid >= d ? (float)pad_key : slot;
+    } else if (tid == d_max) {
+      a = heavy ? (float)kC : (float)n_tail;
+    } else if (tid == d_max + 1) {
+      a = (float)(kC - n_tail);
+    } else if (tid == d_max + 2) {
+      a = heavy ? 1.0f : 0.0f;
+    } else if (tid < flag0) {
 #pragma unroll
-    for (int j = 0; j < kPer; ++j) c += min(lev[j], nl) == li;
-    lev_count[li - 1] = block_sum(c, red);
+      for (int li = 0; li < kMaxLevels; ++li)
+        if (tid - d_max - 3 == li) a = (float)lev_total[li];
+    } else if (tid < flag0 + d_max) {
+      a = tid - flag0 >= d ? 1.0f : slot;
+    }
+    aux[(long long)row * kAuxW + tid] = a;
   }
-  if (tid == 0) {
-    if (heavy)
-      for (int d = 0; d < d_max; ++d) s_aux[d] = (float)pad_key;
-    s_aux[d_max] = heavy ? (float)kC : (float)n_tail;
-    s_aux[d_max + 1] = (float)(kC - n_tail);
-    s_aux[d_max + 2] = heavy ? 1.0f : 0.0f;
-    for (int li = 0; li < nl; ++li) s_aux[d_max + 3 + li] = (float)lev_count[li];
+  if constexpr (BULK) {
+    // the shared image must stay until the copy has read it
+    if (tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
   }
-  __syncthreads();
-  const int w_used = 2 * d_max + 3 + nl;
-  if (tid < kAuxW) aux[(long long)row * kAuxW + tid] = tid < w_used ? s_aux[tid] : 0.0f;
 }
 
 template <int KID, bool INTEG>
@@ -372,11 +429,14 @@ extern "C" {
 // x0, y0, 1/psx, 1/psy, nx, ny, support_factor, 1/min(pixel size), then
 // bound[4], 1/tx[4], 1/TY[4]. iparams (host, kPrepInts ints): periodic,
 // n_levels, d_max, then n_tiles_x[4], n_tiles_y[4], tx[4], TY[4], M[4],
-// bases[5]. Returns the launch's cudaError_t (cudaSuccess = 0).
+// bases[5]. x, y, h and vals are 16-byte aligned and ld_vals is a multiple
+// of 4. bulk != 0: each row's image leaves by one bulk copy, else by
+// 16-byte stores. Returns the cudaError_t of the first failing attribute
+// call or launch (cudaSuccess = 0).
 int coherent_prep_launch(const float* x, const float* y, const float* h,
                          const float* vals, long long ld_vals, int n_fields,
                          int n_rows, float* packed, float* aux,
-                         const float* fparams, const int* iparams,
+                         const float* fparams, const int* iparams, int bulk,
                          void* stream) {
   if (n_rows <= 0) return cudaSuccess;
   PrepParams P;
@@ -398,13 +458,19 @@ int coherent_prep_launch(const float* x, const float* y, const float* h,
     P.m[li] = q[3 + 4 * kMaxLevels + li];
   }
   for (int li = 0; li <= kMaxLevels; ++li) P.base[li] = q[3 + 5 * kMaxLevels + li];
+  const uintptr_t align = (uintptr_t)x | (uintptr_t)y | (uintptr_t)h | (uintptr_t)vals;
   if (n_fields < 1 || n_fields > kMaxFields || P.n_levels < 1 ||
       P.n_levels > kMaxLevels || P.d_max < 1 || P.d_max > kMaxD ||
-      2 * P.d_max + 3 + P.n_levels > kAuxW)
+      2 * P.d_max + 3 + P.n_levels > kAuxW || (align & 15u) || (ld_vals & 3))
     return cudaErrorInvalidValue;
-  coherent_prep_kernel<<<n_rows, kThreads, 0, (cudaStream_t)stream>>>(
-      x, y, h, vals, ld_vals, n_fields, packed, aux, P);
-  return cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  auto run = [&](auto kern) {
+    cudaError_t e = ast::allow_smem(kern, kImgBytes);
+    if (e != cudaSuccess) return e;
+    kern<<<n_rows, kThreads, kImgBytes, s>>>(x, y, h, vals, ld_vals, n_fields, packed, aux, P);
+    return cudaGetLastError();
+  };
+  return bulk ? run(coherent_prep_kernel<true>) : run(coherent_prep_kernel<false>);
 }
 
 // Coherent deposit of n_tiles level-0 tiles from packed (n_rows, 8, 2048)

@@ -1,13 +1,13 @@
-// Sightline columns and absorption spectra over ray blocks, for Hopper.
+// Sightline columns and absorption spectra, for Hopper.
 //
-// Replaces two TPU kernels, on one particle layout and one ray schedule
-// (ops/sightlines_fused.py builds both):
+// Replaces two TPU kernels, on one particle layout (ops/sightlines_fused.py
+// builds it):
 //
 //   columns_kernel  <- astro_sph_tools_tpu/ops/sightlines_pallas.py::
-//                      _columns_kernel. For a block of B = 8 rays, the
-//                      per-ray column totals
-//                        out[k][r][f] = sum_i w(b2_ri, h_i) * v_f(i)
-//                      over the particles i of the block's spans, with
+//                      _columns_kernel. Per ray r, the column totals
+//                        out[f][r] = sum_i w(b2_ri, h_i) * v_f(i)
+//                      over every level's particles i of the ray's 1-ring
+//                      cells, with
 //                        integrated: w = clenshaw(2 clip(tq, 0, 1) - 1) / h^2,
 //                                    tq = b2 / (S h)^2 < 1
 //                        kernel3d:   w = shape_q(b / h) * norm_3d / h^3, b < S h
@@ -23,17 +23,29 @@
 //
 // The particles are the (level, cell)-sorted channel rows of `packed`
 // (row c at packed + c * stride): [x, y, h, v_0 .. v_4] for the columns,
-// [x, y, h, N, v_eff, b_Doppler] for the spectra. Block k reads its kSpans
-// [lo, hi) spans (empty when lo >= hi) and its rays rx/ry[k * B + r].
+// [x, y, h, N, v_eff, b_Doppler] for the spectra. Spectra block k reads its
+// kSpans [lo, hi) spans (empty when lo >= hi) and its rays rx/ry[k * B + r].
 //
 // Design. The TPU walked a flat work-list of (span unit, 1024-particle
 // chunk) steps on one core, carrying each block's accumulator across steps
-// through a packed schedule word. Here one thread block per ray block walks
-// its own spans, so there is no schedule, and blocks run in parallel.
-//   * Columns: each thread takes particles in a strided loop and keeps all
-//     B * F sums in registers; one warp-shuffle and shared-memory reduction
-//     at the end. Particles with h <= 0 are skipped outright (the TPU
-//     masked a multiply so that a pad's inf could not leak NaN).
+// through a packed schedule word. Here:
+//   * Columns: one warp per (level, ray, cell row) item, rays in cell order
+//     per level, so that neighbouring warps read the same cells. A ray's
+//     candidates at a level are the particles of its 3 x 3 cells; a row's
+//     three cells are one contiguous span of the sorted particles (two
+//     under a periodic x-wrap), read from the per-cell bounds table
+//     (row_spans, mirrored by ops/sightlines_fused.py::ray_spans). A warp
+//     loads 4 batches of 32 consecutive candidates at once (x, y, h,
+//     coalesced); a lane tests one against the ray, first without a
+//     division (b2 against 1.001 (S h)^2), then by the exact support test
+//     of the plain version; the hits go to a queue in shared
+//     memory, and every 32 queued hits the whole warp computes their
+//     weights and reads their values at once, so that the Clenshaw sum
+//     does not run for one lane while 31 wait. Particles with h <= 0 are
+//     skipped outright (the TPU masked a multiply so that a pad's inf could
+//     not leak NaN). Each item writes its F sums (a fixed shuffle tree);
+//     a second pass adds each ray's items in (level, row) order and writes
+//     the caller's ray order: the same bits every run, no float atomics.
 //   * Spectra: a thread block owns one ray block and kSpecThreads velocity
 //     bins (more bins: blockIdx.y); warp w the 32 contiguous bins from 32 w,
 //     a thread one bin. A chunk of 256 particles is tested against the 32
@@ -75,11 +87,12 @@
 //     wing's 1/x^2 is the hardware reciprocal (within an ulp of the plain
 //     version's division).
 //
-// Bound on the card. Columns: the pair tests (8 rays x candidate particles)
-// and device-memory reads of each span, a few bytes per pair. Spectra: the
-// FP32 pipe of the profile pass, (ray block, live particle) pairs x terms
-// (a particle that rays of several blocks hit is evaluated once per block:
-// 1.8 times at config 4), then the scan and the FMAs of the hits.
+// Bound on the card. Columns: device-memory reads of the particle
+// channels (each particle is a candidate of the few rays whose 1-ring holds
+// its cell, so reads repeat from L2) and the pair tests. Spectra: the FP32 pipe of the profile pass, (ray block, live
+// particle) pairs x terms (a particle that rays of several blocks hit is
+// evaluated once per block: 1.8 times at config 4), then the scan and the
+// FMAs of the hits.
 
 #include "deposit_common.cuh"
 
@@ -88,9 +101,7 @@ namespace {
 using ast::kMaxCheb;
 using ast::kMaxFields;
 
-constexpr int kSpans = 10;       // [lo, hi) spans per ray block
-constexpr int kColRays = 8;      // rays per column block
-constexpr int kColThreads = 256;
+constexpr int kSpans = 10;       // [lo, hi) spans per spectra ray block
 constexpr int kSpecRays = 32;    // rays per spectra block (one live bit each)
 constexpr int kSpecThreads = 256;
 constexpr int kSpecWarps = kSpecThreads / 32;
@@ -169,87 +180,214 @@ __device__ __forceinline__ void voigt_term(float z, float a2, float& g, float& c
 // TPU kernel #4: column totals
 // ---------------------------------------------------------------------------
 
+constexpr int kColRows = 3;       // cell rows of a ray's 1-ring: items per (ray, level)
+constexpr int kColWarps = 4;      // items per thread block, a warp each
+constexpr int kColThreads = 32 * kColWarps;
+constexpr int kMaxColLevels = 6;  // ops/sightlines_fused.py::_MAX_LEVELS
+constexpr int kHitQueue = 64;     // a warp's queue of hits: two batches of 32
+constexpr int kColBatches = 4;    // batches of 32 candidates whose loads a warp issues at once
+constexpr float kNearHit = 1.001f;  // b2 < 1.001 (S h)^2: a pair worth the exact support test
+
+struct ColGrids {
+  int n;  // levels
+  int ncx[kMaxColLevels], ncy[kMaxColLevels], off[kMaxColLevels];
+};
+
+// The candidate spans [lo, hi) of cell row `row` (0..2) of the 1-ring of
+// cell `cell` under an ncx x ncy grid whose bounds start at bounds + off:
+// span 0 the row's ring cells, span 1 the cell an x-wrap takes to the row's
+// other end (periodic). ops/sightlines_fused.py::ray_spans, step for step;
+// a cell outside the grid has no candidates, and the bounds read are
+// clamped to the n particles.
+__device__ __forceinline__ void row_spans(const int* __restrict__ bounds, int off, int ncx, int ncy,
+                                          int cell, int row, int periodic, int n,
+                                          int lo[2], int hi[2]) {
+  lo[0] = hi[0] = lo[1] = hi[1] = 0;
+  if (cell < 0 || cell >= ncx * ncy) return;
+  const int cx = cell % ncx, cy = cell / ncx;
+  int wr = cy - 1 + row;
+  if (periodic) {
+    if (row >= min(kColRows, ncy)) return;
+    wr = (wr + ncy) % ncy;
+  } else if (wr < 0 || wr >= ncy) {
+    return;
+  }
+  const int* b = bounds + off + wr * ncx;
+  int a, e;
+  if (periodic && ncx <= kColRows) {
+    a = 0;
+    e = ncx - 1;
+  } else if (periodic) {
+    a = cx - 1;
+    e = cx + 1;
+    if (a < 0) {
+      lo[1] = b[ncx - 1];
+      hi[1] = b[ncx];
+    } else if (e >= ncx) {
+      lo[1] = b[0];
+      hi[1] = b[1];
+    }
+    a = max(a, 0);
+    e = min(e, ncx - 1);
+  } else {
+    a = max(cx - 1, 0);
+    e = min(cx + 1, ncx - 1);
+  }
+  lo[0] = b[a];
+  hi[0] = b[e + 1];
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    lo[s] = min(max(lo[s], 0), n);
+    hi[s] = min(max(hi[s], lo[s]), n);
+  }
+}
+
+template <int KID, bool INTEG>
+__device__ __forceinline__ float column_weight(float b2, float inv_h, float norm3d, float inv_sf,
+                                               const float* s_cheb, int n_cheb) {
+  if constexpr (INTEG) {
+    const float inv_sh = inv_h * inv_sf;
+    const float tq = b2 * (inv_sh * inv_sh);
+    return ast::clenshaw(2.0f * fminf(fmaxf(tq, 0.0f), 1.0f) - 1.0f, s_cheb, n_cheb) * (inv_h * inv_h);
+  } else {
+    return ast::shape_q<KID>(sqrtf(b2) * inv_h) * ((norm3d * inv_h) * (inv_h * inv_h));
+  }
+}
+
+// Item (l, k, row), l-major: level l's k-th ray in cell order (rays[0][l][k]
+// its caller index, rays[1][l][k] its cell), cell row `row` of its 1-ring.
+// Writes part[ray][l * 3 + row][f].
 template <int KID, bool INTEG, int F>
 __global__ void __launch_bounds__(kColThreads)
-columns_kernel(const float* __restrict__ packed, long long stride,
-               const float* __restrict__ rx, const float* __restrict__ ry,
-               const int* __restrict__ lo, const int* __restrict__ hi,
-               float* __restrict__ out, int periodic, float Lx, float Ly,
+columns_kernel(const float* __restrict__ packed, long long stride, int n,
+               const int* __restrict__ bounds, const float* __restrict__ rx,
+               const float* __restrict__ ry, const int* __restrict__ rays, int n_rays,
+               ColGrids g, float* __restrict__ part, int periodic, float Lx, float Ly,
                float invLx, float invLy, float norm3d, float S, float inv_sf,
                const float* __restrict__ cheb, int n_cheb) {
   __shared__ float s_cheb[kMaxCheb];
-  __shared__ float s_part[kColThreads / 32][kColRays * F];
-  const int blk = blockIdx.x;
+  __shared__ float s_b2[kColWarps][kHitQueue], s_ih[kColWarps][kHitQueue];
+  __shared__ int s_idx[kColWarps][kHitQueue];
   if constexpr (INTEG) {
     for (int k = threadIdx.x; k < n_cheb; k += blockDim.x) s_cheb[k] = cheb[k];
   }
-  float rxr[kColRays], ryr[kColRays];
-#pragma unroll
-  for (int r = 0; r < kColRays; ++r) {
-    rxr[r] = rx[blk * kColRays + r];
-    ryr[r] = ry[blk * kColRays + r];
-  }
   __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long per_level = (long long)n_rays * kColRows;
+  const long long item = (long long)blockIdx.x * kColWarps + warp;
+  if (item >= per_level * g.n) return;
+  const int l = (int)(item / per_level);
+  const long long rest = item - l * per_level;
+  const int k = (int)(rest / kColRows);
+  const int row = (int)(rest - (long long)k * kColRows);
+  const int ray = rays[(long long)l * n_rays + k];
+  if (ray < 0 || ray >= n_rays) return;
+  int lo[2], hi[2];
+  row_spans(bounds, g.off[l], g.ncx[l], g.ncy[l], rays[((long long)g.n + l) * n_rays + k], row,
+            periodic, n, lo, hi);
 
   const float* px = packed;
   const float* py = packed + stride;
   const float* ph = packed + 2 * stride;
   const float* pv = packed + 3 * stride;
-  float acc[kColRays * F];
+  const float rxr = rx[ray], ryr = ry[ray];
+  float* q_b2 = s_b2[warp];
+  float* q_ih = s_ih[warp];
+  int* q_idx = s_idx[warp];
+  float acc[F];
 #pragma unroll
-  for (int j = 0; j < kColRays * F; ++j) acc[j] = 0.0f;
-
-  for (int u = 0; u < kSpans; ++u) {
-    const int a = lo[blk * kSpans + u];
-    const int b = hi[blk * kSpans + u];
-    for (int i = a + threadIdx.x; i < b; i += blockDim.x) {
-      const float hs = ph[i];
-      if (!(hs > 0.0f)) continue;  // zero-h particles contribute nothing
-      const float xs = px[i], ys = py[i];
-      const float inv_h = 1.0f / hs;
-      float v[F];
+  for (int f = 0; f < F; ++f) acc[f] = 0.0f;
+  // lane takes queued hit q: its weight and values
+  auto take = [&](unsigned q) {
+    q &= kHitQueue - 1;
+    const int i = q_idx[q];
+    const float w = column_weight<KID, INTEG>(q_b2[q], q_ih[q], norm3d, inv_sf, s_cheb, n_cheb);
 #pragma unroll
-      for (int f = 0; f < F; ++f) v[f] = pv[f * stride + i];
+    for (int f = 0; f < F; ++f) acc[f] += w * pv[f * stride + i];
+  };
+  unsigned queued = 0, done = 0;  // hits queued and taken by the warp so far
+  const unsigned lt_mask = (1u << lane) - 1u;
 #pragma unroll
-      for (int r = 0; r < kColRays; ++r) {
-        float dx = rxr[r] - xs, dy = ryr[r] - ys;
-        if (periodic) {
-          dx = min_image(dx, Lx, invLx);
-          dy = min_image(dy, Ly, invLy);
+  for (int s = 0; s < 2; ++s) {
+    for (int base = lo[s]; base < hi[s]; base += 32 * kColBatches) {
+      // the loads of kColBatches batches of 32 particles in flight at once
+      float xs[kColBatches], ys[kColBatches], hs[kColBatches];
+#pragma unroll
+      for (int u = 0; u < kColBatches; ++u) {
+        const int i = base + 32 * u + lane;
+        const bool in = i < hi[s];
+        hs[u] = in ? ph[i] : 0.0f;
+        xs[u] = in ? px[i] : 0.0f;
+        ys[u] = in ? py[i] : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < kColBatches; ++u) {
+        bool hit = false;
+        float b2 = 0.0f, inv_h = 0.0f;
+        if (hs[u] > 0.0f) {  // zero-h particles (and lanes past the span) contribute nothing
+          float dx = rxr - xs[u], dy = ryr - ys[u];
+          if (periodic) {
+            dx = min_image(dx, Lx, invLx);
+            dy = min_image(dy, Ly, invLy);
+          }
+          b2 = dx * dx + dy * dy;
+          // a division-free filter, looser than the exact test by far more
+          // than its rounding: only the pairs it passes take the division
+          const float sh = S * hs[u];
+          if (b2 < kNearHit * (sh * sh)) {
+            inv_h = 1.0f / hs[u];
+            if constexpr (INTEG) {
+              const float inv_sh = inv_h * inv_sf;
+              hit = b2 * (inv_sh * inv_sh) < 1.0f;
+            } else {
+              hit = sqrtf(b2) * inv_h < S;
+            }
+          }
         }
-        const float b2 = dx * dx + dy * dy;
-        float w;
-        if constexpr (INTEG) {
-          const float inv_sh = inv_h * inv_sf;
-          const float tq = b2 * (inv_sh * inv_sh);
-          if (!(tq < 1.0f)) continue;
-          w = ast::clenshaw(2.0f * fminf(fmaxf(tq, 0.0f), 1.0f) - 1.0f, s_cheb, n_cheb) *
-              (inv_h * inv_h);
-        } else {
-          const float qn = sqrtf(b2) * inv_h;
-          if (!(qn < S)) continue;
-          w = ast::shape_q<KID>(qn) * ((norm3d * inv_h) * (inv_h * inv_h));
+        const unsigned mask = __ballot_sync(0xffffffffu, hit);
+        if (hit) {
+          const unsigned q = (queued + __popc(mask & lt_mask)) & (kHitQueue - 1);
+          q_b2[q] = b2;
+          q_ih[q] = inv_h;
+          q_idx[q] = base + 32 * u + lane;
         }
-#pragma unroll
-        for (int f = 0; f < F; ++f) acc[r * F + f] += w * v[f];
+        queued += __popc(mask);
+        if (queued - done >= 32) {
+          __syncwarp();
+          take(done + lane);
+          done += 32;
+          __syncwarp();  // the next hits may reuse these slots
+        }
       }
     }
   }
+  __syncwarp();
+  if (lane < (int)(queued - done)) take(done + lane);
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+    float v = acc[f];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    acc[f] = v;
+  }
+  if (lane == 0) {
+    float* o = part + (((long long)ray * g.n + l) * kColRows + row) * F;
+#pragma unroll
+    for (int f = 0; f < F; ++f) o[f] = acc[f];
+  }
+}
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int j = 0; j < kColRays * F; ++j) {
-    float s = acc[j];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (lane == 0) s_part[warp][j] = s;
-  }
-  __syncthreads();
-  for (int j = threadIdx.x; j < kColRays * F; j += blockDim.x) {
-    float s = 0.0f;
-    for (int w = 0; w < kColThreads / 32; ++w) s += s_part[w][j];
-    out[(long long)blk * kColRays * F + j] = s;
-  }
+// out[f][r] = the sum of ray r's item sums part[r][0 .. n_parts)[f], in order.
+__global__ void column_sums_kernel(const float* __restrict__ part, int n_rays, int n_parts, int n_fields,
+                                   float* __restrict__ out) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= (long long)n_fields * n_rays) return;
+  const int f = (int)(t / n_rays);
+  const int r = (int)(t - (long long)f * n_rays);
+  const float* p = part + (long long)r * n_parts * n_fields + f;
+  float s = 0.0f;
+  for (int j = 0; j < n_parts; ++j) s += p[j * n_fields];
+  out[t] = s;
 }
 
 // ---------------------------------------------------------------------------
@@ -551,27 +689,45 @@ spectra_kernel(const float* __restrict__ packed, long long stride,
 
 extern "C" {
 
-// Column totals of n_blocks ray blocks into out (n_blocks, 8, n_fields).
-// Returns the cudaError_t of the launch (cudaSuccess = 0); the launch is
-// asynchronous on `stream` and is not synchronised here.
-int sightline_columns_launch(const float* packed, long long stride, int n_fields,
-                             const float* rx, const float* ry, const int* lo,
-                             const int* hi, int n_blocks, float* out, int periodic,
-                             float Lx, float Ly, int kernel_id, int integrated,
-                             float norm3d, float support_factor, const float* cheb,
-                             int n_cheb, void* stream) {
-  if (n_blocks <= 0) return cudaSuccess;
-  if (n_fields < 1 || n_fields > kMaxFields || n_cheb > kMaxCheb) return cudaErrorInvalidValue;
+// Column totals of n_rays rays into out (n_fields, n_rays), the caller's
+// ray order. packed: n particles' channel rows; bounds: every level's
+// per-cell starts; rays (2, n_levels, n_rays): each level's rays in cell
+// order and their cells; grids (host, n_levels x 3 ints): ncx, ncy and the
+// level's offset into bounds; part: scratch of n_rays * n_levels * 3 *
+// n_fields floats. Returns the cudaError_t of the first failing launch
+// (cudaSuccess = 0); the launches are asynchronous on `stream` and are not
+// synchronised here.
+int sightline_columns_launch(const float* packed, long long stride, int n, int n_fields,
+                             const int* bounds, const float* rx, const float* ry, const int* rays,
+                             int n_rays, const int* grids, int n_levels, float* part, float* out,
+                             int periodic, float Lx, float Ly, int kernel_id, int integrated,
+                             float norm3d, float support_factor, const float* cheb, int n_cheb,
+                             void* stream) {
+  if (n_rays <= 0) return cudaSuccess;
+  if (n_fields < 1 || n_fields > kMaxFields || n_cheb > kMaxCheb || n_levels < 1 ||
+      n_levels > kMaxColLevels || n < 0)
+    return cudaErrorInvalidValue;
+  ColGrids g;
+  g.n = n_levels;
+  for (int l = 0; l < kMaxColLevels; ++l) {
+    g.ncx[l] = l < n_levels ? grids[3 * l] : 1;
+    g.ncy[l] = l < n_levels ? grids[3 * l + 1] : 1;
+    g.off[l] = l < n_levels ? grids[3 * l + 2] : 0;
+    if (g.ncx[l] < 1 || g.ncy[l] < 1 || g.off[l] < 0) return cudaErrorInvalidValue;
+  }
+  const long long n_items = (long long)n_rays * n_levels * kColRows;
+  const long long n_blocks = (n_items + kColWarps - 1) / kColWarps;
+  if (n_blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   const float invLx = (float)(1.0 / (double)Lx), invLy = (float)(1.0 / (double)Ly);
   const float inv_sf = (float)(1.0 / (double)support_factor);
   cudaStream_t s = (cudaStream_t)stream;
-  return ast::dispatch_footprint(kernel_id, integrated, [&](auto kid, auto integ) {
+  cudaError_t err = ast::dispatch_footprint(kernel_id, integrated, [&](auto kid, auto integ) {
     constexpr int KID = decltype(kid)::value;
     constexpr bool INTEG = decltype(integ)::value;
     auto run = [&](auto kern) {
-      kern<<<n_blocks, kColThreads, 0, s>>>(packed, stride, rx, ry, lo, hi, out, periodic, Lx,
-                                            Ly, invLx, invLy, norm3d, support_factor, inv_sf,
-                                            cheb, n_cheb);
+      kern<<<(unsigned)n_blocks, kColThreads, 0, s>>>(packed, stride, n, bounds, rx, ry, rays, n_rays, g,
+                                                      part, periodic, Lx, Ly, invLx, invLy, norm3d,
+                                                      support_factor, inv_sf, cheb, n_cheb);
       return cudaGetLastError();
     };
     switch (n_fields) {
@@ -582,6 +738,11 @@ int sightline_columns_launch(const float* packed, long long stride, int n_fields
       default: return run(columns_kernel<KID, INTEG, 5>);
     }
   });
+  if (err != cudaSuccess) return err;
+  const long long n_out = (long long)n_fields * n_rays;
+  column_sums_kernel<<<(unsigned)((n_out + 255) / 256), 256, 0, s>>>(part, n_rays, n_levels * kColRows,
+                                                                       n_fields, out);
+  return cudaGetLastError();
 }
 
 // Optical depth of n_blocks ray blocks into out (n_blocks, 32, n_bins), on

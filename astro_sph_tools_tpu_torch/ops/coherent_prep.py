@@ -9,13 +9,16 @@ sort, only
 2. key and payload channels kept lane-aligned for the in-place deposit, and
 3. each row's distinct level-0 keys (the candidate list, <= d_max of them).
 
-(1) is a stable two-sided partition, (3) d_max rounds of a min over the
-masked keys. :func:`prep_rows` runs them in the hand-written CUDA kernel
+(1) is a stable two-sided partition, (3) up to d_max rounds of a min over
+the masked keys. :func:`prep_rows` runs them in the hand-written CUDA kernel
 ``csrc/coherent.cu::coherent_prep_kernel`` on a CUDA tensor, and its plain
 torch version :func:`prep_rows_plain` on a CPU tensor; both return the same
 ``packed`` (n_rows, 8, 2048) and ``aux`` (n_rows, 128) f32 arrays, bit for
-bit. :func:`_stage_a_prep` adds the small torch glue (candidate sort,
-bucket grouping, counts vector) and returns the output tuple of
+bit. The kernel loads each thread's lanes (:func:`prep_lanes`) as float4s,
+builds each row in shared memory and stores it whole, and stops a row's
+candidate rounds at its last distinct head key (:func:`prep_rounds`).
+:func:`_stage_a_prep` adds the small torch glue (candidate sort, bucket
+grouping, counts vector) and returns the output tuple of
 ``deposit_coherent._assign_and_rowsort``.
 """
 
@@ -44,6 +47,10 @@ from .deposit_tiled import PALLAS_LEVELS
 Tensor = torch.Tensor
 
 _MAX_LEVELS = 4  # levels the kernel's parameter block holds
+#: how the kernel writes each row's 64-KiB shared-memory image to
+#: ``packed``: "vector" (coalesced 16-byte stores) or "bulk" (one
+#: ``cp.async.bulk`` shared -> global copy a row)
+_ROW_STORE = "vector"
 
 
 def prep_rows_plain(x: Tensor, y: Tensor, h: Tensor, values: Tensor, st: _Setup) -> tuple[Tensor, Tensor]:
@@ -98,6 +105,36 @@ def prep_rows_plain(x: Tensor, y: Tensor, h: Tensor, values: Tensor, st: _Setup)
     aux = torch.zeros((n_rows, _AUX_W), dtype=torch.float32, device=dev)
     aux[:, :aux_row.shape[1]] = aux_row
     return packed, aux
+
+
+def prep_lanes() -> Tensor:
+    """(256, 8) int64: the lanes of a row that each of the kernel's 256
+    threads loads, in the order it takes them. Thread t of warp w owns two
+    runs of 4 lanes, one float4 each: from 256 w + 4 t and 128 lanes
+    later, so that a warp's float4 load reads 512 contiguous bytes."""
+    t = torch.arange(256)
+    j = torch.arange(8)
+    return ((t // 32) * 256 + (t % 32) * 4)[:, None] + (j // 4) * 128 + j % 4
+
+
+def prep_rounds(aux: Tensor, st: _Setup) -> Tensor:
+    """(n_rows,) int64: the candidate rounds the kernel takes for each row,
+    read from the row's aux. A round takes one distinct head key; the rounds
+    stop after the last one (after d_max of them for a heavy row, or one
+    with d_max keys) and at least one runs. Each round is one block barrier
+    (the scan adds one more)."""
+    d = st.d_max
+    n_keys = (aux[:, :d] != float(st.pad_key)).sum(1)
+    return torch.where(aux[:, d + 2] > 0.5, d, n_keys.clamp_min(1))
+
+
+def _vector_ready(a: Tensor) -> Tensor:
+    """``a`` itself when the kernel's float4 loads can read it (16-byte
+    aligned, rows a multiple of 4 floats apart), else an aligned contiguous
+    copy, whose time the kernel's call then includes."""
+    if a.data_ptr() % 16 == 0 and (a.ndim == 1 or a.stride(0) % 4 == 0):
+        return a
+    return a.clone(memory_format=torch.contiguous_format)
 
 
 def _recip32(v: float) -> float:
@@ -161,6 +198,7 @@ def _prep_rows(x: Tensor, y: Tensor, h: Tensor, values: Tensor, st: _Setup) -> t
     if st.n_levels > _MAX_LEVELS:
         raise ValueError(f"the row-prep kernel takes at most {_MAX_LEVELS} levels, got {st.n_levels}")
     n_rows = n // _CHUNK
+    x, y, h, values = (_vector_ready(a) for a in (x, y, h, values))
     packed = torch.empty((n_rows, 8, _CHUNK), dtype=torch.float32, device=dev)
     aux = torch.empty((n_rows, _AUX_W), dtype=torch.float32, device=dev)
     if n_rows == 0:
@@ -175,7 +213,7 @@ def _prep_rows(x: Tensor, y: Tensor, h: Tensor, values: Tensor, st: _Setup) -> t
         code = lib.coherent_prep_launch(
             x.data_ptr(), y.data_ptr(), h.data_ptr(), values.data_ptr(),
             values.stride(0), n_fields, n_rows, packed.data_ptr(), aux.data_ptr(),
-            fparams, iparams, torch.cuda.current_stream(dev).cuda_stream,
+            fparams, iparams, int(_ROW_STORE == "bulk"), torch.cuda.current_stream(dev).cuda_stream,
         )
     if code != 0:
         raise RuntimeError(f"row-prep kernel launch failed: {lib.cuda_error_string(code).decode()} ({code})")
@@ -195,7 +233,9 @@ def prep_rows(
     ``aux`` (n_rows, 128) f32 (see :func:`prep_rows_plain`). On a CUDA
     tensor this launches the hand-written kernel ``csrc/coherent.cu`` (built
     at first use) and raises if the build or the launch fails; on a CPU
-    tensor it runs :func:`prep_rows_plain`."""
+    tensor it runs :func:`prep_rows_plain`. An input the kernel's float4
+    loads cannot read (not 16-byte aligned, or ``values`` rows not a
+    multiple of 4 floats apart) is copied first."""
     return _prep_rows(x, y, h, values, _setup(spec, kernel, levels, d_max))
 
 

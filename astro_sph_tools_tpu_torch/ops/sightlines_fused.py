@@ -10,27 +10,33 @@ engine's; its TPU workarounds are gone:
    the 1-ring cells); one ``torch.sort`` of the int32 composite key
    ``level * 2^25 + cell`` and one gather leave every level's cell rows
    contiguous in a (channels, N) array, and ``torch.searchsorted`` gives the
-   per-cell bounds table.
-2. **Ray blocks** (host, NumPy): per populated level the rays are
-   cell-sorted and cut into blocks of ``B``; each block's candidates are up
-   to ``_U = 10`` [lo, hi) spans — the x-windowed 1-ring of its rays' cells
-   per wrapped row, plus an x-wrap span (:func:`_level_schedule`). Copying
-   the bounds table to the host is the one host sync of a call besides the
-   smoothing-length maximum, as in the JAX engine.
-3. **One kernel pass** over every level's ray blocks: :func:`columns_tiles`
-   (``csrc/sightlines.cu``, TPU kernel #4) gives each block's (B, F)
-   column totals; one ``index_add_`` per populated level takes them back to
-   the caller's ray order and sums the levels.
+   per-cell bounds table, on the device (:func:`_sort_particles`).
+2. **Ray cells** (device, :func:`_ray_table`): the f64 ray positions go to
+   the device once; per level, each ray's cell (in f64, as the spectra's
+   host schedule takes it) and the rays in cell order. The columns path
+   reads nothing back but the particles' extremes (:func:`_domain`).
+3. **One kernel pass** (:func:`columns_tiles`, ``csrc/sightlines.cu``, TPU
+   kernel #4) over (level, ray, cell row) items: each item's candidates
+   are the particles of its ray's 1-ring cells in that row, one or two
+   contiguous spans of the bounds table (:func:`ray_spans`); the items'
+   sums are added per ray in a fixed order and written in the caller's ray
+   order, summed over levels.
+
+The absorption spectra (``ops/spectra_fused.py``) keep the block schedule:
+:func:`stage_rays` cuts each level's cell-sorted rays into blocks of ``B``
+and gives each block up to ``_U = 10`` [lo, hi) spans, the x-windowed 1-ring
+of its rays' cells per wrapped row plus an x-wrap span
+(:func:`_level_schedule`), from a host copy of the bounds table;
+:func:`unsort_sum` takes the blocks back to the caller's ray order.
 
 The TPU kernel's packed 24-bit schedule words, empty-unit compaction and
 power-of-two step padding existed for its SMEM and its sequential grid; the
-pow2 particle padding for its compiled-program cache. None is ported: the
-kernel reads the (n_blocks, 10) span table directly, one thread block per
-ray block.
+pow2 particle padding for its compiled-program cache. None is ported.
 """
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -44,8 +50,9 @@ from .sightlines import _f32, _host
 
 Tensor = torch.Tensor
 
-_B = 8  # rays per block (the column kernel's register tile)
+_B = 8  # rays per block of :func:`_level_schedule` unless told otherwise
 _U = 10  # spans per ray block: 5 wrapped rows x (main + x-wrap)
+_ROWS = 3  # cell rows of a ray's 1-ring: the column kernel's items per (ray, level)
 _LEVEL_STRIDE = 1 << 25  # composite key: level * STRIDE + cell id
 _MAX_LEVELS = 6
 _MAX_GRID = 4096
@@ -80,11 +87,11 @@ def _choose_grids(Lx: float, Ly: float, s_max: float) -> tuple[tuple[int, int], 
 # ---------------------------------------------------------------------------
 
 
-def _prep(x: Tensor, y: Tensor, h: Tensor, channels: Sequence[Tensor], grids, support_factor: float,
-          extent: tuple[float, float, float, float], periodic: bool) -> tuple[Tensor, np.ndarray]:
-    """Sorted (3 + C, N) f32 channels [x, y, h, *channels] and the host
-    per-cell bounds table: level l contributes ncx*ncy + 1 entries, cell c's
-    particles are [bounds[c], bounds[c + 1])."""
+def _sort_particles(x: Tensor, y: Tensor, h: Tensor, channels: Sequence[Tensor], grids, support_factor: float,
+                    extent: tuple[float, float, float, float], periodic: bool) -> tuple[Tensor, Tensor]:
+    """Sorted (3 + C, N) f32 channels [x, y, h, *channels] and the per-cell
+    bounds table, int32 on the device: level l contributes ncx*ncy + 1
+    entries, cell c's particles are [bounds[c], bounds[c + 1])."""
     x0, y0, Lx, Ly = extent
     if periodic:
         x = x - torch.floor(x / Lx) * Lx + x0
@@ -106,12 +113,19 @@ def _prep(x: Tensor, y: Tensor, h: Tensor, channels: Sequence[Tensor], grids, su
     del level, cid, s
     sorted_key, perm = torch.sort(key)  # grouping needs key order only
     packed = torch.stack([x, y, h, *channels])[:, perm].contiguous()
-    bound_keys = np.concatenate([
-        l * _LEVEL_STRIDE + np.arange(g[0] * g[1] + 1, dtype=np.int64) for l, g in enumerate(grids)
-    ]).astype(np.int32)
-    bk = torch.as_tensor(bound_keys, device=x.device)
-    bounds = torch.searchsorted(sorted_key, bk).to(torch.int32).cpu().numpy()  # host sync
-    return packed, bounds
+    bound_keys = torch.cat([
+        l * _LEVEL_STRIDE + torch.arange(g[0] * g[1] + 1, dtype=torch.int32, device=x.device)
+        for l, g in enumerate(grids)
+    ])
+    return packed, torch.searchsorted(sorted_key, bound_keys).to(torch.int32)
+
+
+def _prep(x: Tensor, y: Tensor, h: Tensor, channels: Sequence[Tensor], grids, support_factor: float,
+          extent: tuple[float, float, float, float], periodic: bool) -> tuple[Tensor, np.ndarray]:
+    """:func:`_sort_particles` with the bounds table copied to the host, for
+    the block schedule of the spectra."""
+    packed, bounds = _sort_particles(x, y, h, channels, grids, support_factor, extent, periodic)
+    return packed, bounds.cpu().numpy()  # host sync
 
 
 # ---------------------------------------------------------------------------
@@ -240,7 +254,7 @@ def _stage_ray_levels(rays, grids, bounds, x0, y0, Lx, Ly, periodic, B, n_rays):
 
 @dataclass(frozen=True)
 class RayLayout:
-    """Device inputs of one fused pass (columns or spectra): the sorted
+    """Device inputs of one block-scheduled pass (the spectra): the sorted
     particle channels, the ray blocks of every populated level and their
     candidate spans, and what it takes to return to the caller's ray order."""
 
@@ -353,45 +367,6 @@ def _pair_geometry(packed: Tensor, rx: Tensor, ry: Tensor, blk: Tensor, idx: Ten
     return dx * dx + dy * dy, hs, inv_h
 
 
-def columns_tiles_plain(
-    packed: Tensor, rx: Tensor, ry: Tensor, lo: Tensor, hi: Tensor,
-    *,
-    n_fields: int,
-    kernel: str,
-    projection: str,
-    periodic: bool,
-    Lx: float,
-    Ly: float,
-) -> Tensor:
-    """Plain torch version of :func:`columns_tiles`: the same inputs and the
-    same (n_blocks, B, F) f32 output, evaluated over every (span entry, ray)
-    pair in blocks of 2^22 (CPU) or 2^25 (GPU) pairs."""
-    kspec = get_kernel(kernel)
-    S = kspec.support_factor
-    n_blocks, B = rx.shape
-    out = torch.zeros((n_blocks, B * n_fields), dtype=torch.float32, device=packed.device)
-    blk_all, idx_all = _span_entries(lo, hi)
-    cheb = integrated_kernel_chebyshev(kernel) if projection == "integrated" else None
-    step = max(1, (1 << (22 if packed.device.type == "cpu" else 25)) // B)
-    for c0 in range(0, blk_all.shape[0], step):
-        blk, idx = blk_all[c0:c0 + step], idx_all[c0:c0 + step]
-        b2, hs, inv_h = _pair_geometry(packed, rx, ry, blk, idx, periodic, Lx, Ly)
-        inv_h = inv_h[:, None]
-        if cheb is not None:
-            inv_sh = inv_h * (1.0 / S)
-            tq = b2 * (inv_sh * inv_sh)
-            yv = clenshaw(2.0 * torch.clamp(tq, 0.0, 1.0) - 1.0, cheb)
-            w = torch.where(tq < 1.0, yv * (inv_h * inv_h), 0.0)
-        else:
-            qn = torch.sqrt(b2) * inv_h
-            fac = (kspec.norm_3d * inv_h) * (inv_h * inv_h)
-            w = torch.where(qn < S, kspec.shape_q(qn) * fac, 0.0)
-        w = torch.where((hs > 0.0)[:, None], w, 0.0)  # h <= 0: no contribution
-        vals = packed[3:3 + n_fields, idx].T  # (E, F)
-        out.index_add_(0, blk, (w[:, :, None] * vals[:, None, :]).reshape(-1, B * n_fields))
-    return out.view(n_blocks, B, n_fields)
-
-
 def _check_layout(packed: Tensor, rx: Tensor, ry: Tensor, lo: Tensor, hi: Tensor, B: int, n_chan: int) -> None:
     dev = packed.device
     if packed.dtype != torch.float32 or packed.ndim != 2 or packed.stride(1) != 1 or packed.shape[0] < n_chan:
@@ -410,8 +385,98 @@ def _check_layout(packed: Tensor, rx: Tensor, ry: Tensor, lo: Tensor, hi: Tensor
             raise ValueError(f"spans [{lo_min}, {hi_max}) reach outside the {packed.shape[1]} particles")
 
 
-def columns_tiles(
-    packed: Tensor, rx: Tensor, ry: Tensor, lo: Tensor, hi: Tensor,
+@dataclass(frozen=True)
+class ColumnLayout:
+    """Device inputs of one columns pass: the sorted particle channels, the
+    per-cell bounds table, and each level's rays in cell order with their
+    cells."""
+
+    packed: Tensor  # (3 + F, N) f32: x, y, h, values..., (level, cell)-sorted
+    bounds: Tensor  # (sum of ncx * ncy + 1,) int32: each level's cell starts into packed's columns
+    rx: Tensor  # (n_rays,) f32 ray coordinates, the caller's order (wrapped into a periodic box)
+    ry: Tensor
+    rays: Tensor  # (2, n_levels, n_rays) int32: [0, l, k] caller index of level l's k-th ray in cell order, [1, l, k] its cell
+    grids: tuple  # per level: (ncx, ncy, offset of its first entry in bounds)
+    periodic: bool
+    Lx: float
+    Ly: float
+
+    @property
+    def n_rays(self) -> int:
+        return self.rx.shape[0]
+
+    @property
+    def n_items(self) -> int:
+        """The column kernel's (level, ray, cell row) work items."""
+        return len(self.grids) * self.n_rays * _ROWS
+
+
+def _ray_table(rays: np.ndarray, grids, x0: float, y0: float, Lx: float, Ly: float, device):
+    """(rx, ry, rays, grids) of a :class:`ColumnLayout`, on ``device`` from
+    the (2, n_rays) f64 host ray positions, sent once: each ray's cell per
+    level in f64 (IEEE operations, the same cells NumPy gives
+    :func:`stage_rays`), and the rays of each level in cell order (stable)."""
+    rxy = torch.as_tensor(rays, dtype=torch.float64, device=device)
+    cells = []
+    for ncx, ncy in grids:
+        rcx = torch.clamp(((rxy[0] - x0) * (ncx / Lx)).to(torch.int64), 0, ncx - 1)
+        rcy = torch.clamp(((rxy[1] - y0) * (ncy / Ly)).to(torch.int64), 0, ncy - 1)
+        cells.append(rcy * ncx + rcx)
+    sorted_cells, order = torch.sort(torch.stack(cells), dim=1, stable=True)
+    table = torch.stack([order, sorted_cells]).to(torch.int32)
+    offsets = np.cumsum([0] + [ncx * ncy + 1 for ncx, ncy in grids])
+    grid_rows = tuple((ncx, ncy, int(off)) for (ncx, ncy), off in zip(grids, offsets))
+    rxy = rxy.to(torch.float32)
+    return rxy[0], rxy[1], table, grid_rows
+
+
+def ray_spans(bounds: Tensor, rays: Tensor, grids, periodic: bool) -> tuple[Tensor, Tensor]:
+    """The candidate spans of every column item: (lo, hi), each
+    (n_levels, n_rays, 3, 2) int64 into the sorted particles (lo == hi:
+    empty), for level l, its k-th ray in cell order (``rays[:, l, k]``) and
+    cell row r of the ray's 1-ring. Span 0 holds the row's 1-ring cells;
+    under a periodic x-wrap it stops at the row's end and span 1 holds the
+    wrapped cell. A periodic axis of fewer than 3 cells takes each row or
+    column once; an open box clips the ring at its edges.
+    ``csrc/sightlines.cu::row_spans`` takes the same steps."""
+    n_levels, n_rays = rays.shape[1], rays.shape[2]
+    dev = bounds.device
+    lo = torch.zeros((n_levels, n_rays, _ROWS, 2), dtype=torch.int64, device=dev)
+    hi = torch.zeros_like(lo)
+    b = bounds.to(torch.int64)
+    for l, (ncx, ncy, off) in enumerate(grids):
+        cell = rays[1, l].to(torch.int64)
+        cx, cy = cell % ncx, cell // ncx
+        for r in range(_ROWS):
+            wr = cy - 1 + r
+            if periodic:
+                if r >= min(_ROWS, ncy):
+                    continue
+                valid = torch.ones_like(wr, dtype=torch.bool)
+                wr = (wr + ncy) % ncy
+            else:
+                valid = (wr >= 0) & (wr < ncy)
+                wr = wr.clamp(0, ncy - 1)
+            base = off + wr * ncx
+            if periodic and ncx <= _ROWS:
+                a, e = torch.zeros_like(cx), torch.full_like(cx, ncx - 1)
+            elif periodic:
+                a, e = cx - 1, cx + 1
+                left, right = a < 0, e >= ncx
+                wrap_lo = torch.where(left, b[base + ncx - 1], torch.where(right, b[base], 0))
+                wrap_hi = torch.where(left, b[base + ncx], torch.where(right, b[base + 1], 0))
+                lo[l, :, r, 1] = wrap_lo
+                hi[l, :, r, 1] = wrap_hi
+                a, e = a.clamp_min(0), e.clamp_max(ncx - 1)
+            else:
+                a, e = (cx - 1).clamp_min(0), (cx + 1).clamp_max(ncx - 1)
+            lo[l, :, r, 0] = torch.where(valid, b[base + a], 0)
+            hi[l, :, r, 0] = torch.where(valid, b[base + e + 1], 0)
+    return lo, hi
+
+
+def columns_tiles_plain(
+    packed: Tensor, bounds: Tensor, rx: Tensor, ry: Tensor, rays: Tensor, grids,
     *,
     n_fields: int,
     kernel: str,
@@ -420,14 +485,79 @@ def columns_tiles(
     Lx: float,
     Ly: float,
 ) -> Tensor:
-    """Column totals of every ray block, (n_blocks, B, F) f32.
+    """Plain torch version of :func:`columns_tiles`: the same inputs and the
+    same (F, n_rays) f32 output, evaluated over every (span entry, ray)
+    pair of :func:`ray_spans` in blocks of 2^22 (CPU) or 2^25 (GPU) pairs."""
+    kspec = get_kernel(kernel)
+    S = kspec.support_factor
+    n_rays = rx.shape[0]
+    out = torch.zeros((n_rays, n_fields), dtype=torch.float32, device=packed.device)
+    lo, hi = ray_spans(bounds, rays, grids, periodic)
+    span_ray = rays[0].to(torch.int64)[:, :, None, None].expand_as(lo).reshape(-1)
+    span_all, idx_all = _span_entries(lo.reshape(-1, 1), hi.reshape(-1, 1))
+    cheb = integrated_kernel_chebyshev(kernel) if projection == "integrated" else None
+    step = 1 << (22 if packed.device.type == "cpu" else 25)
+    for c0 in range(0, span_all.shape[0], step):
+        ray, idx = span_ray[span_all[c0:c0 + step]], idx_all[c0:c0 + step]
+        b2, hs, inv_h = _pair_geometry(packed, rx[:, None], ry[:, None], ray, idx, periodic, Lx, Ly)
+        b2, inv_h = b2[:, 0], inv_h
+        if cheb is not None:
+            inv_sh = inv_h * (1.0 / S)
+            tq = b2 * (inv_sh * inv_sh)
+            yv = clenshaw(2.0 * torch.clamp(tq, 0.0, 1.0) - 1.0, cheb)
+            w = torch.where(tq < 1.0, yv * (inv_h * inv_h), 0.0)
+        else:
+            qn = torch.sqrt(b2) * inv_h
+            fac = (kspec.norm_3d * inv_h) * (inv_h * inv_h)
+            w = torch.where(qn < S, kspec.shape_q(qn) * fac, 0.0)
+        w = torch.where(hs > 0.0, w, 0.0)  # h <= 0: no contribution
+        out.index_add_(0, ray, w[:, None] * packed[3:3 + n_fields, idx].T)
+    return out.T.contiguous()
+
+
+def _check_columns(packed: Tensor, bounds: Tensor, rx: Tensor, ry: Tensor, rays: Tensor, grids,
+                   n_chan: int) -> None:
+    """Shapes, types and devices of the column kernel's inputs, read without
+    a host sync (the kernel clamps the cells and bounds it reads)."""
+    dev = packed.device
+    if packed.dtype != torch.float32 or packed.ndim != 2 or packed.stride(1) != 1 or packed.shape[0] < n_chan:
+        raise ValueError(f"packed must be a (>= {n_chan}, N) float32 tensor with unit column stride")
+    if packed.shape[1] >= 2**31:
+        raise ValueError("the sightline kernels index particles with int32")
+    n_bounds = sum(ncx * ncy + 1 for ncx, ncy, _ in grids)
+    if bounds.dtype != torch.int32 or bounds.device != dev or bounds.shape != (n_bounds,) or not bounds.is_contiguous():
+        raise ValueError(f"bounds must be a contiguous ({n_bounds},) int32 tensor on {dev}")
+    if not 1 <= len(grids) <= _MAX_LEVELS:
+        raise ValueError(f"the column kernel takes 1..{_MAX_LEVELS} levels, got {len(grids)}")
+    n_rays = rx.shape[0]
+    for name, a in (("rx", rx), ("ry", ry)):
+        if a.dtype != torch.float32 or a.device != dev or a.shape != (n_rays,) or not a.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous ({n_rays},) float32 tensor on {dev}")
+    if (rays.dtype != torch.int32 or rays.device != dev or rays.shape != (2, len(grids), n_rays)
+            or not rays.is_contiguous()):
+        raise ValueError(f"rays must be a contiguous (2, {len(grids)}, {n_rays}) int32 tensor on {dev}")
+
+
+def columns_tiles(
+    packed: Tensor, bounds: Tensor, rx: Tensor, ry: Tensor, rays: Tensor, grids,
+    *,
+    n_fields: int,
+    kernel: str,
+    projection: str,
+    periodic: bool,
+    Lx: float,
+    Ly: float,
+) -> Tensor:
+    """Column totals of every ray, (F, n_rays) f32 in the caller's ray order.
 
     ``packed`` holds the (level, cell)-sorted channels [x, y, h, v_0 ..
-    v_{F-1}] as rows; block ``k`` sums over the particles of its spans
-    ``[lo[k, u], hi[k, u])`` against its rays ``(rx[k], ry[k])``. On a CUDA
-    tensor this launches the hand-written kernel ``csrc/sightlines.cu``
-    (built at first use) and raises if the build or the launch fails; on a
-    CPU tensor it runs :func:`columns_tiles_plain`.
+    v_{F-1}] as rows and ``bounds`` each level's cell starts in it; ray
+    ``i`` at ``(rx[i], ry[i])`` sums, over every level, the particles of its
+    1-ring cells (:func:`ray_spans`), its cell per level given by ``rays``
+    (a :class:`ColumnLayout`'s). On a CUDA tensor this launches the
+    hand-written kernel ``csrc/sightlines.cu`` (built at first use) and
+    raises if the build or the launch fails; on a CPU tensor it runs
+    :func:`columns_tiles_plain`.
     """
     if projection not in ("kernel3d", "integrated"):
         raise ValueError(f"projection must be 'kernel3d' or 'integrated', got {projection!r}")
@@ -435,24 +565,29 @@ def columns_tiles(
         raise ValueError(f"the column kernel takes 1..{_MAX_FIELDS} fields, got {n_fields}")
     args = dict(n_fields=n_fields, kernel=kernel, projection=projection, periodic=periodic, Lx=Lx, Ly=Ly)
     if packed.device.type == "cpu":
-        return columns_tiles_plain(packed, rx, ry, lo, hi, **args)
+        return columns_tiles_plain(packed, bounds, rx, ry, rays, grids, **args)
     if packed.device.type != "cuda":
         raise ValueError(f"no sightline kernel for device {packed.device}")
-    _check_layout(packed, rx, ry, lo, hi, _B, 3 + n_fields)
+    _check_columns(packed, bounds, rx, ry, rays, grids, 3 + n_fields)
     kspec = get_kernel(kernel)
-    n_blocks = rx.shape[0]
-    out = torch.empty((n_blocks, _B, n_fields), dtype=torch.float32, device=packed.device)
-    if n_blocks == 0:
+    n_rays, n_levels = rx.shape[0], len(grids)
+    dev = packed.device
+    out = torch.empty((n_fields, n_rays), dtype=torch.float32, device=dev)
+    if n_rays == 0:
         return out
+    # each item's sums, added per ray in a fixed order by the kernel's second pass
+    part = torch.empty((n_rays, n_levels * _ROWS, n_fields), dtype=torch.float32, device=dev)
     lib, _ = _build.load("sightlines")
     integrated = projection == "integrated"
-    cheb = device_const(integrated_kernel_chebyshev(kernel), torch.float32, packed.device) if integrated else None
-    with torch.cuda.device(packed.device):
-        stream = torch.cuda.current_stream(packed.device).cuda_stream
+    cheb = device_const(integrated_kernel_chebyshev(kernel), torch.float32, dev) if integrated else None
+    grid_ints = [v for g in grids for v in g]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.sightline_columns_launch(
-            packed.data_ptr(), packed.stride(0), n_fields,
-            rx.data_ptr(), ry.data_ptr(), lo.data_ptr(), hi.data_ptr(), n_blocks,
-            out.data_ptr(), int(periodic), float(Lx), float(Ly),
+            packed.data_ptr(), packed.stride(0), packed.shape[1], n_fields, bounds.data_ptr(),
+            rx.data_ptr(), ry.data_ptr(), rays.data_ptr(), n_rays,
+            (ctypes.c_int * len(grid_ints))(*grid_ints), n_levels, part.data_ptr(), out.data_ptr(),
+            int(periodic), float(Lx), float(Ly),
             kspec.kernel_id, int(integrated), float(kspec.norm_3d), float(kspec.support_factor),
             cheb.data_ptr() if integrated else None, cheb.numel() if integrated else 0,
             stream,
@@ -512,16 +647,16 @@ def column_integrate_pallas(
     if layout is None:
         zero = torch.zeros((n_fields, n_rays_in), dtype=torch.float32, device=device)
         return zero[0] if single else zero
-    out = columns_tiles(
-        layout.packed, layout.rx, layout.ry, layout.lo, layout.hi, n_fields=n_fields,
+    totals = columns_tiles(
+        layout.packed, layout.bounds, layout.rx, layout.ry, layout.rays, layout.grids, n_fields=n_fields,
         kernel=kernel, projection=projection, periodic=layout.periodic, Lx=layout.Lx, Ly=layout.Ly,
-    )
-    totals = unsort_sum(out, layout).T.contiguous()  # (F, n_rays)
+    )  # (F, n_rays)
     return totals[0] if single else totals
 
 
 def _columns_layout(x, y, h, values, ray_x, ray_y, *, kernel: str, periodic_box, device):
-    """(RayLayout or None, n_fields, single) of a columns pass on ``device``."""
+    """(ColumnLayout or None, n_fields, single) of a columns pass on
+    ``device``; None when there is no particle."""
     values = _f32(values, device)
     single = values.ndim == 1
     if single:
@@ -529,8 +664,15 @@ def _columns_layout(x, y, h, values, ray_x, ray_y, *, kernel: str, periodic_box,
     n_fields = values.shape[1]
     if n_fields > _MAX_FIELDS:
         raise ValueError(f"the fused sightline engine supports at most {_MAX_FIELDS} fields per pass")
-    layout = stage_rays(
-        _f32(x, device), _f32(y, device), _f32(h, device), list(values.T), ray_x, ray_y,
-        support_factor=get_kernel(kernel).support_factor, periodic_box=periodic_box, B=_B,
-    )
-    return layout, n_fields, single
+    x, y, h = _f32(x, device), _f32(y, device), _f32(h, device)
+    if h.shape[0] == 0:
+        return None, n_fields, single
+    S = get_kernel(kernel).support_factor
+    rays = np.stack([_host(ray_x, np.float64), _host(ray_y, np.float64)])
+    rays, x0, y0, Lx, Ly, s_max = _domain(x, y, h, rays, S, periodic_box)
+    grids = _choose_grids(Lx, Ly, s_max)
+    periodic = periodic_box is not None
+    packed, bounds = _sort_particles(x, y, h, list(values.T), grids, S, (x0, y0, Lx, Ly), periodic)
+    rx, ry, table, grid_rows = _ray_table(rays, grids, x0, y0, Lx, Ly, device)
+    return ColumnLayout(packed=packed, bounds=bounds, rx=rx, ry=ry, rays=table, grids=grid_rows,
+                        periodic=periodic, Lx=Lx, Ly=Ly), n_fields, single

@@ -17,6 +17,8 @@ fails (non-zero exit) if any phase fails:
 1. build: compile every CUDA kernel library (``csrc/deposit2d.cu``,
    ``csrc/coherent.cu``, ``csrc/sightlines.cu``, ``csrc/deposit3d.cu``,
    ``csrc/layout_shear.cu``), one nvcc per source, all started together;
+   the row-prep and column kernels' registers and spill bytes
+   (``ptxas_summary``);
 2. sorted-engine deposit kernel (#1) vs its plain torch version on the
    card, for every level K in {8, 16, 32, 64} x F in {2, 5} x projection,
    on a 1024^2 map: 2^18 uniform particles whose h lies inside the level,
@@ -42,7 +44,10 @@ fails (non-zero exit) if any phase fails:
 5. host-f64 quality path against the f64 oracle of ``tests/oracles.py``;
 6. row-prep kernel vs its plain version, bit for bit, on phase 3's
    particles, on 2^22 of them shuffled (most rows heavy) and on a
-   non-periodic map with every 131st particle off the extent;
+   non-periodic map with every 131st particle off the extent, with each
+   row's image stored both ways (16-byte stores and one bulk copy); each
+   time beside its bound (no time may fall under it) and the candidate
+   rounds the early stop saved;
 7. coherent deposit kernel (#2) vs its plain version on the layout of phase
    3's particles, F in {1, 2, 4} x projection, and on dense tiles (2^20
    Morton-ordered clustered particles on 4 x 4 level-0 tiles, F in {2, 4},
@@ -60,7 +65,10 @@ fails (non-zero exit) if any phase fails:
 9. ``render_map_stack(engine="coherent")`` against ``engine="pallas"``;
 10. sightline column kernel (``csrc/sightlines.cu``) vs its plain version on
     the fused layout of the config-4 particles (below) and 2048 rays,
-    {kernel3d, integrated} x {periodic, open} x F in {1, 5};
+    {kernel3d, integrated} x {periodic, open} x F in {1, 5}; two launches
+    compared bit for bit; pair tests per expected hit, items and the
+    largest item's particles, beside the same counts of the parent
+    kernel's block schedule (``block_work``); no time under its bound;
 11. spectra kernel vs its plain version, 256 rays, 512 bins, {gaussian,
     voigt (H I Lya)} x {periodic, open}, on the config-4 particles and on
     ``awkward_lines`` (lines at the velocity edges, Doppler widths from a
@@ -72,7 +80,9 @@ fails (non-zero exit) if any phase fails:
 12. the config-4 path at full size: 10^4 random rays through 10^7 clustered
     gas particles in a periodic 25 cMpc box at z = 0.5 —
     ``column_integrate_pallas`` and ``absorption_spectra_pallas`` (512 bins,
-    Gaussian and Voigt); launch counts, finiteness, warm walls, each
+    Gaussian and Voigt); launch counts, finiteness, warm walls, the
+    columns wall split into the domain read, device sort, host ray cells
+    and kernel, the column launch's work and bound, each
     spectra launch's kernel time beside its bound (checked to be no less)
     and phase 11's counts of what it did, the device's busy share,
     and agreement with the binned engines on 256 rays and with the dense
@@ -384,6 +394,34 @@ def phase_build():
             "flags": " ".join(_build.NVCC_FLAGS), "ptxas": ptxas,
         })
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3), "libraries": sorted(libs)})
+    logs = "\n".join(info.log for _, info in libs.values())
+    emit({"phase": "build", "ptxas_by_kernel": {
+        name: ptxas_summary(logs, name) for name in ("coherent_prep_kernel", "columns_kernel", "column_sums_kernel")
+    }})
+
+
+def ptxas_summary(log: str, kernel: str) -> dict:
+    """Registers and spill bytes of every instantiation of ``kernel`` in
+    ``nvcc -Xptxas -v`` output: their count, the most registers and the
+    most spill bytes any of them takes."""
+    import re
+
+    regs, spills, entry = [], [], None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", ln)
+        if m:
+            entry = m.group(1)
+            continue
+        if entry is None or kernel not in entry:
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            regs.append(int(m.group(1)))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spills.append(int(m.group(1)) + int(m.group(2)))
+    return {"instances": len(regs), "registers_max": max(regs, default=None),
+            "spill_bytes_max": max(spills, default=None)}
 
 
 def _level_inputs(torch, cfg, lo_s, hi_s, n_fields, n, spec, seed, device):
@@ -815,31 +853,62 @@ def _coherent_module():
 
 def _prep_vs_plain(torch, name, spec, cx, cy, ch, cv):
     """One case of kernel #3 (row prep) vs its plain version, bit for bit,
-    on whole 2048-lane rows."""
-    from astro_sph_tools_tpu_torch.ops.coherent_prep import _prep_rows, prep_rows, prep_rows_plain
+    on whole 2048-lane rows, with each row's image stored both ways
+    (``coherent_prep._ROW_STORE``; ``ms`` is the default's): each time
+    beside the bound, and the candidate rounds the early stop saved."""
+    from astro_sph_tools_tpu_torch.ops import coherent_prep as CP
 
     TC = _coherent_module()
     cx, cy, ch, cv = (a.contiguous() for a in (cx, cy, ch, cv))
     st = TC._setup(spec, "cubic_spline", TC.PALLAS_LEVELS, TC._D_MAX)
-    packed, aux = prep_rows(cx, cy, ch, cv, spec)
-    ref_packed, ref_aux = prep_rows_plain(cx, cy, ch, cv, st)
-    torch.cuda.synchronize()
-    bad_packed = int((packed != ref_packed).sum())
-    bad_aux = int((aux != ref_aux).sum())
-    err = max(float((packed - ref_packed).abs().max()), float((aux - ref_aux).abs().max()))
+    ref_packed, ref_aux = CP.prep_rows_plain(cx, cy, ch, cv, st)
+    default = CP._ROW_STORE
+    stores = {}
+    try:
+        for store in ("vector", "bulk"):
+            CP._ROW_STORE = store
+            packed, aux = CP.prep_rows(cx, cy, ch, cv, spec)
+            torch.cuda.synchronize()
+            stores[store] = {
+                "mismatched_packed": int((packed != ref_packed).sum()),
+                "mismatched_aux": int((aux != ref_aux).sum()),
+                "max_abs_err": max(float((packed - ref_packed).abs().max()),
+                                   float((aux - ref_aux).abs().max())),
+                "ms": cuda_ms(lambda: CP._prep_rows(cx, cy, ch, cv, st), 5),
+            }
+            del packed
+    finally:
+        CP._ROW_STORE = default
     d = TC._D_MAX
-    heavy = int((aux[:, d + 2] > 0.5).sum())
-    n_rows = aux.shape[0]
+    rounds = CP.prep_rounds(ref_aux, st)
+    heavy = int((ref_aux[:, d + 2] > 0.5).sum())
+    n_rows = ref_aux.shape[0]
     case = {
         "phase": "prep_vs_plain", "case": name, "n": cx.shape[0], "periodic": spec.periodic_wrap,
-        "mismatched_packed": bad_packed, "mismatched_aux": bad_aux, "max_abs_err": err,
-        "ms": cuda_ms(lambda: _prep_rows(cx, cy, ch, cv, st), 5),
-        "plain_ms": cuda_ms(lambda: prep_rows_plain(cx, cy, ch, cv, st), 5),
+        "row_store": default, "stores": stores,
+        "mismatched_packed": sum(s["mismatched_packed"] for s in stores.values()),
+        "mismatched_aux": sum(s["mismatched_aux"] for s in stores.values()),
+        "max_abs_err": max(s["max_abs_err"] for s in stores.values()),
+        "ms": stores[default]["ms"],
+        "plain_ms": cuda_ms(lambda: CP.prep_rows_plain(cx, cy, ch, cv, st), 5),
         "heavy_rows": heavy, "coherent_fraction": 1.0 - heavy / n_rows,
+        # the early stop: rounds run per row (a barrier each, plus the scan's)
+        "rounds_mean": float(rounds.double().mean()),
+        "rounds_saved": int((d - rounds).sum()), "rounds_saved_share": float((d - rounds).sum()) / (d * n_rows),
         # assignment arithmetic: about 40 operations a particle
-        **bound(nbytes(cx, cy, ch, cv, packed, aux), 40.0 * cx.shape[0]),
+        **bound(nbytes(cx, cy, ch, cv, ref_packed, ref_aux), 40.0 * cx.shape[0]),
     }
-    if bad_packed or bad_aux:  # where they differ, for the record
+    for store in stores.values():
+        store["bound_share"] = case["bound_ms"] / store["ms"]
+    case["bound_share"] = case["bound_ms"] / case["ms"]
+    if case["mismatched_packed"] or case["mismatched_aux"]:  # where they differ, for the record
+        bad = "bulk" if stores["bulk"]["mismatched_packed"] + stores["bulk"]["mismatched_aux"] else "vector"
+        CP._ROW_STORE = bad
+        try:
+            packed, aux = CP.prep_rows(cx, cy, ch, cv, spec)
+        finally:
+            CP._ROW_STORE = default
+        case["mismatches_of"] = bad
         idx = torch.nonzero(packed != ref_packed)[:5].tolist()
         case["first_packed_mismatches"] = [
             [i, float(packed[tuple(i)]), float(ref_packed[tuple(i)])] for i in idx
@@ -847,7 +916,10 @@ def _prep_vs_plain(torch, name, spec, cx, cy, ch, cv):
         idx = torch.nonzero(aux != ref_aux)[:5].tolist()
         case["first_aux_mismatches"] = [[i, float(aux[tuple(i)]), float(ref_aux[tuple(i)])] for i in idx]
     emit(case)
-    check(bad_packed == 0 and bad_aux == 0, f"row-prep kernel differs from its plain version: {name}")
+    check(case["mismatched_packed"] == 0 and case["mismatched_aux"] == 0,
+          f"row-prep kernel differs from its plain version: {name}")
+    for store, s in stores.items():
+        check_bound({**s, "bound_ms": case["bound_ms"]}, f"row prep ({store} stores), {name}")
     return case
 
 
@@ -1202,46 +1274,86 @@ def sightline_setup(torch, device, n: int):
             "cosmology": cosmo, "generate_s": time.perf_counter() - t0}
 
 
+def column_work(torch, lay, hits: float) -> dict:
+    """What kernel #4 scans on a column layout: its pair tests (every
+    candidate of every (level, ray, cell row) item against the item's ray),
+    per expected hit, its items and the largest item's particles; and the
+    candidates of the distinct ray cells alone, which a kernel that tested
+    each candidate against all rays of its cell would read."""
+    from astro_sph_tools_tpu_torch.ops.sightlines_fused import ray_spans
+
+    lo, hi = ray_spans(lay.bounds, lay.rays, lay.grids, lay.periodic)
+    per_item = (hi - lo).clamp_min(0).sum(-1)
+    pairs = int(per_item.sum())
+    cells = lay.rays[1]  # each level's ray cells, in order
+    first = torch.ones_like(cells, dtype=torch.bool)
+    first[:, 1:] = cells[:, 1:] != cells[:, :-1]
+    distinct = int(per_item.sum(-1)[first].sum())
+    return {"pair_tests": pairs, "pair_tests_per_hit": pairs / hits, "items": lay.n_items,
+            "max_item_particles": int(per_item.max()), "mean_item_particles": pairs / lay.n_items,
+            "distinct_cell_candidates": distinct, "pair_tests_per_distinct_candidate": pairs / max(distinct, 1)}
+
+
+def block_work(torch, x, y, h, m, rx, ry, periodic_box, hits: float) -> dict:
+    """The same counts for the parent's column kernel, which took blocks of
+    8 cell-sorted rays and tested each candidate of the block's 10 spans
+    against all 8 (the block schedule the spectra keep)."""
+    from astro_sph_tools_tpu_torch.ops.sightlines_fused import _B, stage_rays
+
+    lay = stage_rays(x, y, h, [m], rx, ry, support_factor=2.0, periodic_box=periodic_box, B=_B)
+    spans = (lay.hi - lay.lo).clamp_min(0).sum(dim=1)
+    pairs = int(spans.sum()) * _B
+    return {"pair_tests": pairs, "pair_tests_per_hit": pairs / hits, "items": lay.n_blocks,
+            "max_item_particles": int(spans.max())}
+
+
 def phase_columns_kernel(torch, device, sl, n_rays: int = 2048):
     """Kernel #4 vs its plain version on the fused layout of the config-4
-    particles."""
+    particles; two launches compared bit for bit; the pair tests and items
+    of this kernel and of its parent's block schedule."""
     from astro_sph_tools_tpu_torch.ops.sightlines_fused import (
         _columns_layout, columns_tiles, columns_tiles_plain,
     )
 
     pos, h, m, T, v = sl["pos"], sl["h"], sl["m"], sl["T"], sl["v_pec"]
+    x, y = pos[:, 0].contiguous(), pos[:, 1].contiguous()
     fields5 = torch.stack([m, m * T, m * v, h, T], dim=1)
     rx, ry = sl["rx"][:n_rays], sl["ry"][:n_rays]
     # expected (ray, particle) pairs inside a support, rays uniform over the box
     hits = support_points(h, 2.0, 1.0, 2) * n_rays / SIGHT_BOX**2
     out = []
     for periodic in (True, False):
+        box = SIGHT_BOX if periodic else None
+        parent = block_work(torch, x, y, h, m, rx, ry, box, hits)
         for n_fields in (1, 5):
-            lay, _, _ = _columns_layout(
-                pos[:, 0], pos[:, 1], h, fields5[:, :n_fields], rx, ry, kernel="cubic_spline",
-                periodic_box=SIGHT_BOX if periodic else None, device=device,
-            )
-            args = (lay.packed, lay.rx, lay.ry, lay.lo, lay.hi)
-            spans = (lay.hi - lay.lo).clamp_min(0).sum(dim=1)
+            lay, _, _ = _columns_layout(x, y, h, fields5[:, :n_fields], rx, ry, kernel="cubic_spline",
+                                        periodic_box=box, device=device)
+            args = (lay.packed, lay.bounds, lay.rx, lay.ry, lay.rays, lay.grids)
+            work = column_work(torch, lay, hits)
             for projection in ("kernel3d", "integrated"):
                 kw = dict(n_fields=n_fields, kernel="cubic_spline", projection=projection,
                           periodic=lay.periodic, Lx=lay.Lx, Ly=lay.Ly)
                 got = columns_tiles(*args, **kw)
+                again = columns_tiles(*args, **kw)
                 ref = columns_tiles_plain(*args, **kw)
                 torch.cuda.synchronize()
                 err, rel = rel_err(got, ref)
                 case = {
                     "phase": "columns_kernel_vs_plain", "projection": projection, "periodic": periodic,
-                    "F": n_fields, "n": pos.shape[0], "n_rays": n_rays, "n_blocks": lay.n_blocks,
-                    "n_levels": len(lay.rorders), "pairs_scanned": int(spans.sum()) * 8,
-                    "max_span_particles": int(spans.max()), "max_abs_err": err, "rel_err": rel,
+                    "F": n_fields, "n": pos.shape[0], "n_rays": n_rays, "n_levels": len(lay.grids),
+                    "expected_hits": hits, **work, "parent_schedule": parent,
+                    "same_bits_twice": bool(torch.equal(got, again)),
+                    "max_abs_err": err, "rel_err": rel,
                     "ms": cuda_ms(lambda: columns_tiles(*args, **kw), 5),
                     "plain_ms": cuda_ms(lambda: columns_tiles_plain(*args, **kw), 3),
-                    **bound(nbytes(*args, got), hits * pair_ops(n_fields, projection)),
+                    **bound(nbytes(*args[:5], got), hits * pair_ops(n_fields, projection)),
                 }
+                case["bound_share"] = case["bound_ms"] / case["ms"]
                 emit(case)
                 check(bool(torch.isfinite(got).all()), f"non-finite column kernel output {case}")
                 check(rel <= REL_TOL, f"column kernel disagrees with its plain version: {case}")
+                check(case["same_bits_twice"], f"column kernel gave other bits on a second launch: {case}")
+                check_bound(case, f"column kernel, {projection}, periodic {periodic}, F {n_fields}")
                 out.append(case)
             del lay, args
     return out
@@ -1487,6 +1599,7 @@ def phase_sightlines(torch, device, sl, n_check: int = 256, n_bins: int = 512):
         absorption_spectra, absorption_spectra_binned, absorption_spectra_pallas, column_integrate_binned,
         column_integrate_pallas,
     )
+    from astro_sph_tools_tpu_torch.ops import sightlines_fused as SF
     from astro_sph_tools_tpu_torch.ops.sightlines_fused import _columns_layout, columns_tiles
     from astro_sph_tools_tpu_torch.ops.spectra import _resolve_profile
     from astro_sph_tools_tpu_torch.ops.spectra_fused import _spectra_layout, spectra_tiles
@@ -1524,17 +1637,36 @@ def phase_sightlines(torch, device, sl, n_check: int = 256, n_bins: int = 512):
     busy_g, prof_g = device_busy_ms(gauss_fn)
     busy_v, prof_v = device_busy_ms(voigt_fn)
 
-    # the walls split: layout (device sort + host ray schedule) and kernel
+    # the walls split: layout (device sort + host ray schedule) and kernel;
+    # the columns' layout also as its domain read (the particles' extremes),
+    # the device sort (level/cell sort, gather, bounds table) and the host
+    # ray cells
     col_layout = lambda: _columns_layout(x, y, h, m, rx, ry, kernel="cubic_spline", periodic_box=SIGHT_BOX,
                                          device=device)
+    rays_w, x0, y0, Lx, Ly, s_max = SF._domain(x, y, h, np.stack([rx, ry]), 2.0, SIGHT_BOX)
+    grids = SF._choose_grids(Lx, Ly, s_max)
+    columns_split_s = {
+        "domain": wall_s(lambda: SF._domain(x, y, h, np.stack([rx, ry]), 2.0, SIGHT_BOX), 3),
+        "device_sort": wall_s(lambda: SF._sort_particles(x, y, h, [m], grids, 2.0, (x0, y0, Lx, Ly), True), 3),
+        "host_ray_cells": wall_s(lambda: SF._ray_table(rays_w, grids, x0, y0, Lx, Ly, device), 3),
+    }
     spec_layout = lambda prof: _spectra_layout(
         pos, h, m, v, T, rx, ry, cosmology=cosmo, box_size=SIGHT_BOX, atomic_weight=1.008, n_bins=n_bins,
         kernel="cubic_spline", periodic=True, profile=prof, device=device)
     layout_s = {"columns": wall_s(col_layout, 3), "spectra": wall_s(lambda: spec_layout("gaussian"), 3)}
     lay = col_layout()[0]
     kernel_ms = {"columns": cuda_ms(lambda: columns_tiles(
-        lay.packed, lay.rx, lay.ry, lay.lo, lay.hi, n_fields=1, kernel="cubic_spline",
+        lay.packed, lay.bounds, lay.rx, lay.ry, lay.rays, lay.grids, n_fields=1, kernel="cubic_spline",
         projection="integrated", periodic=True, Lx=lay.Lx, Ly=lay.Ly), 3)}
+    columns_split_s["kernel"] = kernel_ms["columns"] / 1e3
+    col_hits = support_points(h, 2.0, 1.0, 2) * n_rays / SIGHT_BOX**2
+    columns_work = {
+        **column_work(torch, lay, col_hits), "ms": kernel_ms["columns"],
+        **bound(nbytes(lay.packed, lay.bounds, lay.rx, lay.ry, lay.rays) + 4 * n_rays,
+                col_hits * pair_ops(1, "integrated")),
+    }
+    columns_work["bound_share"] = columns_work["bound_ms"] / columns_work["ms"]
+    check_bound(columns_work, "phase 12 columns")
     kernel_bound = {}
     for prof in ("gaussian", "voigt"):
         lay, vc_np, v_box, n_img = spec_layout(prof)
@@ -1581,6 +1713,7 @@ def phase_sightlines(torch, device, sl, n_check: int = 256, n_bins: int = 512):
         "phase": "sightlines_path", "n": n, "n_rays": n_rays, "n_bins": n_bins, "box_cMpc": SIGHT_BOX,
         "redshift": cosmo.redshift, "generate_s": sl["generate_s"], "launches": launches,
         "wall_s": walls, "rays_per_s_columns": n_rays / walls["columns"], "layout_s": layout_s,
+        "columns_split_s": columns_split_s, "columns_work": columns_work,
         "kernel_ms": kernel_ms, "kernel_bound": kernel_bound,
         "profiled_wall_ms": {"columns": prof_cols, "spectra_gaussian": prof_g, "spectra_voigt": prof_v},
         "device_busy_ms": {"columns": busy_cols, "spectra_gaussian": busy_g, "spectra_voigt": busy_v},
@@ -2324,6 +2457,9 @@ def main() -> None:
             "ms": col_case["ms"] if col_case else None,
             "plain_ms": col_case["plain_ms"] if col_case else None,
             **bound_keys(col_case),
+            # the config-4 columns' launch: 10^4 rays (phase 12)
+            "main_path_ms": sight_out["columns_work"]["ms"] if sight_out else None,
+            "main_path_bound_ms": sight_out["columns_work"]["bound_ms"] if sight_out else None,
         },
         {
             "name": "sightline_spectra",

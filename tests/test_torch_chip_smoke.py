@@ -153,3 +153,27 @@ def test_plain_f64_sum_is_the_f64_sum_of_the_plain_terms(side, radii):
     assert got.dtype == torch.float64 and got.shape == plain.shape
     assert cs.rel_err(got, exact)[1] <= 1e-7
     assert cs.rel_err(plain, exact)[1] <= 1e-5
+
+
+def test_ptxas_summary_reads_registers_and_spills():
+    """Phase 1's per-kernel summary of ``nvcc -Xptxas -v``: every
+    instantiation of the named kernel, the most registers and spill bytes
+    among them, and nothing of other kernels."""
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114columns_kernelILi0ELb1ELi1EEEvPKf' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_114columns_kernelILi0ELb1ELi1EEEvPKf",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 40 registers, used 1 barriers, 1024 bytes smem, 532 bytes cmem[0]",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114columns_kernelILi0ELb1ELi5EEEvPKf' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_114columns_kernelILi0ELb1ELi5EEEvPKf",
+        "    24 bytes stack frame, 12 bytes spill stores, 12 bytes spill loads",
+        "ptxas info    : Used 56 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118column_sums_kernelEPKfiiiPf' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_118column_sums_kernelEPKfiiiPf",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 90 registers",
+    ])
+    assert cs.ptxas_summary(log, "columns_kernel") == {"instances": 2, "registers_max": 56, "spill_bytes_max": 24}
+    assert cs.ptxas_summary(log, "column_sums_kernel") == {"instances": 1, "registers_max": 90, "spill_bytes_max": 0}
+    assert cs.ptxas_summary(log, "coherent_prep_kernel") == {
+        "instances": 0, "registers_max": None, "spill_bytes_max": None}
