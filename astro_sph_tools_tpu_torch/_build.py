@@ -62,7 +62,6 @@ _SIGNATURES = {
             _P, _P, _P, _P, _LL, _I,  # x, y, h, values, values row stride, n_fields
             _I, _P, _P,  # n_rows, packed (n_rows, 8, 2048), aux (n_rows, 128)
             ctypes.POINTER(_F), ctypes.POINTER(_I),  # host float / int parameters
-            _I,  # bulk copy of each row's image (else 16-byte stores)
             _P,  # cudaStream_t
         ],
         "coherent_deposit_launch": [

@@ -28,9 +28,9 @@
 //      written there in a shared-memory image of the packed row (8, C)
 //      f32, 64 KiB: [u_loc, v_loc, h, val_0..val_{F-1}, ckey, 0..]. The
 //      image, zero channels included, then leaves as one contiguous
-//      64-KiB run of `packed`: coalesced 16-byte stores, or (BULK) one
-//      cp.async.bulk shared -> global copy that one thread issues and that
-//      runs on while the block takes its candidates.
+//      64-KiB run of `packed` by coalesced 16-byte stores (one
+//      cp.async.bulk copy a row measured 4-5 % slower on the main path's
+//      rows).
 //    - candidates: round d takes the block-wide min of the head keys not
 //      yet taken (warp minima by __reduce_min_sync, then one barrier; each
 //      round's barrier also carries the K4 flag of the key the round
@@ -124,17 +124,6 @@ __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-// One bulk copy of `bytes` (a multiple of 16) from shared to global memory
-// by the tensor memory accelerator; the caller fenced the generic-proxy
-// writes of the source and passed a barrier.
-__device__ __forceinline__ void bulk_store(float* gdst, const float* ssrc, unsigned bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(ssrc));
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
-               :: "l"(gdst), "r"(s), "r"(bytes) : "memory");
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-}
-
-template <bool BULK>
 __global__ void __launch_bounds__(kThreads)
 coherent_prep_kernel(const float* __restrict__ x, const float* __restrict__ y,
                      const float* __restrict__ h, const float* __restrict__ vals,
@@ -272,7 +261,6 @@ coherent_prep_kernel(const float* __restrict__ x, const float* __restrict__ y,
   }
   for (int q = (key_ch + 1) * (kC / 4) + tid; q < 8 * (kC / 4); q += kThreads)
     s_img4[q] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  if constexpr (BULK) asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 
   // --- candidate rounds: round d takes m, the d-th key; its barrier
   //     brings the next min and m's K4 flag. Round 0's barrier also
@@ -296,13 +284,8 @@ coherent_prep_kernel(const float* __restrict__ x, const float* __restrict__ y,
     if (lane_id == 0) s_round[d & 1][warp] = make_int2(mine, any_big);
     __syncthreads();
     if (d == 0) {
-      float* prow = packed + rbase * 8;
-      if constexpr (BULK) {
-        if (tid == 0) bulk_store(prow, img, kImgBytes);
-      } else {
-        float4* dst = reinterpret_cast<float4*>(prow);
-        for (int q = tid; q < 8 * (kC / 4); q += kThreads) dst[q] = s_img4[q];
-      }
+      float4* dst = reinterpret_cast<float4*>(packed + rbase * 8);
+      for (int q = tid; q < 8 * (kC / 4); q += kThreads) dst[q] = s_img4[q];
     }
     m = INT_MAX;
     any_big = 0;
@@ -336,10 +319,6 @@ coherent_prep_kernel(const float* __restrict__ x, const float* __restrict__ y,
       a = tid - flag0 >= d ? 1.0f : slot;
     }
     aux[(long long)row * kAuxW + tid] = a;
-  }
-  if constexpr (BULK) {
-    // the shared image must stay until the copy has read it
-    if (tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
   }
 }
 
@@ -430,13 +409,12 @@ extern "C" {
 // bound[4], 1/tx[4], 1/TY[4]. iparams (host, kPrepInts ints): periodic,
 // n_levels, d_max, then n_tiles_x[4], n_tiles_y[4], tx[4], TY[4], M[4],
 // bases[5]. x, y, h and vals are 16-byte aligned and ld_vals is a multiple
-// of 4. bulk != 0: each row's image leaves by one bulk copy, else by
-// 16-byte stores. Returns the cudaError_t of the first failing attribute
-// call or launch (cudaSuccess = 0).
+// of 4. Returns the cudaError_t of the first failing attribute call or
+// launch (cudaSuccess = 0).
 int coherent_prep_launch(const float* x, const float* y, const float* h,
                          const float* vals, long long ld_vals, int n_fields,
                          int n_rows, float* packed, float* aux,
-                         const float* fparams, const int* iparams, int bulk,
+                         const float* fparams, const int* iparams,
                          void* stream) {
   if (n_rows <= 0) return cudaSuccess;
   PrepParams P;
@@ -463,14 +441,11 @@ int coherent_prep_launch(const float* x, const float* y, const float* h,
       P.n_levels > kMaxLevels || P.d_max < 1 || P.d_max > kMaxD ||
       2 * P.d_max + 3 + P.n_levels > kAuxW || (align & 15u) || (ld_vals & 3))
     return cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  auto run = [&](auto kern) {
-    cudaError_t e = ast::allow_smem(kern, kImgBytes);
-    if (e != cudaSuccess) return e;
-    kern<<<n_rows, kThreads, kImgBytes, s>>>(x, y, h, vals, ld_vals, n_fields, packed, aux, P);
-    return cudaGetLastError();
-  };
-  return bulk ? run(coherent_prep_kernel<true>) : run(coherent_prep_kernel<false>);
+  cudaError_t e = ast::allow_smem(coherent_prep_kernel, kImgBytes);
+  if (e != cudaSuccess) return e;
+  coherent_prep_kernel<<<n_rows, kThreads, kImgBytes, (cudaStream_t)stream>>>(
+      x, y, h, vals, ld_vals, n_fields, packed, aux, P);
+  return cudaGetLastError();
 }
 
 // Coherent deposit of n_tiles level-0 tiles from packed (n_rows, 8, 2048)

@@ -36,9 +36,8 @@
 //     under a periodic x-wrap), read from the per-cell bounds table
 //     (row_spans, mirrored by ops/sightlines_fused.py::ray_spans). A warp
 //     loads 4 batches of 32 consecutive candidates at once (x, y, h,
-//     coalesced); a lane tests one against the ray, first without a
-//     division (b2 against 1.001 (S h)^2), then by the exact support test
-//     of the plain version; the hits go to a queue in shared
+//     coalesced); a lane tests one against the ray, as the plain version
+//     does; the hits go to a queue in shared
 //     memory, and every 32 queued hits the whole warp computes their
 //     weights and reads their values at once, so that the Clenshaw sum
 //     does not run for one lane while 31 wait. Particles with h <= 0 are
@@ -186,7 +185,6 @@ constexpr int kColThreads = 32 * kColWarps;
 constexpr int kMaxColLevels = 6;  // ops/sightlines_fused.py::_MAX_LEVELS
 constexpr int kHitQueue = 64;     // a warp's queue of hits: two batches of 32
 constexpr int kColBatches = 4;    // batches of 32 candidates whose loads a warp issues at once
-constexpr float kNearHit = 1.001f;  // b2 < 1.001 (S h)^2: a pair worth the exact support test
 
 struct ColGrids {
   int n;  // levels
@@ -331,17 +329,12 @@ columns_kernel(const float* __restrict__ packed, long long stride, int n,
             dy = min_image(dy, Ly, invLy);
           }
           b2 = dx * dx + dy * dy;
-          // a division-free filter, looser than the exact test by far more
-          // than its rounding: only the pairs it passes take the division
-          const float sh = S * hs[u];
-          if (b2 < kNearHit * (sh * sh)) {
-            inv_h = 1.0f / hs[u];
-            if constexpr (INTEG) {
-              const float inv_sh = inv_h * inv_sf;
-              hit = b2 * (inv_sh * inv_sh) < 1.0f;
-            } else {
-              hit = sqrtf(b2) * inv_h < S;
-            }
+          inv_h = 1.0f / hs[u];
+          if constexpr (INTEG) {
+            const float inv_sh = inv_h * inv_sf;
+            hit = b2 * (inv_sh * inv_sh) < 1.0f;
+          } else {
+            hit = sqrtf(b2) * inv_h < S;
           }
         }
         const unsigned mask = __ballot_sync(0xffffffffu, hit);

@@ -47,10 +47,6 @@ from .deposit_tiled import PALLAS_LEVELS
 Tensor = torch.Tensor
 
 _MAX_LEVELS = 4  # levels the kernel's parameter block holds
-#: how the kernel writes each row's 64-KiB shared-memory image to
-#: ``packed``: "vector" (coalesced 16-byte stores) or "bulk" (one
-#: ``cp.async.bulk`` shared -> global copy a row)
-_ROW_STORE = "vector"
 
 
 def prep_rows_plain(x: Tensor, y: Tensor, h: Tensor, values: Tensor, st: _Setup) -> tuple[Tensor, Tensor]:
@@ -213,7 +209,7 @@ def _prep_rows(x: Tensor, y: Tensor, h: Tensor, values: Tensor, st: _Setup) -> t
         code = lib.coherent_prep_launch(
             x.data_ptr(), y.data_ptr(), h.data_ptr(), values.data_ptr(),
             values.stride(0), n_fields, n_rows, packed.data_ptr(), aux.data_ptr(),
-            fparams, iparams, int(_ROW_STORE == "bulk"), torch.cuda.current_stream(dev).cuda_stream,
+            fparams, iparams, torch.cuda.current_stream(dev).cuda_stream,
         )
     if code != 0:
         raise RuntimeError(f"row-prep kernel launch failed: {lib.cuda_error_string(code).decode()} ({code})")

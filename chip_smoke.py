@@ -44,10 +44,9 @@ fails (non-zero exit) if any phase fails:
 5. host-f64 quality path against the f64 oracle of ``tests/oracles.py``;
 6. row-prep kernel vs its plain version, bit for bit, on phase 3's
    particles, on 2^22 of them shuffled (most rows heavy) and on a
-   non-periodic map with every 131st particle off the extent, with each
-   row's image stored both ways (16-byte stores and one bulk copy); each
-   time beside its bound (no time may fall under it) and the candidate
-   rounds the early stop saved;
+   non-periodic map with every 131st particle off the extent; each time
+   beside its bound (no time may fall under it) and the candidate rounds
+   the early stop saved;
 7. coherent deposit kernel (#2) vs its plain version on the layout of phase
    3's particles, F in {1, 2, 4} x projection, and on dense tiles (2^20
    Morton-ordered clustered particles on 4 x 4 level-0 tiles, F in {2, 4},
@@ -147,6 +146,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -404,8 +404,6 @@ def ptxas_summary(log: str, kernel: str) -> dict:
     """Registers and spill bytes of every instantiation of ``kernel`` in
     ``nvcc -Xptxas -v`` output: their count, the most registers and the
     most spill bytes any of them takes."""
-    import re
-
     regs, spills, entry = [], [], None
     for ln in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", ln)
@@ -853,62 +851,37 @@ def _coherent_module():
 
 def _prep_vs_plain(torch, name, spec, cx, cy, ch, cv):
     """One case of kernel #3 (row prep) vs its plain version, bit for bit,
-    on whole 2048-lane rows, with each row's image stored both ways
-    (``coherent_prep._ROW_STORE``; ``ms`` is the default's): each time
-    beside the bound, and the candidate rounds the early stop saved."""
-    from astro_sph_tools_tpu_torch.ops import coherent_prep as CP
+    on whole 2048-lane rows: its time beside the bound, and the candidate
+    rounds the early stop saved."""
+    from astro_sph_tools_tpu_torch.ops.coherent_prep import _prep_rows, prep_rounds, prep_rows, prep_rows_plain
 
     TC = _coherent_module()
     cx, cy, ch, cv = (a.contiguous() for a in (cx, cy, ch, cv))
     st = TC._setup(spec, "cubic_spline", TC.PALLAS_LEVELS, TC._D_MAX)
-    ref_packed, ref_aux = CP.prep_rows_plain(cx, cy, ch, cv, st)
-    default = CP._ROW_STORE
-    stores = {}
-    try:
-        for store in ("vector", "bulk"):
-            CP._ROW_STORE = store
-            packed, aux = CP.prep_rows(cx, cy, ch, cv, spec)
-            torch.cuda.synchronize()
-            stores[store] = {
-                "mismatched_packed": int((packed != ref_packed).sum()),
-                "mismatched_aux": int((aux != ref_aux).sum()),
-                "max_abs_err": max(float((packed - ref_packed).abs().max()),
-                                   float((aux - ref_aux).abs().max())),
-                "ms": cuda_ms(lambda: CP._prep_rows(cx, cy, ch, cv, st), 5),
-            }
-            del packed
-    finally:
-        CP._ROW_STORE = default
+    packed, aux = prep_rows(cx, cy, ch, cv, spec)
+    ref_packed, ref_aux = prep_rows_plain(cx, cy, ch, cv, st)
+    torch.cuda.synchronize()
+    bad_packed = int((packed != ref_packed).sum())
+    bad_aux = int((aux != ref_aux).sum())
+    err = max(float((packed - ref_packed).abs().max()), float((aux - ref_aux).abs().max()))
     d = TC._D_MAX
-    rounds = CP.prep_rounds(ref_aux, st)
-    heavy = int((ref_aux[:, d + 2] > 0.5).sum())
-    n_rows = ref_aux.shape[0]
+    rounds = prep_rounds(ref_aux, st)
+    heavy = int((aux[:, d + 2] > 0.5).sum())
+    n_rows = aux.shape[0]
     case = {
         "phase": "prep_vs_plain", "case": name, "n": cx.shape[0], "periodic": spec.periodic_wrap,
-        "row_store": default, "stores": stores,
-        "mismatched_packed": sum(s["mismatched_packed"] for s in stores.values()),
-        "mismatched_aux": sum(s["mismatched_aux"] for s in stores.values()),
-        "max_abs_err": max(s["max_abs_err"] for s in stores.values()),
-        "ms": stores[default]["ms"],
-        "plain_ms": cuda_ms(lambda: CP.prep_rows_plain(cx, cy, ch, cv, st), 5),
+        "mismatched_packed": bad_packed, "mismatched_aux": bad_aux, "max_abs_err": err,
+        "ms": cuda_ms(lambda: _prep_rows(cx, cy, ch, cv, st), 5),
+        "plain_ms": cuda_ms(lambda: prep_rows_plain(cx, cy, ch, cv, st), 5),
         "heavy_rows": heavy, "coherent_fraction": 1.0 - heavy / n_rows,
         # the early stop: rounds run per row (a barrier each, plus the scan's)
         "rounds_mean": float(rounds.double().mean()),
         "rounds_saved": int((d - rounds).sum()), "rounds_saved_share": float((d - rounds).sum()) / (d * n_rows),
         # assignment arithmetic: about 40 operations a particle
-        **bound(nbytes(cx, cy, ch, cv, ref_packed, ref_aux), 40.0 * cx.shape[0]),
+        **bound(nbytes(cx, cy, ch, cv, packed, aux), 40.0 * cx.shape[0]),
     }
-    for store in stores.values():
-        store["bound_share"] = case["bound_ms"] / store["ms"]
     case["bound_share"] = case["bound_ms"] / case["ms"]
-    if case["mismatched_packed"] or case["mismatched_aux"]:  # where they differ, for the record
-        bad = "bulk" if stores["bulk"]["mismatched_packed"] + stores["bulk"]["mismatched_aux"] else "vector"
-        CP._ROW_STORE = bad
-        try:
-            packed, aux = CP.prep_rows(cx, cy, ch, cv, spec)
-        finally:
-            CP._ROW_STORE = default
-        case["mismatches_of"] = bad
+    if bad_packed or bad_aux:  # where they differ, for the record
         idx = torch.nonzero(packed != ref_packed)[:5].tolist()
         case["first_packed_mismatches"] = [
             [i, float(packed[tuple(i)]), float(ref_packed[tuple(i)])] for i in idx
@@ -916,10 +889,8 @@ def _prep_vs_plain(torch, name, spec, cx, cy, ch, cv):
         idx = torch.nonzero(aux != ref_aux)[:5].tolist()
         case["first_aux_mismatches"] = [[i, float(aux[tuple(i)]), float(ref_aux[tuple(i)])] for i in idx]
     emit(case)
-    check(case["mismatched_packed"] == 0 and case["mismatched_aux"] == 0,
-          f"row-prep kernel differs from its plain version: {name}")
-    for store, s in stores.items():
-        check_bound({**s, "bound_ms": case["bound_ms"]}, f"row prep ({store} stores), {name}")
+    check(bad_packed == 0 and bad_aux == 0, f"row-prep kernel differs from its plain version: {name}")
+    check_bound(case, f"row prep, {name}")
     return case
 
 

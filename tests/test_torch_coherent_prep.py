@@ -490,12 +490,10 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("store", ["vector", "bulk"])
 @pytest.mark.parametrize("case", range(len(ALL_CASES)))
-def test_cuda_prep_kernel_matches_plain_bitwise(cuda_device, case, store, monkeypatch):
+def test_cuda_prep_kernel_matches_plain_bitwise(cuda_device, case):
     """(h) kernel #3 against its plain version on the card: bit for bit,
-    with the row image stored both ways, the edge rows included."""
-    monkeypatch.setattr(CP, "_ROW_STORE", store)
+    the edge rows included."""
     spec, x, y, h, vals = case_inputs(case, 300 + case)
     args = [a.to(cuda_device) for a in as_torch(x, y, h, vals)]
     st = TC._setup(spec, "cubic_spline", TC.PALLAS_LEVELS, TC._D_MAX)
