@@ -500,7 +500,7 @@ def columns_tiles_plain(
     for c0 in range(0, span_all.shape[0], step):
         ray, idx = span_ray[span_all[c0:c0 + step]], idx_all[c0:c0 + step]
         b2, hs, inv_h = _pair_geometry(packed, rx[:, None], ry[:, None], ray, idx, periodic, Lx, Ly)
-        b2, inv_h = b2[:, 0], inv_h
+        b2 = b2[:, 0]
         if cheb is not None:
             inv_sh = inv_h * (1.0 / S)
             tq = b2 * (inv_sh * inv_sh)
@@ -524,7 +524,10 @@ def _check_columns(packed: Tensor, bounds: Tensor, rx: Tensor, ry: Tensor, rays:
         raise ValueError(f"packed must be a (>= {n_chan}, N) float32 tensor with unit column stride")
     if packed.shape[1] >= 2**31:
         raise ValueError("the sightline kernels index particles with int32")
-    n_bounds = sum(ncx * ncy + 1 for ncx, ncy, _ in grids)
+    offsets = np.cumsum([0] + [ncx * ncy + 1 for ncx, ncy, _ in grids])
+    if [off for _, _, off in grids] != offsets[:-1].tolist():
+        raise ValueError(f"grids must give each level's offset into bounds, {offsets[:-1].tolist()}")
+    n_bounds = int(offsets[-1])
     if bounds.dtype != torch.int32 or bounds.device != dev or bounds.shape != (n_bounds,) or not bounds.is_contiguous():
         raise ValueError(f"bounds must be a contiguous ({n_bounds},) int32 tensor on {dev}")
     if not 1 <= len(grids) <= _MAX_LEVELS:

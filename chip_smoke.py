@@ -80,7 +80,7 @@ fails (non-zero exit) if any phase fails:
     gas particles in a periodic 25 cMpc box at z = 0.5 —
     ``column_integrate_pallas`` and ``absorption_spectra_pallas`` (512 bins,
     Gaussian and Voigt); launch counts, finiteness, warm walls, the
-    columns wall split into the domain read, device sort, host ray cells
+    columns wall split into the domain read, device sort, ray cells
     and kernel, the column launch's work and bound, each
     spectra launch's kernel time beside its bound (checked to be no less)
     and phase 11's counts of what it did, the device's busy share,
@@ -1610,8 +1610,8 @@ def phase_sightlines(torch, device, sl, n_check: int = 256, n_bins: int = 512):
 
     # the walls split: layout (device sort + host ray schedule) and kernel;
     # the columns' layout also as its domain read (the particles' extremes),
-    # the device sort (level/cell sort, gather, bounds table) and the host
-    # ray cells
+    # the device sort (level/cell sort, gather, bounds table) and the ray
+    # cells (sent to the device and sorted there)
     col_layout = lambda: _columns_layout(x, y, h, m, rx, ry, kernel="cubic_spline", periodic_box=SIGHT_BOX,
                                          device=device)
     rays_w, x0, y0, Lx, Ly, s_max = SF._domain(x, y, h, np.stack([rx, ry]), 2.0, SIGHT_BOX)
@@ -1619,7 +1619,7 @@ def phase_sightlines(torch, device, sl, n_check: int = 256, n_bins: int = 512):
     columns_split_s = {
         "domain": wall_s(lambda: SF._domain(x, y, h, np.stack([rx, ry]), 2.0, SIGHT_BOX), 3),
         "device_sort": wall_s(lambda: SF._sort_particles(x, y, h, [m], grids, 2.0, (x0, y0, Lx, Ly), True), 3),
-        "host_ray_cells": wall_s(lambda: SF._ray_table(rays_w, grids, x0, y0, Lx, Ly, device), 3),
+        "ray_cells": wall_s(lambda: SF._ray_table(rays_w, grids, x0, y0, Lx, Ly, device), 3),
     }
     spec_layout = lambda prof: _spectra_layout(
         pos, h, m, v, T, rx, ry, cosmology=cosmo, box_size=SIGHT_BOX, atomic_weight=1.008, n_bins=n_bins,

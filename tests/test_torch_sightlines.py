@@ -406,6 +406,24 @@ def test_wrapper_runs_plain_on_cpu_and_validates():
         column_integrate_pallas(x, y, h, np.ones((3000, 6)), rx, ry, device="cpu")
 
 
+def test_column_kernel_inputs_are_checked():
+    """The checks the CUDA wrapper makes before a launch, with no host sync:
+    a layout passes; grids whose offsets do not step through the bounds
+    table, a bounds table of the wrong length and a ray table of the wrong
+    shape raise."""
+    x, y, h, v, rx, ry, box = _data(n=3000, rays=30)
+    lay, F, _ = SF._columns_layout(x, y, h, v, rx, ry, kernel="cubic_spline", periodic_box=box, device="cpu")
+    args = (lay.packed, lay.bounds, lay.rx, lay.ry, lay.rays, lay.grids, 3 + F)
+    SF._check_columns(*args)
+    shifted = tuple((ncx, ncy, off + 1) for ncx, ncy, off in lay.grids)
+    with pytest.raises(ValueError, match="offset"):
+        SF._check_columns(*args[:5], shifted, 3 + F)
+    with pytest.raises(ValueError, match="bounds"):
+        SF._check_columns(args[0], lay.bounds[:-1], *args[2:])
+    with pytest.raises(ValueError, match="rays"):
+        SF._check_columns(*args[:4], lay.rays[:, :, :-1].contiguous(), *args[5:])
+
+
 @pytest.mark.slow
 def test_fused_matches_jax_pallas_interpret():
     """The port's fused engine against the JAX fused engine itself
