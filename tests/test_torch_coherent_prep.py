@@ -14,7 +14,12 @@ keys are equal; candidates (key, row, k4) and the rows of each tail bucket
 are equal as sorted multisets; float channels agree within
 1e-6 * max |channel|.
 
-The CUDA tests need a card and skip here.
+``prep_emulated`` repeats the CUDA kernel's per-row steps in torch (each
+thread's float4 lanes, the packed tail scan, the row image, the
+early-stopped candidate rounds) and is held bit for bit to
+``prep_rows_plain``, on the cases above and on edge rows (d_max and
+d_max + 1 distinct head keys, only tails, all heavy). The CUDA tests need a
+card and skip here.
 """
 
 import importlib
