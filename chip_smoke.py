@@ -66,8 +66,9 @@ fails (non-zero exit) if any phase fails:
     the fused layout of the config-4 particles (below) and 2048 rays,
     {kernel3d, integrated} x {periodic, open} x F in {1, 5}; two launches
     compared bit for bit; pair tests per expected hit, items and the
-    largest item's particles, beside the same counts of the parent
-    kernel's block schedule (``block_work``); no time under its bound;
+    largest item's particles, beside the same counts of the block schedule
+    the column kernel took before (``block_work``); no time under its
+    bound;
 11. spectra kernel vs its plain version, 256 rays, 512 bins, {gaussian,
     voigt (H I Lya)} x {periodic, open}, on the config-4 particles and on
     ``awkward_lines`` (lines at the velocity edges, Doppler widths from a
@@ -1266,9 +1267,9 @@ def column_work(torch, lay, hits: float) -> dict:
 
 
 def block_work(torch, x, y, h, m, rx, ry, periodic_box, hits: float) -> dict:
-    """The same counts for the parent's column kernel, which took blocks of
-    8 cell-sorted rays and tested each candidate of the block's 10 spans
-    against all 8 (the block schedule the spectra keep)."""
+    """The same counts for the block schedule the column kernel took
+    before its per-ray items, and the spectra keep: blocks of 8 cell-sorted
+    rays, each candidate of a block's 10 spans tested against all 8."""
     from astro_sph_tools_tpu_torch.ops.sightlines_fused import _B, stage_rays
 
     lay = stage_rays(x, y, h, [m], rx, ry, support_factor=2.0, periodic_box=periodic_box, B=_B)
@@ -1281,7 +1282,7 @@ def block_work(torch, x, y, h, m, rx, ry, periodic_box, hits: float) -> dict:
 def phase_columns_kernel(torch, device, sl, n_rays: int = 2048):
     """Kernel #4 vs its plain version on the fused layout of the config-4
     particles; two launches compared bit for bit; the pair tests and items
-    of this kernel and of its parent's block schedule."""
+    of this kernel and of the block schedule it replaced."""
     from astro_sph_tools_tpu_torch.ops.sightlines_fused import (
         _columns_layout, columns_tiles, columns_tiles_plain,
     )
@@ -1295,7 +1296,7 @@ def phase_columns_kernel(torch, device, sl, n_rays: int = 2048):
     out = []
     for periodic in (True, False):
         box = SIGHT_BOX if periodic else None
-        parent = block_work(torch, x, y, h, m, rx, ry, box, hits)
+        blocks = block_work(torch, x, y, h, m, rx, ry, box, hits)
         for n_fields in (1, 5):
             lay, _, _ = _columns_layout(x, y, h, fields5[:, :n_fields], rx, ry, kernel="cubic_spline",
                                         periodic_box=box, device=device)
@@ -1312,7 +1313,7 @@ def phase_columns_kernel(torch, device, sl, n_rays: int = 2048):
                 case = {
                     "phase": "columns_kernel_vs_plain", "projection": projection, "periodic": periodic,
                     "F": n_fields, "n": pos.shape[0], "n_rays": n_rays, "n_levels": len(lay.grids),
-                    "expected_hits": hits, **work, "parent_schedule": parent,
+                    "expected_hits": hits, **work, "block_schedule": blocks,
                     "same_bits_twice": bool(torch.equal(got, again)),
                     "max_abs_err": err, "rel_err": rel,
                     "ms": cuda_ms(lambda: columns_tiles(*args, **kw), 5),
