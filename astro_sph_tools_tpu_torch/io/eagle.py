@@ -1,7 +1,7 @@
 """EAGLE snapshot backend — pure h5py, multi-file, region-restrictable.
 
-Counterpart: ``astro_sph_tools_tpu/io/eagle.py`` (copied). This is the only
-module of the port that imports ``h5py``; nothing imports it eagerly.
+Counterpart: ``astro_sph_tools_tpu/io/eagle.py`` (copied). ``h5py`` is
+imported on first use (``io/_lazy.py``).
 
 Parity target: ``SnapshotEAGLE``
 (`astro_sph_tools/io/EAGLE/_SnapshotEAGLE.py`), with the
@@ -36,7 +36,7 @@ import re
 import threading
 from typing import Optional, Sequence, Union
 
-import h5py
+from ._lazy import h5py
 import numpy as np
 
 from .. import constants as C

@@ -2,8 +2,8 @@
 
 Counterpart: ``astro_sph_tools_tpu/ops/__init__.py`` (the ported slices: the
 plain torch stencil engine, the sorted tile engine, the coherent-order
-engine, the sightline column and absorption-spectra engines, and the 3D
-voxel engines). As in
+engine, the sightline column and absorption-spectra engines, the 3D voxel
+engines, periodic-box geometry and ID-matched reordering). As in
 the JAX package, the exported function ``deposit_coherent`` shadows the
 module of the same name: import the module with
 ``importlib.import_module("astro_sph_tools_tpu_torch.ops.deposit_coherent")``."""
@@ -41,6 +41,15 @@ from .grid3d_tiled import (
     deposit_3d_tiled,
     tile_particles_3d,
 )
+from .periodic import (
+    calculate_periodic,
+    make_periodic,
+    shift_centre,
+    shift_origin,
+    wrapped_displacement,
+    wrapped_distance,
+)
+from .reorder import ArrayMapping, ArrayReorder, MatchPlan, match_ids
 from .sightlines import column_integrate, column_integrate_binned, los_profiles
 from .sightlines_fused import column_integrate_pallas
 from .spectra import (
@@ -53,6 +62,16 @@ from .spectra import (
 from .spectra_fused import absorption_spectra_pallas
 
 __all__ = [
+    "ArrayMapping",
+    "ArrayReorder",
+    "MatchPlan",
+    "calculate_periodic",
+    "make_periodic",
+    "match_ids",
+    "shift_centre",
+    "shift_origin",
+    "wrapped_displacement",
+    "wrapped_distance",
     "CoherentCaps",
     "CoherentLayout",
     "GridSpec",

@@ -21,6 +21,9 @@ Numerics preserved from the reference:
 Adaptive smoothing lengths are handled by *support-level binning*: particles
 are partitioned by footprint into stencil levels K in {2,4,8,...}, one pass
 per level, so a huge-h particle never inflates the stencil of small-h ones.
+Past K = 64 the port adds wider windows (``WIDE_LEVELS``) that the JAX
+engine lacks (it sends those particles over the whole image): the same sum,
+a K x K window a particle instead of the full map.
 """
 
 from __future__ import annotations
@@ -43,13 +46,21 @@ Tensor = torch.Tensor
 # Stencil side lengths available to the level binner. A particle whose kernel
 # support spans s pixels (radius, in pixel units) fits level K if 2*s + 2 <= K.
 STENCIL_LEVELS: tuple[int, ...] = (2, 4, 8, 16, 32, 64)
-# Particles whose footprint exceeds the largest stencil go through the dense
-# (whole-image) path; they are vanishingly rare in real snapshots.
+# Particles whose footprint exceeds the largest stencil are oversize. The JAX
+# package sends every one through the dense (whole-image) path, which costs a
+# full map a particle; that is cheap only while they are rare, and a halo
+# cutout much finer than its particles' h is nearly all oversize. Here an
+# oversize particle takes the narrowest of these wider windows that holds it
+# and fits the map (so a window never wraps onto itself), and only what fits
+# none takes the dense path.
 MAX_STENCIL = STENCIL_LEVELS[-1]
+WIDE_LEVELS: tuple[int, ...] = (128, 256, 512, 1024)
 
 _DEF_CHUNK = 32 * 1024
 # elements of one dense-pass block (particles x pixels)
 _DENSE_BLOCK = 1 << 22
+# elements of one wide-window chunk (particles x window pixels)
+_WIDE_BLOCK = 1 << 24
 
 
 @dataclass(frozen=True)
@@ -103,7 +114,10 @@ def _stencil_level_pass(
     projection: str,
     chunk: int,
 ) -> Tensor:
-    """Deposit M particles with a K x K stencil into the flat image."""
+    """Deposit M particles with a K x K stencil into the flat image. The
+    pixel-space positions and offsets are taken in the dtype of ``x`` (f64
+    coordinates keep f64's precision at any map size), the weights in the
+    image's."""
     kernel = get_kernel(kernel_name)
     S = kernel.support_factor
     ny, nx = spec.shape
@@ -124,8 +138,8 @@ def _stencil_level_pass(
         jy0 = torch.floor(v - offset + 0.5).to(torch.int64) - (K // 2)
         jx = jx0[:, None] + ks[None, :]  # (C, K)
         jy = jy0[:, None] + ks[None, :]
-        dxp = ((jx.to(dtype) + offset) - u[:, None]) * psx  # world units
-        dyp = ((jy.to(dtype) + offset) - v[:, None]) * psy
+        dxp = (((jx.to(u.dtype) + offset) - u[:, None]) * psx).to(dtype)  # world units
+        dyp = (((jy.to(v.dtype) + offset) - v[:, None]) * psy).to(dtype)
         r2 = dyp[:, :, None] ** 2 + dxp[:, None, :] ** 2  # (C, Ky, Kx)
         support = S * ch
         inside = r2 < (support * support)[:, None, None]
@@ -180,8 +194,9 @@ def _dense_pass(
     Lx = x1 - x0
     Ly = y1 - y0
 
-    xs = (x0 + (torch.arange(nx, dtype=dtype, device=dev) + offset) * psx).reshape(1, 1, nx)
-    ys = (y0 + (torch.arange(ny, dtype=dtype, device=dev) + offset) * psy).reshape(1, ny, 1)
+    # sample points and offsets in the coordinates' dtype, weights in the image's
+    xs = (x0 + (torch.arange(nx, dtype=x.dtype, device=dev) + offset) * psx).reshape(1, 1, nx)
+    ys = (y0 + (torch.arange(ny, dtype=y.dtype, device=dev) + offset) * psy).reshape(1, ny, 1)
     tile = max(1, _DENSE_BLOCK // (ny * nx))
 
     for c0 in range(0, x.shape[0], tile):
@@ -192,6 +207,7 @@ def _dense_pass(
         if spec.periodic_wrap:
             dxp = dxp - torch.round(dxp / Lx) * Lx
             dyp = dyp - torch.round(dyp / Ly) * Ly
+        dxp, dyp = dxp.to(dtype), dyp.to(dtype)
         r2 = dxp * dxp + dyp * dyp
         support = S * ch
         inside = r2 < (support * support).reshape(-1, 1, 1)
@@ -245,7 +261,8 @@ def deposit_2d(
     ----------
     x, y : (N,) world-space in-plane coordinates (pre-projected: pick the two
         axes with ``CoordinateAxes.projection_plane``). NumPy arrays or torch
-        tensors.
+        tensors; f64 ones keep f64 for the pixel offsets, which then carry
+        f64's precision at any map size (the weights and sums are ``dtype``).
     h : (N,) smoothing lengths (same units).
     values : (N,) or (N, F) deposit payloads. The resulting map is
         ``sum_i values_i * W(r_i, h_i)`` per pixel.
@@ -280,9 +297,11 @@ def deposit_2d(
     else:
         image_flat = torch.as_tensor(image, dtype=dtype, device=device).reshape(ny * nx, -1).clone()
 
-    # binning runs in the smoothing lengths' own precision, before the cast
+    # binning runs in the smoothing lengths' own precision, before the cast;
+    # f64 coordinates stay f64 for the pixel offsets (see _stencil_level_pass)
     per_level, oversize = bin_particles_by_footprint(h, spec.pixel_size, kspec.support_factor)
-    x, y, h, values = (a.to(dtype) for a in (x, y, h, values))
+    x, y = (a if a.dtype == torch.float64 else a.to(dtype) for a in (x, y))
+    h, values = h.to(dtype), values.to(dtype)
     static = dict(spec=spec, kernel_name=kernel, projection=projection)
 
     for K, idx in zip(STENCIL_LEVELS, per_level):
@@ -293,6 +312,20 @@ def deposit_2d(
             image_flat, x[idx], y[idx], h[idx], values[idx], lut,
             K=int(K), chunk=level_chunk, **static,
         )
+
+    if oversize.numel():
+        needed = 2.0 * kspec.support_factor * h[oversize] / min(spec.pixel_size) + 2.0
+        for K in WIDE_LEVELS:
+            if K > min(ny, nx) or oversize.numel() == 0:
+                break
+            fits = needed <= K
+            idx = oversize[fits]
+            oversize, needed = oversize[~fits], needed[~fits]
+            if idx.numel():
+                _stencil_level_pass(
+                    image_flat, x[idx], y[idx], h[idx], values[idx], lut,
+                    K=K, chunk=max(1, _WIDE_BLOCK // (K * K)), **static,
+                )
 
     if oversize.numel():
         _dense_pass(

@@ -518,7 +518,7 @@ def tile_particles_coherent(
     if window:
         raise NotImplementedError(
             "coherent window mode (window != 0) is not ported to the torch "
-            "package (ROADMAP queue 1, item 4: window mode)"
+            "package (ROADMAP queue 1, the window-mode item)"
         )
     device = torch.device(device)
     prep = _resolve_prep(prep, device)

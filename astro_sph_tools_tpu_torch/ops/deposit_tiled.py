@@ -469,6 +469,10 @@ def _is_host_f64(x) -> bool:
     return isinstance(x, np.ndarray) and x.dtype == np.float64
 
 
+def _is_f64(x) -> bool:
+    return _is_host_f64(x) or (isinstance(x, Tensor) and x.dtype == torch.float64)
+
+
 def _as_field_matrix(values, device) -> tuple[Tensor, bool]:
     if not isinstance(values, Tensor):
         values = np.asarray(values)
@@ -482,10 +486,14 @@ def _as_field_matrix(values, device) -> tuple[Tensor, bool]:
 
 
 def _coords(x, y, device) -> tuple[Tensor, Tensor]:
-    """World coordinates for assignment: host f64 NumPy stays f64 on the CPU
-    (quality path); anything else becomes f32 on ``device``."""
+    """World coordinates for assignment: f64 coordinates stay f64 (host
+    NumPy on the CPU: the quality path; an f64 tensor on its own device),
+    so the tile-local f32 coordinates carry f64's precision; anything else
+    becomes f32 on ``device``."""
     if _is_host_f64(x):
         return torch.from_numpy(x), torch.from_numpy(np.asarray(y, np.float64))
+    if _is_f64(x):
+        return x, torch.as_tensor(y, dtype=torch.float64, device=x.device)
     if not isinstance(x, Tensor):
         x, y = np.asarray(x), np.asarray(y)
     return (
@@ -701,7 +709,7 @@ def tile_particles(
     kernel ``csrc/layout_shear.cu``), whose level segments carry
     interleaved zero-value pad slots that the counts, ``n_sorted`` and
     ``n_oversize`` include (pads re-gather as 0 in :meth:`with_values`).
-    Host-f64 coordinates keep the sort whatever ``layout`` says.
+    f64 coordinates keep the sort whatever ``layout`` says.
     """
     if layout not in ("auto", "sort", "shear"):
         raise ValueError(f"unknown layout {layout!r}; expected 'auto', 'sort' or 'shear'")
@@ -712,7 +720,7 @@ def tile_particles(
     xs, ys = _coords(x, y, device)
     h = torch.as_tensor(h if isinstance(h, Tensor) else np.asarray(h), dtype=torch.float32)
     n_valid = int(h.shape[0])
-    if layout == "shear" and not _is_host_f64(x):
+    if layout == "shear" and xs.dtype != torch.float64:
         from .layout_shear import shear_tile_sort  # late import: it imports this module
 
         assign, level_n_tiles = _shear_assign(spec, kspec.support_factor, geoms, bounds, geom_tuples)
@@ -880,13 +888,13 @@ def deposit_2d_auto(
     ``projection``: 'kernel3d' reproduces the reference convention (3D kernel
     at the projected radius); 'integrated' uses the analytically
     line-integrated kernel (physically-correct column densities).
-    ``precision`` defaults to 'bf16x3' for host-f64 inputs and 'bf16x2'
+    ``precision`` defaults to 'bf16x3' for f64 coordinates and 'bf16x2'
     otherwise, as in the JAX package; it is validated, and the sums are f32
     for every choice. ``plain`` is passed to :func:`deposit_tiled`.
     Returns (ny, nx) for single-field input, else (F, ny, nx), on ``device``.
     """
     if precision is None:
-        precision = "bf16x3" if _is_host_f64(x) else "bf16x2"
+        precision = "bf16x3" if _is_f64(x) else "bf16x2"
     _check_precision(precision)
     values, single = _as_field_matrix(values, device)
     tp = tile_particles(x, y, h, values, spec, kernel=kernel, device=device)

@@ -1,9 +1,35 @@
-"""Utilities: console output and phase timing.
+"""Utilities: console output, settings and phase timing.
 
 Counterpart: ``astro_sph_tools_tpu/utils/__init__.py`` (the ported part:
-``print_info``, ``timed_phase``, ``settings`` and ``PhaseTimer``)."""
+the console module and ``PhaseTimer``; ``device_trace`` and the determinism
+helpers are still to port)."""
 
-from .console import Settings, print_info, settings, timed_phase
+from .console import (
+    Settings,
+    Stopwatch,
+    print_debug,
+    print_error,
+    print_info,
+    print_verbose_info,
+    print_verbose_warning,
+    print_warning,
+    settings,
+    show_times,
+    timed_phase,
+)
 from .profiling import PhaseTimer
 
-__all__ = ["PhaseTimer", "Settings", "print_info", "settings", "timed_phase"]
+__all__ = [
+    "PhaseTimer",
+    "Settings",
+    "Stopwatch",
+    "print_debug",
+    "print_error",
+    "print_info",
+    "print_verbose_info",
+    "print_verbose_warning",
+    "print_warning",
+    "settings",
+    "show_times",
+    "timed_phase",
+]

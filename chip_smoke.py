@@ -3,15 +3,17 @@
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
-    python3 chip_smoke.py                # phases 0-14, 16-17
+    python3 chip_smoke.py                # phases 0-14, 16, 17 and 19
     python3 chip_smoke.py --phases 0,1,2 # a subset, for debugging
 
 It drives the port's main paths — the adaptive-h sorted tile engine behind
 ``render_map_stack``, the coherent-order engine (synced and zero-sync fused),
 the sightline columns and absorption spectra of BASELINE config 4, the 3D
-voxel deposit of BASELINE config 3 and the random-order path (shear grouping,
-``deposit_2d_bucketed``) — on particles generated in memory from a seed, and
-fails (non-zero exit) if any phase fails:
+voxel deposit of BASELINE config 3, the random-order path (shear grouping,
+``deposit_2d_bucketed``) and the halo-centred map stacks of BASELINE config
+5 (``render_halo_maps``) — on particles generated in memory from a seed, and
+fails (non-zero exit) if any phase fails (phase 19 runs after phase 9, on
+phase 3's particles):
 
 0. device: torch version, card name and power limit (nvidia-smi);
 1. build: compile every CUDA kernel library (``csrc/deposit2d.cu``,
@@ -131,6 +133,19 @@ fails (non-zero exit) if any phase fails:
 18. (only when named in ``--phases``) kernel #6's time per level on phase
     14's layout at region splits of 512, 2048, 8192 (the default) and 32768
     candidates per block, each held against the default's cube;
+19. the halo path: ``render_halo_maps`` (the sorted engine, kernel #1) on
+    phase 3's particles served by ``memory_snapshot`` (with metallicities)
+    and an in-memory catalogue (``memory_catalogue``) of 16 haloes
+    (``halo_catalogue``: 14 on the most massive 64^2 cells, one within 0.1
+    Mpc of the corner (0, 0), one on the edge x ~ box; R_200 0.15-1.0 Mpc),
+    1024^2 x (density, temperature, metallicity); kernel #1's launches
+    (also per halo), finite maps with surface density at every cutout's
+    centre; the four smallest cutouts against ``engine="xla"`` (the plain
+    stencil engine on the card), the smallest against the host-f64 quality
+    path on the same particles, each edge halo against the render of the
+    particles translated by half a box (f64, on the card); per halo the
+    particles in the cutout and the timing split; for the 16 haloes the
+    warm wall, the device's busy share and peak memory;
 
 Every phase prints one JSON line; the kernels' summary line and the card's
 ``nvidia-smi`` line come before the last line, which is
@@ -170,6 +185,8 @@ RAND_LOG2N = 27  # phases 16-17: 2^27 shuffled particles (northstar_proxy.py --o
 # H100 SXM data-sheet peaks (dense, at 700 W), for bound_ms
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+HALO_N = 16  # phase 19: haloes on phase 3's particles ...
+HALO_RES = 1024  # ... each a 1024^2 x 3-field cutout
 
 
 def emit(obj) -> None:
@@ -226,9 +243,11 @@ def wall_s(fn, reps: int) -> float:
     return float(np.median(times))
 
 
-def device_busy_ms(fn) -> tuple:
+def device_busy_ms(fn, top: int = 0) -> tuple:
     """(device busy ms, wall ms) of one synchronised call under
-    ``torch.profiler``; busy is None when the trace shows no device time."""
+    ``torch.profiler``; busy is None when the trace shows no device time.
+    With ``top`` > 0 a third item: the ``top`` device events by summed ms,
+    as {name: ms}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -239,11 +258,15 @@ def device_busy_ms(fn) -> tuple:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events (kernels, copies) of the one stream, summed
-    busy_us = sum(
-        e.device_time_total for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-    )
-    return (busy_us / 1e3 if busy_us > 0 else None), wall_ms
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.device_time_total for e in device)
+    out = ((busy_us / 1e3 if busy_us > 0 else None), wall_ms)
+    if not top:
+        return out
+    by_name: dict = {}
+    for e in device:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
+    return out + (dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:top]),)
 
 
 def nbytes(*tensors) -> int:
@@ -754,10 +777,16 @@ def phase_main(torch, device, particles, gen_s):
     return out
 
 
-def memory_snapshot(x, y, h, m, t, box):
+def memory_snapshot(x, y, h, m, t, box, metal_seed: int = 19):
     """An in-memory gas-only snapshot serving device tensors (positions in
-    the z = 0 plane, smoothing lengths, masses, temperatures)."""
+    the z = 0 plane, smoothing lengths, masses, temperatures, and
+    metallicities drawn uniformly in [0, 0.04) from a ``torch.Generator``
+    seeded with ``metal_seed``)."""
     import torch
+
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(metal_seed)
+    z_metal = 0.04 * torch.rand(x.shape[0], generator=gen, device=x.device)
 
     from astro_sph_tools_tpu_torch.data_structures import ParticleType
     from astro_sph_tools_tpu_torch.io.snapshot import SnapshotBase
@@ -788,11 +817,14 @@ def memory_snapshot(x, y, h, m, t, box):
         def _get_temperatures(self, particle_type):
             return unit_array(t, "K")
 
+        def _get_metallicities(self, particle_type, solar_units, solar_metallicity):
+            return unit_array(z_metal, "")
+
         def _missing(self, *args, **kwargs):
             raise NotImplementedError("not served by the in-memory snapshot")
 
         _get_IDs = _get_black_hole_subgrid_masses = _get_black_hole_dynamical_masses = _missing
-        _get_velocities = _get_sfr = _get_metallicities = _missing
+        _get_velocities = _get_sfr = _missing
         _get_mean_enrichment_redshift = _get_densities = _missing
         _get_number_densities = _get_elemental_abundance = _missing
 
@@ -1182,6 +1214,237 @@ def phase_render_coherent(torch, device, particles):
     emit({"phase": "render_map_stack_coherent", "maps": sorted(got.keys()), "rel_err_vs_pallas": errs,
           "timings": got.timings, "timings_pallas": ref.timings})
     check(max(errs.values()) <= REL_TOL, f"render_map_stack(engine='coherent') off engine='pallas': {errs}")
+
+
+# ---------------------------------------------------------------------------
+# phase 19: halo-centred map stacks (BASELINE config 5's analysis shape)
+# ---------------------------------------------------------------------------
+
+
+def memory_catalogue(centres, radii, snapshot):
+    """An in-memory halo catalogue serving what ``render_halo_maps`` reads:
+    centres of potential (Mpc) and SO 200 crit radii (Mpc), as
+    ``memory_snapshot`` serves fields; everything else raises."""
+    from astro_sph_tools_tpu_torch.io.catalogue import BasicHaloDefinitions, CatalogueBase
+    from astro_sph_tools_tpu_torch.units import unit_array
+
+    centres = np.array(centres, np.float64)
+    radii = np.array(radii, np.float64)
+
+    class MemoryCatalogue(CatalogueBase):
+        def __init__(self):
+            super().__init__("<memory>", "<memory>", snapshot)
+
+        def get_number_of_haloes(self, particle_type=None):
+            return len(radii)
+
+        def get_halo_IDs(self, particle_type=None):
+            return np.arange(1, len(radii) + 1)
+
+        def get_halo_indexes(self, particle_type=None):
+            return np.arange(len(radii))
+
+        def get_halo_centres_of_potential(self, particle_type=None, use_proper_units=False):
+            return unit_array(centres.copy(), "Mpc")
+
+        def get_halo_radii(self, halo_type, particle_type=None, use_proper_units=False):
+            if halo_type != BasicHaloDefinitions.SO_200_CRIT.value:
+                raise halo_type.make_error(type(self))
+            return unit_array(radii.copy(), "Mpc")
+
+        def _missing(self, *args, **kwargs):
+            raise NotImplementedError("not served by the in-memory catalogue")
+
+        _get_hierarchy_IDs = get_halo_parent_IDs = get_halo_parent_indexes = _missing
+        get_halo_top_level_parent_IDs = get_halo_top_level_parent_indexes = _missing
+        get_halo_centres_of_mass = get_halo_masses = get_particle_IDs = _missing
+        get_halo_IDs_by_snapshot_particle = get_halo_indexes_by_snapshot_particle = _missing
+
+    return MemoryCatalogue()
+
+
+def halo_catalogue(torch, particles, n_dense: int = HALO_N - 2, grid: int = 64):
+    """Phase 19's haloes on phase 3's particles: ``n_dense`` centred on the
+    most massive cells of a ``grid``^2 partition of the box (heaviest
+    first), one within 0.1 Mpc of the corner (0, 0) and one on the edge
+    x ~ box (at the heaviest cell's y), all in the z = 0 plane; R_200 from
+    0.15 to 1.0 Mpc in that order, so cutouts are 0.6-4 Mpc across and the
+    two edge haloes (the largest) cross the periodic boundary."""
+    x, y, h, m, t, box = particles
+    cw = box / grid
+    ix = torch.clamp((x / cw).long(), 0, grid - 1)
+    iy = torch.clamp((y / cw).long(), 0, grid - 1)
+    cell_mass = torch.bincount(iy * grid + ix, weights=m.double(), minlength=grid * grid)
+    top = torch.topk(cell_mass, n_dense).indices.cpu().numpy()
+    centres = [((c % grid + 0.5) * cw, (c // grid + 0.5) * cw, 0.0) for c in top]
+    centres.append((0.05, 0.07, 0.0))
+    centres.append((box - 0.02, (top[0] // grid + 0.5) * cw, 0.0))
+    return np.array(centres), np.geomspace(0.15, 1.0, len(centres))
+
+
+def cutout_selection(torch, xy, h, centre, half_width: float, box: float, support_factor: float = 2.0):
+    """(in-plane offsets from the cutout's centre, indexes) of the particles
+    ``render_halo_maps`` selects for a cutout: those whose support reaches it
+    after the f64 periodic recentring (its own rule)."""
+    from astro_sph_tools_tpu_torch.ops.periodic import shift_centre
+
+    local = shift_centre(xy, centre[:2], box) - box / 2
+    reach = half_width + support_factor * h
+    sel = torch.nonzero((local[:, 0].abs() < reach) & (local[:, 1].abs() < reach)).squeeze(1)
+    return local[sel], sel
+
+
+def stack_errors(got, ref) -> dict:
+    """max|a - b| / max|b| per map; ``mean_*`` maps where the reference
+    surface density exceeds 1e-3 of its maximum (elsewhere they divide two
+    near-zero maps)."""
+    sd = np.asarray(ref["surface_density"])
+    covered = sd > 1e-3 * sd.max()
+    out = {}
+    for name in ref.keys():
+        a, b = np.asarray(got[name], np.float64), np.asarray(ref[name], np.float64)
+        if name.startswith("mean_"):
+            a, b = a[covered], b[covered]
+        out[name] = float(np.abs(a - b).max() / np.abs(b).max())
+    return out
+
+
+def phase_halo(torch, device, particles):
+    """``render_halo_maps`` (sorted engine, kernel #1) at 1024^2 x 3 fields
+    on 16 haloes of phase 3's 2^26 particles; see the module docstring."""
+    from astro_sph_tools_tpu_torch import render_halo_maps
+    from astro_sph_tools_tpu_torch.data_structures import ParticleType
+    from astro_sph_tools_tpu_torch.ops import MapSpec, deposit_2d_auto, tile_particles
+    from astro_sph_tools_tpu_torch.ops.deposit_tiled import deposit_tiles
+
+    x, y, h, m, t, box = particles
+    snap = memory_snapshot(*particles)
+    centres, radii = halo_catalogue(torch, particles)
+    cat = memory_catalogue(centres, radii, snap)
+    kw = dict(fields=("density", "temperature", "metallicity"), resolution=HALO_RES, device=device)
+    haloes = list(range(len(radii)))
+
+    steps = {}  # host seconds of each step of this phase
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        torch.cuda.synchronize()
+        steps[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    # the main path, once, with the launch count reset just before it
+    deposit_tiles.launches = 0
+    stacks = render_halo_maps(snap, cat, haloes, engine="pallas", **kw)
+    torch.cuda.synchronize()
+    launches = deposit_tiles.launches
+    check(launches > 0, "render_halo_maps launched no deposit kernel")
+    lap("main_path")
+
+    xy = torch.stack([x, y], dim=1).double()
+    h64 = h.double()
+    c = HALO_RES // 2
+    rows = []
+    for k, stack in enumerate(stacks):
+        before = deposit_tiles.launches
+        render_halo_maps(snap, cat, [k], engine="pallas", **kw)
+        hw = 2 * float(radii[k])
+        local, sel = cutout_selection(torch, xy, h64, centres[k], hw, box)
+        spec = MapSpec(shape=(HALO_RES, HALO_RES), extent=(-hw, hw, -hw, hw))
+        tp = tile_particles(local[:, 0], local[:, 1], h64[sel], m[sel], spec, device=device)
+        row = {
+            "halo": k, "centre_cMpc": centres[k].tolist(), "r200_cMpc": float(radii[k]),
+            "cutout_cMpc": 2 * hw, "particles": int(sel.shape[0]),
+            # the sorted engine's level occupancy and its oversize route (the
+            # plain stencil engine's wide windows and dense pass)
+            "level_counts": {geom.cfg.K: count for geom, _, count in tp.geoms}, "oversize": tp.n_oversize,
+            "launches": deposit_tiles.launches - before,
+            "finite": bool(all(np.isfinite(v).all() for v in stack.maps.values())),
+            "centre_surface_density": float(stack["surface_density"][c - 1:c + 1, c - 1:c + 1].mean()),
+            "max_surface_density": float(stack["surface_density"].max()),
+        }
+        del local, sel, tp
+        rows.append(row)
+        emit({"phase": "halo_maps_halo", **row, "timings_s": stack.timings})
+        check(row["finite"], f"halo {k}: non-finite map")
+        check(row["centre_surface_density"] > 0, f"halo {k}: no surface density at the cutout's centre")
+        check(set(stack.keys()) == {"surface_density", "mass_weighted_temperature", "mean_temperature",
+                                    "mass_weighted_metallicity", "mean_metallicity"}, f"halo {k}: maps {stack.keys()}")
+
+    lap("per_halo")
+
+    # the four smallest cutouts against the plain stencil engine on the card
+    smallest = [int(k) for k in np.argsort(radii)[:4]]
+    ref = render_halo_maps(snap, cat, smallest, engine="xla", **kw)
+    xla_errs = {k: stack_errors(stacks[k], r) for k, r in zip(smallest, ref)}
+    del ref
+    lap("xla")
+    emit({"phase": "halo_maps_check", "xla_rel_err": xla_errs})
+    for k, errs in xla_errs.items():
+        check(max(errs.values()) <= PATH_TOL, f"halo {k} off engine='xla': {errs}")
+
+    # the smallest cutout against the host-f64 quality path: the same
+    # selected particles, recentred in f64, assigned in f64 on the host
+    k0 = smallest[0]
+    hw = 2 * float(radii[k0])
+    local, sel = cutout_selection(torch, xy, h64, centres[k0], hw, box)
+    z_metal = snap.get_metallicities(ParticleType.gas).value
+    values = torch.stack([m, m * t, m * z_metal])[:, sel].double().cpu().numpy()
+    spec = MapSpec(shape=(HALO_RES, HALO_RES), extent=(-hw, hw, -hw, hw))
+    f64_maps = deposit_2d_auto(local[:, 0].cpu().numpy(), local[:, 1].cpu().numpy(),
+                               h64[sel].cpu().numpy(), values, spec, device=device).cpu().numpy()
+    del local, sel, values
+    f64_errs = {name: rel_err(stacks[k0][name], f64_maps[i])[1] for i, name in
+                enumerate(("surface_density", "mass_weighted_temperature", "mass_weighted_metallicity"))}
+    lap("f64")
+    emit({"phase": "halo_maps_check", "f64_halo": k0, "f64_rel_err": f64_errs})
+    check(max(f64_errs.values()) <= PATH_TOL, f"halo {k0} off the host-f64 path: {f64_errs}")
+
+    # each edge halo against the same particles translated by half a box
+    # (f64 on the card) before the render
+    edge = [len(radii) - 2, len(radii) - 1]
+    xt = torch.remainder(x.double() + box / 2, box)
+    yt = torch.remainder(y.double() + box / 2, box)
+    moved = memory_snapshot(xt, yt, h, m, t, box)
+    moved_centres = centres.copy()
+    moved_centres[:, :2] = np.mod(centres[:, :2] + box / 2, box)
+    moved_stacks = render_halo_maps(moved, memory_catalogue(moved_centres, radii, moved), edge,
+                                    engine="pallas", **kw)
+    edge_errs = {k: stack_errors(stacks[k], s) for k, s in zip(edge, moved_stacks)}
+    del xt, yt, moved, moved_stacks
+    lap("edge")
+    emit({"phase": "halo_maps_check", "edge_rel_err": edge_errs})
+    for k, errs in edge_errs.items():
+        check(max(errs.values()) <= PATH_TOL, f"edge halo {k} off its translated render: {errs}")
+
+    # warm wall of the 16-halo call, device busy share, peak memory
+    del stacks
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    last = {}
+
+    def render_all():
+        last["stacks"] = render_halo_maps(snap, cat, haloes, engine="pallas", **kw)
+
+    wall = wall_s(render_all, 3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for row, stack in zip(rows, last.pop("stacks")):
+        row["timings_s"] = stack.timings
+    lap("warm_walls")
+    busy_ms, prof_wall_ms, top_ms = device_busy_ms(render_all, top=8)
+    del last
+    lap("profiled")
+    out = {
+        "phase": "halo_maps", "n": x.shape[0], "haloes": len(radii), "map": [HALO_RES, HALO_RES], "fields": 3,
+        "launches": launches, "per_halo": rows,
+        "xla_rel_err": xla_errs, "f64_halo": k0, "f64_rel_err": f64_errs, "edge_rel_err": edge_errs,
+        "wall_s": wall, "haloes_per_s": len(radii) / wall,
+        "profiled_wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
+        "device_idle_share": None if busy_ms is None else 1.0 - busy_ms / prof_wall_ms,
+        "device_ms_by_kernel": top_ms, "peak_mem_gb": peak, "steps_s": steps,
+    }
+    emit(out)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2297,7 +2560,7 @@ def phase_random(torch, device, particles, gen_s):
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,16,17",
+    parser.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,19,10,11,12,13,14,16,17",
                         help="comma-separated phases to run (15 and 18 only when named)")
     parser.add_argument("--log2n", type=int, default=MAIN_LOG2N, help="log2 of the main path's particle count")
     parser.add_argument("--sight-n", type=int, default=SIGHT_N, help="gas particles of phases 10-12")
@@ -2321,7 +2584,7 @@ def main() -> None:
     if phases - {0}:
         phase_build()
     cases = phase_kernels(torch, device) if 2 in phases else []
-    particles, gen_s = main_particles(torch, device, args.log2n) if phases & {3, 4, 6, 7, 8, 9} else (None, 0.0)
+    particles, gen_s = main_particles(torch, device, args.log2n) if phases & {3, 4, 6, 7, 8, 9, 19} else (None, 0.0)
     main_out = phase_main(torch, device, particles, gen_s) if 3 in phases else None
     if 4 in phases:
         phase_render(torch, device, particles)
@@ -2332,6 +2595,7 @@ def main() -> None:
     coh_out = phase_coherent(torch, device, particles) if 8 in phases else None
     if 9 in phases:
         phase_render_coherent(torch, device, particles)
+    halo_out = phase_halo(torch, device, particles) if 19 in phases else None
     del particles
     torch.cuda.empty_cache()
     sl = sightline_setup(torch, device, args.sight_n) if phases & {10, 11, 12} else None
@@ -2393,6 +2657,8 @@ def main() -> None:
             # the main path's K = 8 level at 2^26 (phase 3)
             "main_path_k8_ms": main_k8["kernel_ms"] if main_k8 else None,
             "main_path_k8_bound_ms": main_k8["bound_ms"] if main_k8 else None,
+            # the halo path's launches: 16 cutouts of phase 3's particles (phase 19)
+            "halo_path_launches": halo_out["launches"] if halo_out else None,
         },
         {
             "name": "coherent_prep",

@@ -14,6 +14,12 @@
 And kernel #1's f64 yardstick: ``plain_f64_sum`` (the plain version's f32
 terms, runs of a few particles at a time, summed in f64) equals the same
 terms taken one particle at a time, with no f32 sum at all.
+
+And phase 19's in-memory inputs: ``memory_catalogue`` serves what
+``render_halo_maps`` reads (centres of potential and SO 200 crit radii, in
+Mpc), ``memory_snapshot`` its fields (metallicities from a seeded
+generator), ``halo_catalogue`` places its haloes as the phase says, and
+``cutout_selection`` selects the particles the render hands the engine.
 """
 
 import os
@@ -177,3 +183,56 @@ def test_ptxas_summary_reads_registers_and_spills():
     assert cs.ptxas_summary(log, "column_sums_kernel") == {"instances": 1, "registers_max": 90, "spill_bytes_max": 0}
     assert cs.ptxas_summary(log, "coherent_prep_kernel") == {
         "instances": 0, "registers_max": None, "spill_bytes_max": None}
+
+
+def small_halo_inputs():
+    x, y, h, m, t = cs.clustered_particles(1 << 14, 25.0, 32, seed=7, device=torch.device("cpu"))
+    return (x, y, h, m, t, 25.0)
+
+
+def test_memory_catalogue_serves_what_render_halo_maps_reads(monkeypatch):
+    import astro_sph_tools_tpu_torch.render as render_mod
+    from astro_sph_tools_tpu_torch import render_halo_maps
+    from astro_sph_tools_tpu_torch.data_structures import ParticleType
+    from astro_sph_tools_tpu_torch.io.catalogue import BasicHaloDefinitions, CatalogueBase
+    from astro_sph_tools_tpu_torch.io.errors import HaloDefinitionNotSupportedError
+
+    particles = small_halo_inputs()
+    x, y, h, m, t, box = particles
+    snap = cs.memory_snapshot(*particles)
+    z = snap.get_metallicities(ParticleType.gas).value
+    assert torch.equal(z, cs.memory_snapshot(*particles).get_metallicities(ParticleType.gas).value)
+    assert float(z.min()) >= 0.0 and float(z.max()) < 0.04
+
+    centres, radii = cs.halo_catalogue(torch, particles)
+    assert centres.shape == (cs.HALO_N, 3) and radii.shape == (cs.HALO_N,)
+    np.testing.assert_allclose([radii[0], radii[-1]], [0.15, 1.0])
+    assert np.hypot(*centres[-2, :2]) < 0.1 and abs(centres[-1, 0] - box) < 0.1
+    assert (centres[:, 2] == 0).all()
+    cat = cs.memory_catalogue(centres, radii, snap)
+    assert isinstance(cat, CatalogueBase) and len(cat) == cs.HALO_N and cat.redshift == snap.redshift
+    np.testing.assert_array_equal(cat.get_halo_centres_of_potential().to_value("Mpc"), centres)
+    np.testing.assert_array_equal(cat.get_halo_radii(BasicHaloDefinitions.SO_200_CRIT.value).to_value("Mpc"), radii)
+    with pytest.raises(HaloDefinitionNotSupportedError):
+        cat.get_halo_radii(BasicHaloDefinitions.SO_500_CRIT.value)
+    with pytest.raises(NotImplementedError):
+        cat.get_halo_masses(BasicHaloDefinitions.SO_200_CRIT.value)
+
+    seen = []
+    real = render_mod.deposit_2d_auto
+
+    def spy(lx, *args, **kw):
+        seen.append(int(lx.shape[0]))
+        return real(lx, *args, **kw)
+
+    monkeypatch.setattr(render_mod, "deposit_2d_auto", spy)
+    haloes = [0, cs.HALO_N - 2, cs.HALO_N - 1]
+    stacks = render_halo_maps(snap, cat, haloes, fields=("density", "temperature", "metallicity"),
+                              resolution=32, device="cpu")
+    xy = torch.stack([x, y], dim=1).double()
+    counts = [int(cs.cutout_selection(torch, xy, h.double(), centres[k], 2 * radii[k], box)[1].shape[0])
+              for k in haloes]
+    assert seen == counts and min(counts) > 0
+    for stack in stacks:
+        assert stack["surface_density"][15:17, 15:17].mean() > 0
+        assert cs.stack_errors(stack, stack) == {name: 0.0 for name in stack.keys()}

@@ -102,3 +102,28 @@ def test_fixed_h_matches_jax():
         *(torch.as_tensor(a, dtype=torch.float32) for a in (x, y, h, m)), T.MapSpec(**spec_kw), K=8, chunk=256
     )
     assert rel_err(got, ref) <= 1e-5
+
+
+@pytest.mark.parametrize("periodic", [True, False])
+def test_wide_windows_match_the_oracle_and_the_dense_pass(periodic, monkeypatch):
+    """Footprints past K = 64 take the wide windows (128, then 256 on a
+    256^2 map; 512 and 1024 do not fit it, so the largest go dense); the
+    map equals the f64 oracle within 1e-5 * max and the all-dense route
+    (``WIDE_LEVELS = ()``, the JAX engine's) within 1e-6 * max."""
+    from oracles import project_oracle_fast
+
+    rng = np.random.default_rng(61)
+    n, npix = 300, 256
+    spec = T.MapSpec(shape=(npix, npix), extent=(0.0, BOX, 0.0, BOX), periodic_wrap=periodic)
+    x = rng.uniform(0.0, BOX, n)
+    y = rng.uniform(0.0, BOX, n)
+    px = BOX / npix
+    h = px * np.concatenate([rng.uniform(16.0, 30.0, 100), rng.uniform(33.0, 62.0, 100),
+                             rng.uniform(70.0, 120.0, 100)])  # K = 128, 256 and dense
+    m = rng.uniform(0.5, 2.0, n)
+    got = T.deposit_2d(x, y, h, m, spec, device="cpu").numpy()
+    oracle = project_oracle_fast(x, y, h, m, spec.shape, spec.extent, periodic=periodic)
+    assert rel_err(got, oracle) <= 1e-5
+    monkeypatch.setattr(T, "WIDE_LEVELS", ())
+    dense = T.deposit_2d(x, y, h, m, spec, device="cpu").numpy()
+    assert rel_err(got, dense) <= 1e-6

@@ -126,6 +126,15 @@ def test_port_imports_neither_jax_nor_h5py():
         "import astro_sph_tools_tpu_torch.ops.grid3d, astro_sph_tools_tpu_torch.ops.grid3d_tiled\n"
         "import astro_sph_tools_tpu_torch.ops.layout_shear\n"
         "from astro_sph_tools_tpu_torch.tools import GridSpec, deposit_3d, deposit_3d_auto, deposit_3d_pallas\n"
+        "import astro_sph_tools_tpu_torch.ops.periodic, astro_sph_tools_tpu_torch.ops.reorder\n"
+        "import astro_sph_tools_tpu_torch.io, astro_sph_tools_tpu_torch.io.eagle, astro_sph_tools_tpu_torch.io.catalogue\n"
+        "import astro_sph_tools_tpu_torch.io.subfind, astro_sph_tools_tpu_torch.io.swift, astro_sph_tools_tpu_torch.io.tng\n"
+        "import astro_sph_tools_tpu_torch.io.filetree, astro_sph_tools_tpu_torch.io.los\n"
+        "import astro_sph_tools_tpu_torch.io.particle_filter, astro_sph_tools_tpu_torch.data_structures.interface\n"
+        "import astro_sph_tools_tpu_torch.scripts.render_map, astro_sph_tools_tpu_torch.scripts.ast_cli\n"
+        "from astro_sph_tools_tpu_torch import render_halo_maps\n"
+        "from astro_sph_tools_tpu_torch.io import SnapshotEAGLE, SnapshotSWIFT, SnapshotTNG, CatalogueSUBFIND\n"
+        "from astro_sph_tools_tpu_torch.tools import shift_centre, ArrayReorder, calculate_wrapped_distance\n"
         "print(sorted(m for m in ('jax', 'h5py', 'astro_sph_tools_tpu') if m in sys.modules))\n"
     )
     out = subprocess.run(

@@ -14,6 +14,7 @@ import pytest
 
 from astro_sph_tools_tpu.io.synthetic import SyntheticSnapshotSpec, write_snapshot
 from astro_sph_tools_tpu.scripts.sightlines_cli import main as j_main
+from astro_sph_tools_tpu_torch.io.errors import SnapshotFormatError
 from astro_sph_tools_tpu_torch.scripts.sightlines_cli import main as t_main
 
 TOL = 1e-5
@@ -104,9 +105,11 @@ def test_cli_errors(snap_path, tmp_path):
         t_main(base + ["--spectra", "--profile", "voigt"])
     with pytest.raises(SystemExit):
         t_main(base + ["--engine", "bogus"])
-    for fmt in ("swift", "tng"):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            t_main(base + ["--format", fmt])
+    # the SWIFT and TNG readers refuse an EAGLE file
+    with pytest.raises(KeyError, match="Cosmology"):
+        t_main(base + ["--format", "swift"])
+    with pytest.raises(SnapshotFormatError, match="TNG naming scheme"):
+        t_main(base + ["--format", "tng"])
     bad = tmp_path / "bad.txt"
     bad.write_text("1 2 3\n")
     with pytest.raises(SystemExit):
