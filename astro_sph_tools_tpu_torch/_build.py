@@ -12,6 +12,11 @@ own shared library under
 includes (directly or through another header) and of the flags, and loaded
 with ``ctypes``. A build that fails, or a machine without ``nvcc``, raises
 with the compiler's message: nothing falls back to another path.
+
+The host-side C library ``native/hostops.c`` (the f64 tile assignment, the
+scale-and-cast pass and the Morton-delta encoder of the streamed ingest) is
+built the same way beside them, with the system C compiler
+(``cc -O3 -shared -fPIC``), by :func:`load_host`.
 """
 
 from __future__ import annotations
@@ -36,6 +41,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+_HOST_SRC = _PKG_DIR / "native" / "hostops.c"
+# no FMA contraction: the host assignment repeats the torch formulation's
+# f64 arithmetic operation by operation
+CC_FLAGS = ("-O3", "-shared", "-fPIC", "-ffp-contract=off")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -232,3 +242,55 @@ def load_all() -> dict[str, tuple[ctypes.CDLL, BuildInfo]]:
         for name, info in infos.items():
             _loaded[name] = (_open(name, info), info)
         return {n: _loaded[n] for n in LIBRARIES}
+
+
+def _find_cc() -> str:
+    for name in ("cc", "gcc", "clang"):
+        cand = shutil.which(name)
+        if cand:
+            return cand
+    raise RuntimeError(
+        "no C compiler found (cc, gcc, clang on PATH): the host library "
+        "native/hostops.c of astro_sph_tools_tpu_torch needs one to build"
+    )
+
+
+def host_library_path(src: Path = _HOST_SRC, build_dir: Path = _BUILD_DIR) -> Path:
+    """The library ``src`` builds into: named by a hash of the source and
+    of the flags."""
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(CC_FLAGS).encode())
+    return build_dir / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
+
+
+def build_host(src: Path = _HOST_SRC, build_dir: Path = _BUILD_DIR) -> BuildInfo:
+    """Compile a plain C source into a shared library under ``build_dir``
+    (once: an existing library of the same hash is reused). Raises with the
+    compiler's message when the build fails."""
+    lib_path = host_library_path(src, build_dir)
+    if lib_path.exists():
+        return BuildInfo(lib_path, 0.0, False, "")
+    cc = _find_cc()
+    build_dir.mkdir(parents=True, exist_ok=True)
+    tmp = lib_path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = [cc, *CC_FLAGS, "-o", str(tmp), str(src)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"{os.path.basename(cc)} failed ({proc.returncode}) building {src}:\n"
+            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, lib_path)  # atomic: concurrent builders race benignly
+    return BuildInfo(lib_path, seconds, True, proc.stdout + proc.stderr)
+
+
+def load_host() -> tuple[ctypes.CDLL, BuildInfo]:
+    """Build ``native/hostops.c`` if needed and load it (cached per
+    process); the caller declares its C signatures."""
+    with _lock:
+        if "hostops" not in _loaded:
+            info = build_host()
+            _loaded["hostops"] = (ctypes.CDLL(str(info.path)), info)
+        return _loaded["hostops"]

@@ -1,7 +1,6 @@
 """Core data vocabulary: particle types, axes, cosmology, interfaces.
 
-Counterpart: ``astro_sph_tools_tpu/data_structures/__init__.py`` (the
-ionisation tables are still to port)."""
+Counterpart: ``astro_sph_tools_tpu/data_structures/__init__.py``."""
 
 from .cosmology import RHO_CRIT_H1_MSUN_PER_MPC3, Cosmology
 from .interface import (
@@ -14,6 +13,7 @@ from .interface import (
     SimulationDataBase,
     ensure_not_interface,
 )
+from .ionisation import IIonisationTable, IonisationTableBase
 from .particle_types import CoordinateAxes, ParticleType
 
 __all__ = [
@@ -29,4 +29,6 @@ __all__ = [
     "CoordinateAxes",
     "Cosmology",
     "RHO_CRIT_H1_MSUN_PER_MPC3",
+    "IIonisationTable",
+    "IonisationTableBase",
 ]

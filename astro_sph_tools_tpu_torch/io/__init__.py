@@ -1,9 +1,8 @@
 """IO layer: snapshot/catalogue/LOS data models and format backends.
 
-Counterpart: ``astro_sph_tools_tpu/io/__init__.py``, the same surface
-except the packing, prefetch and ionisation modules, which are not ported
-yet (ROADMAP queue 1). The readers name ``h5py`` through ``io/_lazy.py``,
-so importing this package does not import ``h5py``: the first read does.
+Counterpart: ``astro_sph_tools_tpu/io/__init__.py``, the same surface. The
+readers and the HM01 tables name ``h5py`` through ``io/_lazy.py``, so
+importing this package does not import ``h5py``: the first read does.
 """
 
 from . import errors
@@ -29,6 +28,7 @@ from .filetree import (
     discover_soap_catalogues,
     discover_swift_snapshots,
 )
+from .ionisation import IonisationTable_HM01, SupportedIons
 from .los import (
     LineOfSightBase,
     LineOfSightEAGLE,
@@ -36,11 +36,13 @@ from .los import (
     LineOfSightFileEAGLE,
     LineOfSightFileSWIFT,
 )
+from .packing import PackedParticles, pack_particles_host, unpack_particles_device
 from .particle_filter import (
     LineOfSightParticleFilter,
     ParticleFilterFile,
     SnapshotParticleFilter,
 )
+from .prefetch import stream_macro_chunks, stream_particle_blocks, streamed_deposit_2d
 from .snapshot import SnapshotBase
 from .subfind import CatalogueSUBFIND
 from .swift import CatalogueSOAP, SnapshotSWIFT
@@ -81,4 +83,12 @@ __all__ = [
     "SphericalOverdensityAperture",
     "TaggedFileSet",
     "TopHatSphericalOverdensityAperture",
+    "IonisationTable_HM01",
+    "SupportedIons",
+    "PackedParticles",
+    "pack_particles_host",
+    "unpack_particles_device",
+    "stream_macro_chunks",
+    "stream_particle_blocks",
+    "streamed_deposit_2d",
 ]

@@ -3,7 +3,8 @@
 Counterpart: ``astro_sph_tools_tpu/ops/__init__.py`` (the ported slices: the
 plain torch stencil engine, the sorted tile engine, the coherent-order
 engine, the sightline column and absorption-spectra engines, the 3D voxel
-engines, periodic-box geometry and ID-matched reordering). As in
+engines, periodic-box geometry, ID-matched reordering and regular-grid
+interpolation; the neighbour searches are still to port). As in
 the JAX package, the exported function ``deposit_coherent`` shadows the
 module of the same name: import the module with
 ``importlib.import_module("astro_sph_tools_tpu_torch.ops.deposit_coherent")``."""
@@ -41,6 +42,7 @@ from .grid3d_tiled import (
     deposit_3d_tiled,
     tile_particles_3d,
 )
+from .interp import cubic_spline_1d, regular_grid_interpolate
 from .periodic import (
     calculate_periodic,
     make_periodic,
@@ -90,6 +92,7 @@ __all__ = [
     "column_integrate",
     "column_integrate_binned",
     "column_integrate_pallas",
+    "cubic_spline_1d",
     "deposit_2d",
     "deposit_2d_auto",
     "deposit_2d_coherent",
@@ -107,6 +110,7 @@ __all__ = [
     "deposit_weighted_mean",
     "doppler_parameter_kms",
     "los_profiles",
+    "regular_grid_interpolate",
     "tile_particles",
     "tile_particles_3d",
     "tile_particles_coherent",

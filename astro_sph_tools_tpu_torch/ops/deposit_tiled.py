@@ -35,6 +35,7 @@ kernel exist only for its sequential grid and DMA blocks, and are not ported.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -515,8 +516,15 @@ def _pixel_coords(x: Tensor, y: Tensor, spec: MapSpec) -> tuple[Tensor, Tensor]:
 
 def _tile_local_coords(x: Tensor, y: Tensor, geom: _LevelGeometry, spec: MapSpec):
     """(tile id, tile-local f32 pixel coords) for one level's geometry,
-    computed in the dtype of ``x`` (f64 on the host quality path)."""
+    computed in the dtype of ``x``. Host f64 coordinates (the quality path)
+    go through the native assignment, which equals this formulation bit for
+    bit."""
     cfg, tx = geom.cfg, geom.tx
+    if _on_host_f64(x):
+        geom_tuples = ((geom.n_tiles_x,), (cfg.TY,), (tx,), (geom.n_tiles_y,), (cfg.M,))
+        # one level that takes every particle: s_pix = 0 never exceeds it
+        zero_h = torch.zeros(x.shape[0], dtype=torch.float32)
+        return _native_assign(x, y, zero_h, spec, 0.0, (math.inf,), geom_tuples)
     u, v = _pixel_coords(x, y, spec)
     tx_i = torch.clamp((u / tx).to(torch.int32), 0, geom.n_tiles_x - 1)
     ty_i = torch.clamp((v / cfg.TY).to(torch.int32), 0, geom.n_tiles_y - 1)
@@ -524,6 +532,38 @@ def _tile_local_coords(x: Tensor, y: Tensor, geom: _LevelGeometry, spec: MapSpec
     u_loc = (u - (tx_i * tx - cfg.M)).to(torch.float32)
     v_loc = (v - (ty_i * cfg.TY - cfg.M)).to(torch.float32)
     return tile_id, u_loc, v_loc
+
+
+def _on_host_f64(x: Tensor) -> bool:
+    return x.device.type == "cpu" and x.dtype == torch.float64
+
+
+def _assign_keys(xs: Tensor, ys: Tensor, h: Tensor, spec: MapSpec, support_factor: float, bounds, geom_tuples):
+    """(composite key level * _LEVEL_STRIDE + tile, tile-local f32 u, v) per
+    particle, in the dtype and on the device of ``xs``: the plain version
+    of the native host assignment (:func:`_native_assign`)."""
+    # s_pix from the f32 smoothing lengths, in the coordinates' precision
+    s_pix = support_factor * h.to(xs.device, xs.dtype) / min(spec.pixel_size)
+    u, v = _pixel_coords(xs, ys, spec)
+    level, tile, u_loc, v_loc = _multi_level_assign(u, v, s_pix, bounds, *geom_tuples)
+    return level * _LEVEL_STRIDE + tile, u_loc.to(torch.float32), v_loc.to(torch.float32)
+
+
+def _native_assign(xs: Tensor, ys: Tensor, h: Tensor, spec: MapSpec, support_factor: float, bounds, geom_tuples):
+    """:func:`_assign_keys` of host f64 coordinates in one pass of the
+    native library (``native/hostops.c``), bit for bit."""
+    from .. import native
+
+    ny, nx = spec.shape
+    x0, x1, y0, y1 = (float(e) for e in spec.extent)
+    ntx, ty, tx, nty, marg = geom_tuples
+    key, u_loc, v_loc = native.assign_tiles_f64(
+        xs.numpy(), ys.numpy(), h.to("cpu", torch.float32).numpy(),
+        x0=x0, y0=y0, psx=(x1 - x0) / nx, psy=(y1 - y0) / ny, nx=nx, ny=ny,
+        periodic=spec.periodic_wrap, support_factor=support_factor,
+        bounds=bounds, ntx=ntx, nty=nty, tw=tx, th=ty, marg=marg, stride=_LEVEL_STRIDE,
+    )
+    return torch.from_numpy(key), torch.from_numpy(u_loc), torch.from_numpy(v_loc)
 
 
 def _multi_level_assign(u, v, s_pix, bounds, n_tiles_x_t, ty_t, tx_t, n_tiles_y_t, m_t):
@@ -734,17 +774,16 @@ def tile_particles(
         counts = counts.tolist()  # host sync: a few ints
         perm = None if perm is None else perm.long()
     else:
-        # s_pix from the f32 smoothing lengths, in the coordinates' precision
-        s_pix = kspec.support_factor * h.to(xs.device, xs.dtype) / min(spec.pixel_size)
-        u, v = _pixel_coords(xs, ys, spec)
-        level, tile, u_loc, v_loc = _multi_level_assign(u, v, s_pix, bounds, *geom_tuples)
-        key = (level * _LEVEL_STRIDE + tile).to(device)
-        del s_pix, u, v, level, tile
+        # host f64 coordinates (the quality path): one native pass, bit for
+        # bit the torch formulation that every other input takes
+        assign = _native_assign if _on_host_f64(xs) else _assign_keys
+        key, u_loc, v_loc = assign(xs, ys, h, spec, kspec.support_factor, bounds, geom_tuples)
+        key = key.to(device)
 
         sorted_key, perm = torch.sort(key, stable=True)
         del key
-        su = u_loc.to(torch.float32).to(device)[perm]
-        sv = v_loc.to(torch.float32).to(device)[perm]
+        su = u_loc.to(device)[perm]
+        sv = v_loc.to(device)[perm]
         del u_loc, v_loc
         sh = h.to(device)[perm]
         s_values = values[:, perm].contiguous()

@@ -1,8 +1,7 @@
 """Utilities: console output, settings and phase timing.
 
-Counterpart: ``astro_sph_tools_tpu/utils/__init__.py`` (the ported part:
-the console module and ``PhaseTimer``; ``device_trace`` and the determinism
-helpers are still to port)."""
+Counterpart: ``astro_sph_tools_tpu/utils/__init__.py`` (the JAX package's
+``count_compilations`` has no counterpart in eager torch)."""
 
 from .console import (
     Settings,
@@ -17,10 +16,22 @@ from .console import (
     show_times,
     timed_phase,
 )
-from .profiling import PhaseTimer
+from .determinism import (
+    assert_consistent_across_processes,
+    assert_deterministic,
+    hash_array,
+    hash_pytree,
+)
+from .profiling import DeviceTrace, PhaseTimer, device_trace
 
 __all__ = [
+    "DeviceTrace",
     "PhaseTimer",
+    "assert_consistent_across_processes",
+    "assert_deterministic",
+    "device_trace",
+    "hash_array",
+    "hash_pytree",
     "Settings",
     "Stopwatch",
     "print_debug",

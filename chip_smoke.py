@@ -3,24 +3,28 @@
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
-    python3 chip_smoke.py                # phases 0-14, 16, 17 and 19
+    python3 chip_smoke.py                # phases 0-14, 16, 17 and 19-21
     python3 chip_smoke.py --phases 0,1,2 # a subset, for debugging
 
 It drives the port's main paths — the adaptive-h sorted tile engine behind
 ``render_map_stack``, the coherent-order engine (synced and zero-sync fused),
 the sightline columns and absorption spectra of BASELINE config 4, the 3D
 voxel deposit of BASELINE config 3, the random-order path (shear grouping,
-``deposit_2d_bucketed``) and the halo-centred map stacks of BASELINE config
-5 (``render_halo_maps``) — on particles generated in memory from a seed, and
+``deposit_2d_bucketed``), the halo-centred map stacks of BASELINE config
+5 (``render_halo_maps``), the streamed snapshot-to-map ingest and the
+ion-weighted render — on particles generated in memory from a seed, and
 fails (non-zero exit) if any phase fails (phase 19 runs after phase 9, on
 phase 3's particles):
 
-0. device: torch version, card name and power limit (nvidia-smi);
+0. device: torch version, card name and power limit (nvidia-smi); the CPU
+   first-call probe (``cpu_probe``) in 8 fresh processes of plain torch
+   and 8 of the package's plain deposit: how many went wrong on this host
+   (the package's must not);
 1. build: compile every CUDA kernel library (``csrc/deposit2d.cu``,
    ``csrc/coherent.cu``, ``csrc/sightlines.cu``, ``csrc/deposit3d.cu``,
-   ``csrc/layout_shear.cu``), one nvcc per source, all started together;
-   the row-prep and column kernels' registers and spill bytes
-   (``ptxas_summary``);
+   ``csrc/layout_shear.cu``), one nvcc per source, all started together,
+   and the host C library ``native/hostops.c``; the row-prep and column
+   kernels' registers and spill bytes (``ptxas_summary``);
 2. sorted-engine deposit kernel (#1) vs its plain torch version on the
    card, for every level K in {8, 16, 32, 64} x F in {2, 5} x projection,
    on a 1024^2 map: 2^18 uniform particles whose h lies inside the level,
@@ -146,6 +150,34 @@ phase 3's particles):
     particles translated by half a box (f64, on the card); per halo the
     particles in the cutout and the timing split; for the 16 haloes the
     warm wall, the device's busy share and peak memory;
+20. the streamed snapshot-to-map path (the JAX package's
+    ``benchmarks/e2e_1e8.py``): 2^27 gas particles of its
+    ``write_big_snapshot`` distribution in 8 Morton-sorted "files" held on
+    the host in raw internal units (``e2e_files``), streamed as 4
+    macro-chunks of 2^25 through ``stream_macro_chunks`` (pinned buffers, a
+    side stream) on three wires (``f32``: host unit conversion; ``pack``:
+    u16 positions and f16 h and fields; ``packdelta``: raw units, Morton-
+    delta positions, u8-log fields, units folded into the unpack), each
+    into 1024^2 x [m, m T] periodic maps through the sorted engine, and
+    ``f32`` and ``packdelta`` also through ``deposit_2d_coherent``; each
+    chunk's decode on the card against the CPU decode (bit for bit) and the
+    Morton decode against the encoder's inputs; each streamed map against
+    one render of all its decoded particles and coherent against sorted
+    (1e-5 * max); finite maps, integrated mass; kernel #1-#3 launches in
+    the steady passes; per wire and engine the cold and steady walls, the
+    exposed wait, layout and deposit, bytes a particle, the device's busy
+    share (``device_trace``) and peak memory; the packed maps' quantisation
+    error against the ``f32`` wire's; H2D GB/s from pinned and pageable
+    memory;
+21. the ion-weighted render (the JAX package's ``benchmarks/ion_e2e.py`` at
+    2^26): the synthetic O VI HM01 table in memory, collapsed at z = 0.5;
+    the per-particle lookup on the card against scipy's f64 interpolation
+    of the full table on 2^20 particles (1e-5 in log f; -inf and f = 0
+    outside the table); the payload [m f, m f T 2^-16]; capacities from one
+    synced coherent render, then ``deposit_2d_coherent_fused`` with its
+    ``ok`` flag read on every pass; fused, synced and sorted maps within
+    1e-5 * max; kernel #2-#3 launches; the warm wall, the payload alone,
+    the calibration, the device's busy share and peak memory.
 
 Every phase prints one JSON line; the kernels' summary line and the card's
 ``nvidia-smi`` line come before the last line, which is
@@ -384,11 +416,82 @@ def clustered_particles(n: int, box: float, npix: int, seed: int, device, order:
 
 
 # ---------------------------------------------------------------------------
+# the CPU first-call probe (phase 0; tests/test_torch_cpu_first_call.py)
+# ---------------------------------------------------------------------------
+
+PROBE_GRAIN = 73_216  # elements of the probe's temporaries: past torch's 32,768-element grain
+
+
+def cpu_probe(kind: str) -> dict:
+    """One fresh process's first multi-threaded CPU math, held to f64.
+
+    ``"torch"``: plain torch, without the package (whose import warms the
+    math library, ``_cpu_math.py``): a floor and an int32 cast, then the
+    first ``sqrt``, ``exp`` and ``log`` of PROBE_GRAIN f32 values, each
+    against NumPy f64. ``"port"``: the package's plain CPU deposit
+    (``deposit_2d_auto(..., device="cpu")``: 3,454 particles with f64
+    offsets into a 48^2 cutout, temporaries past the grain) against the f64
+    oracle of ``tests/oracles.py``. Returns the largest relative error."""
+    import torch
+
+    if kind == "torch":
+        rng = np.random.default_rng(3)
+        t = torch.from_numpy(rng.uniform(0.0, 48.0, PROBE_GRAIN).astype(np.float32))
+        q = (t - torch.floor(t - 0.5).to(torch.int32).to(torch.float32)) * 0.37 + 0.01
+        errs = {}
+        for name, f, g in (("sqrt", torch.sqrt, np.sqrt), ("exp", torch.exp, np.exp), ("log", torch.log, np.log)):
+            ref = g(q.double().numpy())
+            errs[name] = float(np.max(np.abs(f(q).double().numpy() - ref) / np.abs(ref)))
+        return {"kind": kind, "rel_err": max(errs.values()), "by_op": errs}
+    if kind != "port":
+        raise ValueError(f"unknown probe {kind!r}")
+    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from oracles import project_oracle_fast
+
+    from astro_sph_tools_tpu_torch.ops import MapSpec, deposit_2d_auto
+
+    rng = np.random.default_rng(5)
+    n, w = 3454, 1.2  # a 1.2 Mpc, 48-pixel cutout
+    px = w / 48
+    x = rng.uniform(-w / 2, w / 2, n)
+    y = rng.uniform(-w / 2, w / 2, n)
+    h = np.exp(rng.normal(np.log(1.2 * px), 0.5, n)).clip(0.3 * px, 6 * px).astype(np.float32)
+    m = rng.uniform(0.5, 1.5, n).astype(np.float32)
+    spec = MapSpec(shape=(48, 48), extent=(-w / 2, w / 2, -w / 2, w / 2))
+    img = deposit_2d_auto(x, y, h, m, spec, device="cpu").numpy().astype(np.float64)
+    ref = project_oracle_fast(x, y, h.astype(np.float64), m.astype(np.float64), (48, 48), spec.extent)
+    return {"kind": kind, "rel_err": float(np.abs(img - ref).max() / np.abs(ref).max())}
+
+
+def run_cpu_probes(kind: str, n: int, timeout: float = 120.0) -> list:
+    """``cpu_probe(kind)`` in ``n`` fresh processes, started together (one
+    after another they took ~8 s each on the card's host, where each
+    imports a CUDA build of torch); their errors."""
+    cmd = [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--cpu-probe", kind]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT)
+             for _ in range(n)]
+    errs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=timeout)
+            if p.returncode != 0:
+                raise RuntimeError(f"cpu probe {kind} failed ({p.returncode}): {err[-2000:]}")
+            errs.append(json.loads(out.strip().splitlines()[-1])["rel_err"])
+    finally:
+        for p in procs:  # stop every process this started
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return errs
+
+
+# ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
 
 
-def phase_device(torch):
+def phase_device(torch, n_probes: int = 8):
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is False: chip_smoke.py needs a GPU")
     smi = subprocess.run(
@@ -399,8 +502,24 @@ def phase_device(torch):
     emit({
         "phase": "device", "torch": torch.__version__, "cuda": torch.version.cuda,
         "name": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
-        "nvidia_smi": smi,
+        "nvidia_smi": smi, "cpu_threads": torch.get_num_threads(),
     })
+    # does this host's CPU math go wrong on a fresh process's first
+    # multi-threaded call (plain torch), and does the package's warm-up
+    # keep its plain CPU path inside the budget (the port)?
+    t0 = time.perf_counter()
+    raw = run_cpu_probes("torch", n_probes)
+    port = run_cpu_probes("port", n_probes)
+    out = {
+        "phase": "device", "cpu_first_call": {
+            "processes": n_probes, "tolerance": REL_TOL,
+            "torch_bad": sum(e > REL_TOL for e in raw), "torch_max_rel_err": max(raw),
+            "port_bad": sum(e > REL_TOL for e in port), "port_max_rel_err": max(port),
+            "seconds": time.perf_counter() - t0,
+        },
+    }
+    emit(out)
+    check(out["cpu_first_call"]["port_bad"] == 0, f"the port's CPU path off the oracle: {port}")
     return smi
 
 
@@ -417,7 +536,10 @@ def phase_build():
             "nvcc_seconds": round(info.seconds, 3), "built": info.built,
             "flags": " ".join(_build.NVCC_FLAGS), "ptxas": ptxas,
         })
-    emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3), "libraries": sorted(libs)})
+    _, host = _build.load_host()
+    emit({"phase": "build", "library": os.path.relpath(str(host.path), ROOT),
+          "cc_seconds": round(host.seconds, 3), "built": host.built, "flags": " ".join(_build.CC_FLAGS)})
+    emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3), "libraries": sorted(libs) + ["hostops"]})
     logs = "\n".join(info.log for _, info in libs.values())
     emit({"phase": "build", "ptxas_by_kernel": {
         name: ptxas_summary(logs, name) for name in ("coherent_prep_kernel", "columns_kernel", "column_sums_kernel")
@@ -845,6 +967,9 @@ def phase_render(torch, device, particles):
     emit({"phase": "render_map_stack", "maps": sorted(stack.keys()), "timings": stack.timings})
 
 
+QUALITY_ASSIGN_LOG2N = 26
+
+
 def phase_quality(torch, device):
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from oracles import project_oracle
@@ -873,6 +998,48 @@ def phase_quality(torch, device):
     emit(out)
     check(len(tp.geoms) == 4 and tp.n_oversize > 0, "quality case must span K=8..64 and oversize")
     check(rel <= REL_TOL, f"quality path off the f64 oracle: {rel}")
+    out["host_f64_assign"] = quality_assign_timing(torch, device)
+    emit({"phase": "quality_f64_assign", **out["host_f64_assign"]})
+    check(out["host_f64_assign"]["bitwise_equal"], "native host assignment differs from the torch formulation")
+
+
+def quality_assign_timing(torch, device, n_log2: int = QUALITY_ASSIGN_LOG2N) -> dict:
+    """The host-f64 quality path's assignment at 2^26 particles on a
+    periodic 1024^2 map: the torch formulation (``_assign_keys``) against
+    the native library's (``_native_assign``, split over the host's cores),
+    each alone on the host and inside ``tile_particles`` to ``device``
+    (host wall clock, medians of 3), and their outputs compared bit for
+    bit."""
+    import importlib
+
+    from astro_sph_tools_tpu_torch.ops import MapSpec, tile_particles
+
+    T = importlib.import_module("astro_sph_tools_tpu_torch.ops.deposit_tiled")
+    n = 1 << n_log2
+    rng = np.random.default_rng(5)
+    box = 25.0
+    x, y = rng.uniform(0, box, n), rng.uniform(0, box, n)
+    h = torch.from_numpy((10.0 ** rng.uniform(-0.7, 1.1, n) * box / 1024).astype(np.float32))
+    vals = torch.ones((1, n), dtype=torch.float32)
+    spec = MapSpec(shape=(1024, 1024), extent=(0.0, box, 0.0, box), periodic_wrap=True)
+    _, bounds, gt = T._assign_setup(spec, T.PALLAS_LEVELS)
+    xs, ys = torch.from_numpy(x), torch.from_numpy(y)
+    ref = T._assign_keys(xs, ys, h, spec, 2.0, bounds, gt)
+    got = T._native_assign(xs, ys, h, spec, 2.0, bounds, gt)
+    equal = all(bool(torch.equal(a.to(b.dtype), b)) for a, b in zip(ref, got))
+    del ref, got
+    out = {"n": n, "host_threads": torch.get_num_threads(), "bitwise_equal": equal}
+    for name, fn in (("torch", T._assign_keys), ("native", T._native_assign)):
+        out[f"assign_s_{name}"] = wall_s(lambda: fn(xs, ys, h, spec, 2.0, bounds, gt), 3)
+    native = T._native_assign
+    try:
+        for name, fn in (("torch", T._assign_keys), ("native", native)):
+            T._native_assign = fn  # the branch tile_particles takes for host f64
+            out[f"tile_particles_s_{name}"] = wall_s(
+                lambda: tile_particles(x, y, h, vals, spec, need_perm=False, device=device), 3)
+    finally:
+        T._native_assign = native
+    return out
 
 
 def _coherent_module():
@@ -1070,41 +1237,87 @@ def phase_coherent_kernel(torch, device, particles, n_dense: int = 1 << 20):
     return out
 
 
-def _tail_levels_vs_plain(torch, lay, spec, **tags):
-    """Kernel #1 (sorted-engine deposit) vs its plain version on each level
-    of a coherent layout's routed tail, as the coherent render launches it."""
+def _level_vs_plain(torch, geom, args, sl, spec, what: str, **tags):
+    """Kernel #1 (sorted-engine deposit) vs its plain version on one
+    level's launch ``args`` (u, v, h, values, pstart, pcount), whose
+    particles are ``sl`` of the arrays, as the engine launches it."""
     from astro_sph_tools_tpu_torch.ops.deposit_tiled import deposit_tiles, deposit_tiles_plain
 
-    TC = _coherent_module()
     psy, psx = spec.pixel_size
-    kw = dict(kernel="cubic_spline", projection="kernel3d", psx=psx, psy=psy, offset=spec.sample_offset)
+    kw = dict(cfg=geom.cfg, kernel="cubic_spline", projection="kernel3d", psx=psx, psy=psy,
+              offset=spec.sample_offset)
+    u, v, h, values, pstart, pcount = args
+    n_fields = values.shape[0]
+    got = deposit_tiles(*args, **kw)
+    ref = deposit_tiles_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, ref)
+    del ref
+    case = {
+        "phase": "kernel_vs_plain", **tags, "K": geom.cfg.K, "F": n_fields, "projection": "kernel3d",
+        "n": int(h[sl].shape[0]), "n_tiles": geom.n_tiles, "max_pcount": int(pcount.max()),
+        **split_stats(torch, _deposit_module()._CLUSTER, pcount, 8),
+        "max_abs_err": err, "rel_err": rel,
+        "ms": cuda_ms(lambda: deposit_tiles(*args, **kw), 5),
+        "plain_ms": cuda_ms(lambda: deposit_tiles_plain(*args, **kw), 1),
+        **bound(nbytes(u[sl], v[sl], h[sl], values[:, sl], pstart, pcount, got),
+                support_points(h[sl], 2.0, psx, 2) * pair_ops(n_fields)),
+    }
+    emit(case)
+    check(bool(torch.isfinite(got).all()), f"non-finite {what} kernel output {case}")
+    check(rel <= REL_TOL, f"{what} kernel disagrees with its plain version: {case}")
+    check_bound(case, f"kernel #1 {tags} {what} K={geom.cfg.K}")
+    return case
+
+
+def _tail_levels_vs_plain(torch, lay, spec, **tags):
+    """Kernel #1 vs its plain version on each level of a coherent layout's
+    routed tail, as the coherent render launches it."""
+    TC = _coherent_module()
     tu, tv, th, t_values, skey = lay.tail
     out = []
     for li, geom, lo, count in lay.tail_metas:
         pstart, pcount = TC._tail_level_ranges(skey, lay.bases[li], geom, None)
-        args = (tu, tv, th, t_values, pstart, pcount)
-        got = deposit_tiles(*args, cfg=geom.cfg, **kw)
-        ref = deposit_tiles_plain(*args, cfg=geom.cfg, **kw)
-        torch.cuda.synchronize()
-        err, rel = rel_err(got, ref)
-        del ref
+        out.append(_level_vs_plain(torch, geom, (tu, tv, th, t_values, pstart, pcount), slice(lo, lo + count),
+                                   spec, "tail-level", **tags))
+    return out
+
+
+def _sorted_levels_vs_plain(torch, tp, **tags):
+    """Kernel #1 vs its plain version on each level of a sorted layout, as
+    ``deposit_tiled`` launches it."""
+    from astro_sph_tools_tpu_torch.ops.deposit_tiled import _tile_ranges
+
+    out = []
+    for geom, lo, count in tp.geoms:
         sl = slice(lo, lo + count)
-        case = {
-            "phase": "kernel_vs_plain", **tags, "K": geom.cfg.K, "F": lay.n_fields, "projection": "kernel3d",
-            "n": count, "n_tiles": geom.n_tiles, "max_pcount": int(pcount.max()),
-            **split_stats(torch, _deposit_module()._CLUSTER, pcount, 8),
-            "max_abs_err": err, "rel_err": rel,
-            "ms": cuda_ms(lambda: deposit_tiles(*args, cfg=geom.cfg, **kw), 5),
-            "plain_ms": cuda_ms(lambda: deposit_tiles_plain(*args, cfg=geom.cfg, **kw), 1),
-            **bound(nbytes(tu[sl], tv[sl], th[sl], t_values[:, sl], pstart, pcount, got),
-                    support_points(th[sl], 2.0, psx, 2) * pair_ops(lay.n_fields)),
-        }
-        emit(case)
-        check(bool(torch.isfinite(got).all()), f"non-finite tail-level kernel output {case}")
-        check(rel <= REL_TOL, f"tail-level kernel disagrees with its plain version: {case}")
-        check_bound(case, f"kernel #1 {tags} tail K={geom.cfg.K}")
-        out.append(case)
-        del got
+        pstart, pcount = _tile_ranges(tp.sorted_tile[sl], geom.n_tiles)
+        args = (tp.sorted_u[sl], tp.sorted_v[sl], tp.sorted_h[sl], tp.sorted_values[:, sl], pstart, pcount)
+        out.append(_level_vs_plain(torch, geom, args, slice(None), tp.spec, "sorted-level", **tags))
+    return out
+
+
+def path_kernels_vs_plain(torch, device, x, y, h, values, spec, engines, case: str) -> dict:
+    """Kernels #1-#3 against their plain versions on one input of a path,
+    at the shapes the path gives them: with the sorted engine, #1 on each
+    level of its layout; with the coherent engine, #3 on its rows (bit for
+    bit), #2 on its candidates and #1 on each level of its routed tail."""
+    from astro_sph_tools_tpu_torch.ops import tile_particles, tile_particles_coherent
+
+    TC = _coherent_module()
+    out = {}
+    if "sorted" in engines:
+        tp = tile_particles(x, y, h, values, spec, need_perm=False, device=device)
+        out["sorted_levels"] = _sorted_levels_vs_plain(torch, tp, case=case)
+        del tp
+    if "coherent" in engines:
+        cx, cy, ch, cv, _ = TC._device_inputs(x, y, h, values, spec, device)
+        out["prep"] = _prep_vs_plain(torch, case, spec, cx, cy, ch, cv)
+        del cx, cy, ch, cv
+        lay = tile_particles_coherent(x, y, h, values, spec, device=device)
+        out["coherent_deposit"] = _coherent_vs_plain(torch, lay, spec, h, "kernel3d", 1, case=case)
+        out["tail_levels"] = _tail_levels_vs_plain(torch, lay, spec, case=case)
+        del lay
     return out
 
 
@@ -2558,16 +2771,518 @@ def phase_random(torch, device, particles, gen_s):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: streamed snapshot to map (the JAX package's benchmarks/e2e_1e8.py)
+# ---------------------------------------------------------------------------
+
+E2E_LOG2N = 27  # 2^27 gas particles ...
+E2E_FILES = 8  # ... in 8 Morton-sorted "files" ...
+E2E_CHUNKS = 4  # ... streamed as 4 macro-chunks of 2^25
+E2E_BOX = 25.0  # Mpc, periodic, 1024^2
+E2E_HUBBLE = 0.6777  # the EAGLE fixture's h: positions and h are stored x h ...
+E2E_MASS_CGS = 1.989e43  # ... and masses in units of 1e10 Msun (this many g), x h
+MASS_SCALE = 2.0**20  # the benchmark's power-of-two f16 scales (Msun, K)
+TEMP_SCALE = 2.0**16
+E2E_COMBOS = (("f32", "sorted"), ("f32", "coherent"), ("pack", "sorted"),
+              ("packdelta", "sorted"), ("packdelta", "coherent"))
+
+
+def sync(torch, device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _interleave16_t(xq, yq):
+    """u16 values (int64 tensors) -> u32 Morton codes, as
+    ``io.packing._interleave16``."""
+    def spread(v):
+        v = (v | (v << 8)) & 0x00FF00FF
+        v = (v | (v << 4)) & 0x0F0F0F0F
+        v = (v | (v << 2)) & 0x33333333
+        v = (v | (v << 1)) & 0x55555555
+        return v
+
+    return spread(xq) | (spread(yq) << 1)
+
+
+def e2e_files(torch, device, n_log2: int, n_files: int = E2E_FILES, res: int = 1024, seed: int = 11) -> list:
+    """The JAX package's ``write_big_snapshot`` distribution, drawn on
+    ``device`` and kept on the host in raw internal units, one dict of f32
+    NumPy columns per "file": half uniform background, half in 64 Gaussian
+    blobs (sigma 0.02 box), each file sorted along the 2D Morton key at the
+    wire's 65536 cells; lognormal h (median 0.9 px, sigma_ln 0.55, clipped
+    to 0.25-24 px), m in U(0.8, 1.2) 1e6 Msun, lognormal T (median 1e5 K,
+    sigma_ln 1). Positions (x, y, z) and h are stored x h, masses x h in
+    units of 1e10 Msun (``e2e_1e8.py:124-129``)."""
+    from astro_sph_tools_tpu_torch import constants as C
+
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    edges = np.linspace(0, 1 << n_log2, n_files + 1).astype(int)
+    px = E2E_BOX / res
+    centres = torch.rand((64, 3), generator=g, device=device, dtype=torch.float64) * E2E_BOX
+    msun_in_1e10 = C.SOLAR_MASS_CGS / E2E_MASS_CGS
+    files = []
+    for fi in range(n_files):
+        nf = int(edges[fi + 1] - edges[fi])
+        nb = nf // 2
+        pos = torch.empty((nf, 3), dtype=torch.float32, device=device)
+        pos[: nf - nb] = torch.rand((nf - nb, 3), generator=g, device=device) * E2E_BOX
+        which = torch.randint(0, 64, (nb,), generator=g, device=device)
+        blob = centres[which] + torch.randn((nb, 3), generator=g, device=device, dtype=torch.float64) * (0.02 * E2E_BOX)
+        pos[nf - nb:] = torch.remainder(blob, E2E_BOX).float()
+        q = torch.clamp(pos[:, :2] / E2E_BOX * 65536, 0, 65535).to(torch.int64)
+        pos = pos[torch.sort(_interleave16_t(q[:, 0], q[:, 1]), stable=True).indices]
+        h = torch.exp(math.log(0.9 * px) + 0.55 * torch.randn(nf, generator=g, device=device))
+        h = torch.clamp(h, 0.25 * px, 24.0 * px)
+        m = 0.8e6 + 0.4e6 * torch.rand(nf, generator=g, device=device)
+        t = torch.exp(math.log(1e5) + torch.randn(nf, generator=g, device=device))
+        files.append({
+            "Coordinates": (pos * E2E_HUBBLE).cpu().numpy(),
+            "SmoothingLength": (h * E2E_HUBBLE).cpu().numpy(),
+            "Mass": (m * (E2E_HUBBLE * msun_in_1e10)).cpu().numpy(),
+            "Temperature": t.cpu().numpy(),
+        })
+    return files
+
+
+def e2e_raw_chunk(files, ci: int, n_chunks: int = E2E_CHUNKS) -> dict:
+    """The raw columns of chunk ``ci``: the files ``ci, ci + n_chunks, ...``,
+    as ``SnapshotEAGLE(process_index=ci, n_processes=n_chunks)`` reads them."""
+    mine = files[ci::n_chunks]
+    return {k: np.concatenate([f[k] for f in mine]) for k in mine[0]}
+
+
+def e2e_read_chunk(files, wire: str, ci: int, n_chunks: int = E2E_CHUNKS):
+    """``e2e_1e8.py::read_chunk`` on in-memory files. ``f32``: the reader's
+    fused unit conversion, one f32-output multiply a column (``output_dtype
+    = float32``); ``pack``: those arrays quantised; ``packdelta``: the raw
+    arrays packed with Morton-delta positions and u8-log fields, the unit
+    factors folded into the unpack."""
+    from astro_sph_tools_tpu_torch import constants as C
+    from astro_sph_tools_tpu_torch.io.packing import pack_particles_host
+
+    raw = e2e_raw_chunk(files, ci, n_chunks)
+    s_len = 1.0 / E2E_HUBBLE
+    s_mass = E2E_MASS_CGS / (E2E_HUBBLE * C.SOLAR_MASS_CGS)
+    if wire == "packdelta":
+        # raw internal masses (~7e-5) sit in f16's subnormals: prescale by 2^14
+        return pack_particles_host(
+            np.ascontiguousarray(raw["Coordinates"][:, 0]), np.ascontiguousarray(raw["Coordinates"][:, 1]),
+            raw["SmoothingLength"], [raw["Mass"], raw["Temperature"]],
+            box=E2E_BOX * E2E_HUBBLE, pos_scale=s_len, h_scale=s_len,
+            field_scales=(2.0**-14, TEMP_SCALE), field_unpack_scales=(s_mass * 2.0**-14, TEMP_SCALE),
+            pos_encoding="auto", field_dtype="u8",
+        )
+    pos = np.multiply(raw["Coordinates"], s_len, dtype=np.float32)
+    hs = np.multiply(raw["SmoothingLength"], s_len, dtype=np.float32)
+    mass = np.multiply(raw["Mass"], s_mass, dtype=np.float32)
+    temp = np.multiply(raw["Temperature"], 1.0, dtype=np.float32)
+    x, y = np.ascontiguousarray(pos[:, 0]), np.ascontiguousarray(pos[:, 1])
+    if wire == "pack":
+        return pack_particles_host(x, y, hs, [mass, temp], box=E2E_BOX, field_scales=(MASS_SCALE, TEMP_SCALE))
+    return (x, y, hs, mass, temp)
+
+
+def e2e_decode(item, device) -> tuple:
+    """(x, y, h, m, T) on ``device`` from a delivered chunk (the packed
+    wires unpack there)."""
+    from astro_sph_tools_tpu_torch.io.packing import unpack_particles_device
+
+    if isinstance(item, tuple):
+        return item
+    x, y, h, f = unpack_particles_device(item, device=device)
+    return x, y, h, f[0], f[1]
+
+
+def peak_mem_gb(torch, device):
+    if torch.device(device).type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated(device) / 2**30
+
+
+def reset_peak_mem(torch, device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def e2e_pass(torch, device, files, wire: str, engine: str, spec, keep: bool = False):
+    """One streamed pass (``e2e_1e8.py::run_pass``): ``stream_macro_chunks``
+    reads chunk k+1 and copies it to the card while chunk k deposits; the
+    maps sum over the chunks. Returns the summed maps, the timings (the
+    pass's wall; the exposed wait, from asking for a chunk until it is
+    decoded on the card, which unlike the benchmark's also counts the time
+    blocked on the stream; the layout; the deposit; the wire's bytes a
+    particle, as the host packed them) and, with ``keep``, each chunk's
+    host arrays, delivered item and decoded particles."""
+    from astro_sph_tools_tpu_torch.io.prefetch import stream_macro_chunks
+    from astro_sph_tools_tpu_torch.ops import deposit_2d_coherent, deposit_tiled, tile_particles
+
+    wire_bytes, hosts = [], []
+
+    def read_chunk(ci):
+        host = e2e_read_chunk(files, wire, ci)
+        wire_bytes.append(20 * host[0].shape[0] if isinstance(host, tuple) else host.nbytes)
+        if keep:
+            hosts.append(host)
+        return host
+
+    sync(torch, device)
+    t_pass = time.perf_counter()
+    wait_s = layout_s = deposit_s = 0.0
+    total, kept, n = None, [], 0
+    stream = stream_macro_chunks(read_chunk, E2E_CHUNKS, prefetch_depth=1, device=device)
+    t0 = time.perf_counter()
+    for item in stream:
+        x, y, h, m, t = e2e_decode(item, device)
+        values = torch.stack([m, m * t])  # the payload algebra on the card
+        sync(torch, device)
+        wait_s += time.perf_counter() - t0
+        n += x.shape[0]
+        t0 = time.perf_counter()
+        if engine == "coherent":
+            maps = deposit_2d_coherent(x, y, h, values, spec, device=device)
+        else:
+            tp = tile_particles(x, y, h, values, spec, need_perm=False, device=device)
+            sync(torch, device)
+            layout_s += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            maps = deposit_tiled(tp)
+        total = maps if total is None else total + maps
+        sync(torch, device)
+        deposit_s += time.perf_counter() - t0
+        if keep:
+            kept.append((hosts[len(kept)], item, (x, y, h, m, t)))
+        t0 = time.perf_counter()
+    times = {"wall_s": time.perf_counter() - t_pass, "wait_s": wait_s, "layout_s": layout_s,
+             "deposit_s": deposit_s, "bytes_per_particle": sum(wire_bytes) / n}
+    return total, times, kept
+
+
+def h2d_rates(torch, device, host_arrays) -> dict:
+    """GB/s of copying ``host_arrays`` to the card from pinned buffers
+    (``non_blocking``, CUDA events) and from pageable NumPy memory (host
+    clock around a synchronised copy); medians of 3."""
+    srcs = [torch.from_numpy(np.ascontiguousarray(a)) for a in host_arrays]
+    total = sum(s.numel() * s.element_size() for s in srcs)
+    pinned = [s.pin_memory() for s in srcs]
+    outs = [torch.empty(s.shape, dtype=s.dtype, device=device) for s in srcs]
+
+    def copy_pinned():
+        for o, p in zip(outs, pinned):
+            o.copy_(p, non_blocking=True)
+
+    def copy_pageable():
+        for o, s in zip(outs, srcs):
+            o.copy_(s)
+
+    copy_pinned()
+    copy_pageable()
+    return {"bytes": total, "pinned_gb_s": total / cuda_ms(copy_pinned, 3) / 1e6,
+            "pageable_gb_s": total / wall_s(copy_pageable, 3) / 1e9}
+
+
+def e2e_decode_checks(torch, files, kept) -> dict:
+    """Each chunk's decode on the card against the port's CPU decode of the
+    same packed arrays, bit for bit; the card's Morton decode against the
+    encoder's inputs."""
+    from astro_sph_tools_tpu_torch.io.packing import morton_delta_decode_device
+
+    out = {"chunks": len(kept), "bitwise_equal": True, "morton_chunks": 0, "morton_exact": True}
+    for ci, (host, item, got) in enumerate(kept):
+        ref = e2e_decode(host, "cpu")
+        for a, b in zip(got, ref):
+            out["bitwise_equal"] &= bool(torch.equal(a.cpu().view(torch.int32), b.view(torch.int32)))
+        if item.pos_delta is not None:
+            raw = e2e_raw_chunk(files, ci)
+            inv = np.float64(65536.0) / host.box
+            for axis, q in zip((0, 1), morton_delta_decode_device(*item.pos_delta)):
+                enc = np.clip(raw["Coordinates"][:, axis] * inv, 0, 65535.0).astype(np.uint16)
+                out["morton_exact"] &= bool(np.array_equal(q.cpu().numpy(), enc.astype(np.int32)))
+            out["morton_chunks"] += 1
+    return out
+
+
+def phase_e2e(torch, device, n_log2: int = E2E_LOG2N, res: int = 1024):
+    from astro_sph_tools_tpu_torch.ops import MapSpec, deposit_2d_auto, deposit_2d_coherent, deposit_tiled, tile_particles
+    from astro_sph_tools_tpu_torch.ops.coherent_prep import prep_rows
+    from astro_sph_tools_tpu_torch.ops.deposit_tiled import deposit_tiles
+    from astro_sph_tools_tpu_torch.utils import device_trace
+
+    TC = _coherent_module()
+    t0 = t_phase = time.perf_counter()
+    files = e2e_files(torch, device, n_log2, res=res)
+    gen_s = time.perf_counter() - t0
+    n = sum(f["Mass"].shape[0] for f in files)
+    spec = MapSpec(shape=(res, res), extent=(0.0, E2E_BOX, 0.0, E2E_BOX), periodic_wrap=True)
+    wires = sorted({w for w, _ in E2E_COMBOS})
+
+    # pass 1 (cold) of every wire and engine; the first engine of a wire
+    # keeps its decoded chunks for the checks
+    rows, maps, decoded, checks = {}, {}, {}, {}
+    for wire, engine in E2E_COMBOS:
+        keep = wire not in decoded
+        total, times, kept = e2e_pass(torch, device, files, wire, engine, spec, keep=keep)
+        rows[(wire, engine)] = {"wire": wire, "engine": engine, "cold": times}
+        maps[(wire, engine)] = total
+        if keep:
+            decoded[wire] = [k[2] for k in kept]
+            if wire != "f32":
+                checks[wire] = e2e_decode_checks(torch, files, kept)
+            del kept
+
+    # the streamed maps against one render of all of a wire's decoded
+    # particles (the deposit is linear), coherent against sorted, the
+    # integrated map's mass, and the path's kernels against their plain
+    # versions on the wire's first decoded chunk
+    kernel_checks = {}
+    for wire in wires:
+        engines = [e for w, e in E2E_COMBOS if w == wire]
+        x, y, h, m, t = decoded[wire][0]
+        kernel_checks[wire] = path_kernels_vs_plain(torch, device, x, y, h, torch.stack([m, m * t]), spec, engines,
+                                                    case=f"e2e_{wire}")
+        x, y, h, m, t = (torch.cat([c[i] for c in decoded[wire]]) for i in range(5))
+        values = torch.stack([m, m * t])
+        one = {"sorted": deposit_tiled(tile_particles(x, y, h, values, spec, need_perm=False, device=device)),
+               "coherent": deposit_2d_coherent(x, y, h, values, spec, device=device)}
+        for engine in ("sorted", "coherent"):
+            if (wire, engine) in maps:
+                row = rows[(wire, engine)]
+                row["streamed_vs_one_shot_rel_err"] = rel_err(maps[(wire, engine)], one[engine])[1]
+                row["finite"] = bool(torch.isfinite(maps[(wire, engine)]).all())
+        if (wire, "coherent") in maps:
+            rows[(wire, "coherent")]["coherent_vs_sorted_rel_err"] = rel_err(
+                maps[(wire, "coherent")], maps[(wire, "sorted")])[1]
+        integ = deposit_2d_auto(x, y, h, m, spec, projection="integrated", device=device)
+        mass = float(m.double().sum())
+        px = E2E_BOX / res
+        checks.setdefault(wire, {})["integrated_mass_rel_err"] = abs(float(integ.double().sum()) * px * px - mass) / mass
+        del x, y, h, m, t, values, one, integ
+    del decoded
+    # the quantisation error of the packed wires, against the f32 wire's map
+    ref = maps[("f32", "sorted")]
+    quant = {}
+    for wire in ("pack", "packdelta"):
+        d = (maps[(wire, "sorted")] - ref).double()
+        scale = ref.double().abs().amax(dim=(1, 2))
+        quant[wire] = {"max_rel": (d.abs().amax(dim=(1, 2)) / scale).tolist(),
+                       "rms_rel": (d.pow(2).mean(dim=(1, 2)).sqrt() / scale).tolist()}
+
+    # pass 2 (steady, untraced) of every wire and engine: the main path,
+    # with every launch count reset just before it
+    deposit_tiles.launches = prep_rows.launches = TC.deposit_coherent_tiles.launches = 0
+    for wire, engine in E2E_COMBOS:
+        reset_peak_mem(torch, device)
+        _, times, _ = e2e_pass(torch, device, files, wire, engine, spec)
+        rows[(wire, engine)].update({"steady": times, "peak_mem_gb": peak_mem_gb(torch, device)})
+    launches = {"deposit2d": deposit_tiles.launches, "coherent_prep": prep_rows.launches,
+                "coherent_deposit": TC.deposit_coherent_tiles.launches}
+    # pass 3, traced: the device's busy and idle share and its top operations
+    for wire, engine in E2E_COMBOS:
+        with device_trace(top=6, device=device) as tr:
+            e2e_pass(torch, device, files, wire, engine, spec)
+        rows[(wire, engine)].update({"device_busy_ms": tr.busy_ms, "traced_wall_ms": tr.wall_ms,
+                                     "device_idle_share": tr.idle_share, "device_top_ms": tr.top_ms})
+    h2d = h2d_rates(torch, device, e2e_read_chunk(files, "f32", 0)) if torch.device(device).type == "cuda" else None
+    out = {"phase": "e2e_stream", "n": n, "chunks": E2E_CHUNKS, "files": len(files), "map": [res, res],
+           "fields": 2, "generate_s": gen_s, "launches": launches, "h2d_f32_chunk": h2d,
+           "checks": checks, "quantisation_vs_f32": quant, "rows": list(rows.values()),
+           "kernels_vs_plain": kernel_checks, "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    for w in ("pack", "packdelta"):
+        check(checks[w]["bitwise_equal"], f"phase 20 {w}: the card's decode differs from the CPU's")
+    check(checks["packdelta"]["morton_chunks"] == E2E_CHUNKS and checks["packdelta"]["morton_exact"],
+          f"phase 20: the Morton-delta wire was not taken or did not decode exactly: {checks['packdelta']}")
+    for row in rows.values():
+        check(row["finite"], f"phase 20: non-finite streamed map {row['wire']}/{row['engine']}")
+        check(row["streamed_vs_one_shot_rel_err"] <= REL_TOL, f"phase 20: streamed map off its one-shot render: {row}")
+        check(row.get("coherent_vs_sorted_rel_err", 0.0) <= REL_TOL, f"phase 20: coherent map off sorted: {row}")
+    for wire in wires:
+        check(checks[wire]["integrated_mass_rel_err"] < MASS_TOL, f"phase 20 {wire}: integrated mass {checks[wire]}")
+    check(all(v > 0 for v in launches.values()), f"phase 20: a kernel of the path was not launched: {launches}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 21: ion-weighted fused render (the JAX package's benchmarks/ion_e2e.py)
+# ---------------------------------------------------------------------------
+
+ION_LOG2N = 26  # the size of ION_E2E_64M.json
+ION_BOX = 25.0
+ION_REDSHIFT = 0.5
+ION_CHECK_N = 1 << 20
+
+
+def ion_particles(torch, device, n: int, res: int = 1024, seed: int = 7) -> tuple:
+    """``ion_e2e.py:74-98`` on ``device``: particles in 2^14 Morton-ordered
+    cells (128^2), sorted cell ids, uniform within their cell; lognormal h
+    around 1.2 px clipped to 0.1-14 px, lognormal masses around 1e6 Msun,
+    log n_H ~ N(-4, 1.2), log T ~ N(4.8, 0.6)."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    cell = torch.sort(torch.randint(0, 1 << 14, (n,), generator=g, device=device)).values
+
+    def unspread(v):
+        v = v & 0x55555555
+        v = (v | (v >> 1)) & 0x33333333
+        v = (v | (v >> 2)) & 0x0F0F0F0F
+        v = (v | (v >> 4)) & 0x00FF00FF
+        v = (v | (v >> 8)) & 0x0000FFFF
+        return v
+
+    cw = ION_BOX / 128
+    x = (unspread(cell).float() + torch.rand(n, generator=g, device=device)) * cw
+    y = (unspread(cell >> 1).float() + torch.rand(n, generator=g, device=device)) * cw
+    px = ION_BOX / res
+    h = torch.exp(0.5 * torch.randn(n, generator=g, device=device) + math.log(1.2 * px)).clamp(0.1 * px, 14.0 * px)
+    mass = torch.exp(0.3 * torch.randn(n, generator=g, device=device)) * 1.0e6
+    log_nh = 1.2 * torch.randn(n, generator=g, device=device) - 4.0
+    log_t = 0.6 * torch.randn(n, generator=g, device=device) + 4.8
+    return x, y, h, mass, log_nh, log_t
+
+
+def ion_table(torch, device):
+    """The synthetic O VI table (16 x 20 x 8), built in memory, and its plane
+    at ``ION_REDSHIFT`` in f32 (``table_at_redshift``)."""
+    from astro_sph_tools_tpu_torch.data_structures import IonisationTableBase
+    from astro_sph_tools_tpu_torch.io.ionisation import synthetic_hm01_arrays
+
+    arrays = synthetic_hm01_arrays()
+    table = IonisationTableBase(arrays["ionbal"], arrays["logd"], arrays["logt"], arrays["redshift"],
+                                redshift_input_index=2, device=device)
+    axes2, grid2 = table.table_at_redshift(ION_REDSHIFT)
+    return arrays, tuple(a.float() for a in axes2), grid2.float()
+
+
+def ion_payload(torch, axes2, grid2, log_nh, log_t, mass, temp_lin):
+    """``ion_e2e.py::ion_payload``: the table's log f per particle, f =
+    10^log f (0 outside the table), and the fields [m f, m f T 2^-16]."""
+    from astro_sph_tools_tpu_torch.ops import regular_grid_interpolate
+
+    logf = regular_grid_interpolate(axes2, grid2, torch.stack([log_nh, log_t], dim=1), fill_value=-math.inf)
+    ion_mass = mass * torch.exp2(logf * math.log2(10.0))
+    return torch.stack([ion_mass, ion_mass * temp_lin])
+
+
+def phase_ion(torch, device, n_log2: int = ION_LOG2N, res: int = 1024, repeats: int = 3):
+    from scipy.interpolate import RegularGridInterpolator
+
+    from astro_sph_tools_tpu_torch.ops import (
+        MapSpec, caps_from_layout, deposit_2d_auto, deposit_2d_coherent_fused, deposit_coherent,
+        regular_grid_interpolate, tile_particles_coherent,
+    )
+    from astro_sph_tools_tpu_torch.ops.coherent_prep import prep_rows
+    from astro_sph_tools_tpu_torch.ops.deposit_tiled import deposit_tiles
+    from astro_sph_tools_tpu_torch.utils import device_trace
+
+    TC = _coherent_module()
+    t_phase = time.perf_counter()
+    n = 1 << n_log2
+    x, y, h, mass, log_nh, log_t = ion_particles(torch, device, n, res=res)
+    arrays, axes2, grid2 = ion_table(torch, device)
+    temp_lin = torch.exp2(log_t * math.log2(10.0)) * 2.0**-16  # K, scaled into f32's comfort
+    spec = MapSpec(shape=(res, res), extent=(0.0, ION_BOX, 0.0, ION_BOX), periodic_wrap=True)
+
+    # the card's lookup against scipy over the full 3-D table, f64
+    sub = min(ION_CHECK_N, n)
+    pts = torch.stack([log_nh[:sub], log_t[:sub]], dim=1)
+    logf = regular_grid_interpolate(axes2, grid2, pts, fill_value=-math.inf).double().cpu().numpy()
+    p64 = pts.double().cpu().numpy()
+    ref = RegularGridInterpolator((arrays["logd"], arrays["logt"], arrays["redshift"]), arrays["ionbal"],
+                                  bounds_error=False, fill_value=-np.inf)(
+        np.column_stack([p64, np.full(sub, ION_REDSHIFT)]))
+    outside = ~np.isfinite(ref)
+    frac0 = ion_payload(torch, axes2, grid2, log_nh[:sub], log_t[:sub], mass[:sub], temp_lin[:sub])[0]
+    interp = {
+        "n": sub, "outside": int(outside.sum()),
+        "max_abs_err_log_f": float(np.abs(logf[~outside] - ref[~outside]).max()),
+        "outside_minus_inf": bool((logf[outside] == -np.inf).all() and np.isfinite(logf[~outside]).all()),
+        "outside_zero_f": bool((frac0.cpu().numpy()[outside] == 0).all()),
+    }
+
+    sync(torch, device)
+    reset_peak_mem(torch, device)
+    t0 = time.perf_counter()
+    fields = ion_payload(torch, axes2, grid2, log_nh, log_t, mass, temp_lin)
+    lay = tile_particles_coherent(x, y, h, fields, spec, device=device)
+    synced = deposit_coherent(lay, precision="bf16x2")
+    caps = caps_from_layout(lay)
+    sync(torch, device)
+    calibrate_s = time.perf_counter() - t0
+
+    def fused_pass():
+        f = ion_payload(torch, axes2, grid2, log_nh, log_t, mass, temp_lin)
+        return deposit_2d_coherent_fused(x, y, h, f, spec, caps, precision="bf16x2", device=device)
+
+    # the main path, once, with every launch count reset just before it
+    deposit_tiles.launches = prep_rows.launches = TC.deposit_coherent_tiles.launches = 0
+    fused, ok = fused_pass()
+    sync(torch, device)
+    launches = {"deposit2d": deposit_tiles.launches, "coherent_prep": prep_rows.launches,
+                "coherent_deposit": TC.deposit_coherent_tiles.launches}
+    oks = [bool(ok)]
+    walls, payload_s = [], []
+    for _ in range(repeats):
+        sync(torch, device)
+        t0 = time.perf_counter()
+        maps, ok = fused_pass()
+        float(maps[0].sum())
+        oks.append(bool(ok))  # the mandatory ok check, every pass
+        walls.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        f = ion_payload(torch, axes2, grid2, log_nh, log_t, mass, temp_lin)
+        float(f[0, 0])
+        payload_s.append(time.perf_counter() - t0)
+    with device_trace(top=8, device=device) as tr:
+        maps, ok = fused_pass()
+        oks.append(bool(ok))
+    sorted_map = deposit_2d_auto(x, y, h, fields, spec, device=device)
+    rel_fs = rel_err(fused, synced)[1]
+    rel_fo = rel_err(fused, sorted_map)[1]
+    rel_so = rel_err(synced, sorted_map)[1]
+    del sorted_map
+    # the path's kernels against their plain versions on its payload
+    kernel_checks = path_kernels_vs_plain(torch, device, x, y, h, fields, spec, ("sorted", "coherent"), case="ion")
+    out = {
+        "phase": "ion_render", "n": n, "map": [res, res], "fields": 2, "redshift": ION_REDSHIFT,
+        "table_shape": list(arrays["ionbal"].shape), "interp": interp, "launches": launches,
+        "ok_every_pass": oks, "fused_vs_synced_rel_err": rel_fs, "fused_vs_sorted_rel_err": rel_fo,
+        "synced_vs_sorted_rel_err": rel_so, "calibrate_s": calibrate_s,
+        "wall_s": float(np.median(walls)), "wall_s_runs": walls, "payload_s": float(np.median(payload_s)),
+        "deposits_per_s": n / float(np.median(walls)),
+        "device_busy_ms": tr.busy_ms, "traced_wall_ms": tr.wall_ms, "device_idle_share": tr.idle_share,
+        "device_top_ms": tr.top_ms, "peak_mem_gb": peak_mem_gb(torch, device),
+        "kernels_vs_plain": kernel_checks, "phase_s": time.perf_counter() - t_phase,
+    }
+    emit(out)
+    check(interp["max_abs_err_log_f"] <= REL_TOL, f"phase 21: the card's lookup off scipy: {interp}")
+    check(interp["outside"] > 0 and interp["outside_minus_inf"] and interp["outside_zero_f"],
+          f"phase 21: the table's outside is not -inf / f = 0: {interp}")
+    check(all(oks), f"phase 21: the fused render reported overflow: {oks}")
+    check(max(rel_fs, rel_fo, rel_so) <= REL_TOL, f"phase 21: maps disagree: {rel_fs}, {rel_fo}, {rel_so}")
+    check(bool(torch.isfinite(fused).all()) and float(fused[0].sum()) > 0, "phase 21: bad fused map")
+    check(launches["coherent_prep"] > 0 and launches["coherent_deposit"] > 0,
+          f"phase 21: a kernel of the path was not launched: {launches}")
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,19,10,11,12,13,14,16,17",
+    parser.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,19,10,11,12,13,14,16,17,20,21",
                         help="comma-separated phases to run (15 and 18 only when named)")
     parser.add_argument("--log2n", type=int, default=MAIN_LOG2N, help="log2 of the main path's particle count")
     parser.add_argument("--sight-n", type=int, default=SIGHT_N, help="gas particles of phases 10-12")
     parser.add_argument("--vox-log2n", type=int, default=VOX_LOG2N, help="log2 of phase 14's particle count")
     parser.add_argument("--rand-log2n", type=int, default=RAND_LOG2N,
                         help="log2 of phases 16-17's shuffled particle count")
+    parser.add_argument("--e2e-log2n", type=int, default=E2E_LOG2N, help="log2 of phase 20's particle count")
+    parser.add_argument("--ion-log2n", type=int, default=ION_LOG2N, help="log2 of phase 21's particle count")
+    parser.add_argument("--cpu-probe", choices=("torch", "port"),
+                        help="run one CPU first-call probe in this process and print its error (phase 0)")
     args = parser.parse_args()
+    if args.cpu_probe:
+        print(json.dumps(cpu_probe(args.cpu_probe)), flush=True)
+        return
     phases = {int(p) for p in args.phases.split(",")}
 
     if not os.path.isdir(os.path.join(ROOT, "astro_sph_tools_tpu_torch")):
@@ -2615,6 +3330,10 @@ def main() -> None:
     app_cases = phase_append_kernel(torch, device, rp) if 16 in phases else []
     rand_out = phase_random(torch, device, rp, rand_gen_s) if 17 in phases else None
     del rp
+    torch.cuda.empty_cache()
+    e2e_out = phase_e2e(torch, device, args.e2e_log2n) if 20 in phases else None
+    torch.cuda.empty_cache()
+    ion_out = phase_ion(torch, device, args.ion_log2n) if 21 in phases else None
 
     def pick(rows, **match):
         return next((c for c in rows if all(c.get(k) == v for k, v in match.items())), None)
@@ -2659,6 +3378,9 @@ def main() -> None:
             "main_path_k8_bound_ms": main_k8["bound_ms"] if main_k8 else None,
             # the halo path's launches: 16 cutouts of phase 3's particles (phase 19)
             "halo_path_launches": halo_out["launches"] if halo_out else None,
+            # the streamed and the ion-weighted paths' launches (phases 20, 21)
+            "e2e_path_launches": e2e_out["launches"]["deposit2d"] if e2e_out else None,
+            "ion_path_launches": ion_out["launches"]["deposit2d"] if ion_out else None,
         },
         {
             "name": "coherent_prep",
@@ -2670,6 +3392,8 @@ def main() -> None:
             "ms": prep_case["ms"] if prep_case else None,
             "plain_ms": prep_case["plain_ms"] if prep_case else None,
             **bound_keys(prep_case),
+            "e2e_path_launches": e2e_out["launches"]["coherent_prep"] if e2e_out else None,
+            "ion_path_launches": ion_out["launches"]["coherent_prep"] if ion_out else None,
         },
         {
             "name": "coherent_deposit",
@@ -2684,6 +3408,8 @@ def main() -> None:
             # the main path's layout (phase 7's case, its K = 8 level-0 tiles)
             "main_path_k8_ms": coh_case["ms"] if coh_case else None,
             "main_path_k8_bound_ms": coh_case["bound_ms"] if coh_case else None,
+            "e2e_path_launches": e2e_out["launches"]["coherent_deposit"] if e2e_out else None,
+            "ion_path_launches": ion_out["launches"]["coherent_deposit"] if ion_out else None,
         },
         {
             "name": "sightline_columns",

@@ -236,3 +236,67 @@ def test_memory_catalogue_serves_what_render_halo_maps_reads(monkeypatch):
     for stack in stacks:
         assert stack["surface_density"][15:17, 15:17].mean() > 0
         assert cs.stack_errors(stack, stack) == {name: 0.0 for name in stack.keys()}
+
+
+def test_e2e_files_and_chunks_follow_the_benchmark():
+    """Phase 20's in-memory snapshot (``e2e_files``): ``write_big_snapshot``'s
+    distribution in raw internal units, each file Morton-sorted at the
+    wire's 65536 cells; ``e2e_read_chunk`` takes files ci, ci + 4 as the
+    reader's process split does, and its three wires decode to the same
+    particles in user units (positions to a cell, fields to the wire's
+    quantisation)."""
+    from astro_sph_tools_tpu.io.packing import _interleave16
+    from astro_sph_tools_tpu_torch import constants as C
+    from astro_sph_tools_tpu_torch.io.packing import unpack_particles_device
+
+    files = cs.e2e_files(torch, "cpu", 14, res=64)
+    assert len(files) == cs.E2E_FILES and sum(f["Mass"].shape[0] for f in files) == 1 << 14
+    px = cs.E2E_BOX / 64
+    for f in files:
+        pos = f["Coordinates"] / cs.E2E_HUBBLE
+        q = np.clip(pos[:, :2] / cs.E2E_BOX * 65536, 0, 65535).astype(np.uint16)
+        assert (np.diff(_interleave16(q[:, 0], q[:, 1]).astype(np.int64)) >= 0).all()
+        assert (pos >= 0).all() and (pos <= cs.E2E_BOX).all()
+        h = f["SmoothingLength"] / cs.E2E_HUBBLE
+        assert h.min() >= 0.25 * px * (1 - 1e-6) and h.max() <= 24 * px * (1 + 1e-6)
+        assert abs(np.median(h) / (0.9 * px) - 1) < 0.1
+        m = f["Mass"].astype(np.float64) * (cs.E2E_MASS_CGS / (cs.E2E_HUBBLE * C.SOLAR_MASS_CGS))
+        assert 0.8e6 * (1 - 1e-6) <= m.min() and m.max() <= 1.2e6 * (1 + 1e-6)
+    raw = cs.e2e_raw_chunk(files, 1)
+    assert raw["Mass"].shape[0] == files[1]["Mass"].shape[0] + files[5]["Mass"].shape[0]
+    x, y, h, m, t = cs.e2e_read_chunk(files, "f32", 1)
+    assert x.dtype == np.float32 and np.array_equal(x, (raw["Coordinates"][:, 0] * (1 / cs.E2E_HUBBLE)).astype(np.float32))
+    for wire in ("pack", "packdelta"):
+        px_, py_, ph, f = (a.numpy() for a in unpack_particles_device(cs.e2e_read_chunk(files, wire, 1), device="cpu"))
+        assert np.abs(px_ - x).max() <= cs.E2E_BOX / 65536 and np.abs(py_ - y).max() <= cs.E2E_BOX / 65536
+        assert np.abs(ph / h - 1).max() < 1e-3
+        assert np.abs(f[0] / m - 1).max() < 0.01 and np.abs(f[1] / t - 1).max() < 0.03
+
+
+def test_ion_inputs_follow_the_benchmark():
+    """Phase 21's generator (``ion_particles``: Morton-ordered cells, the
+    clipped lognormal h, log n_H and log T), its table plane at z = 0.5 and
+    its payload, against the JAX package's lookup of the same plane."""
+    from astro_sph_tools_tpu.data_structures.ionisation import IonisationTableBase as JBase
+    from astro_sph_tools_tpu.ops.interp import regular_grid_interpolate as j_interp
+
+    n = 1 << 15
+    x, y, h, mass, log_nh, log_t = cs.ion_particles(torch, "cpu", n, res=64)
+    px = cs.ION_BOX / 64
+    assert float(h.min()) >= 0.1 * px * (1 - 1e-6) and float(h.max()) <= 14 * px * (1 + 1e-6)
+    assert abs(float(log_nh.mean()) + 4.0) < 0.05 and abs(float(log_t.std()) - 0.6) < 0.02
+    assert float(x.min()) >= 0 and float(x.max()) <= cs.ION_BOX
+    arrays, axes2, grid2 = cs.ion_table(torch, "cpu")
+    jt = JBase(arrays["ionbal"], arrays["logd"], arrays["logt"], arrays["redshift"], redshift_input_index=2)
+    jaxes, jgrid = jt.table_at_redshift(cs.ION_REDSHIFT)
+    np.testing.assert_allclose(grid2.numpy(), np.asarray(jgrid), rtol=1e-6, atol=1e-6)
+    temp_lin = torch.exp2(log_t * np.log2(10.0)) * 2.0**-16
+    fields = cs.ion_payload(torch, axes2, grid2, log_nh, log_t, mass, temp_lin).numpy()
+    pts = np.stack([log_nh.numpy(), log_t.numpy()], axis=1)
+    jlogf = np.asarray(j_interp([np.asarray(a, np.float32) for a in jaxes], np.asarray(jgrid, np.float32), pts,
+                                method="gather"), np.float64)
+    jion = mass.numpy() * 10.0 ** jlogf
+    assert (fields[0][~np.isfinite(jlogf)] == 0).all() and (~np.isfinite(jlogf)).any()
+    ok = np.isfinite(jlogf)
+    assert np.abs(fields[0][ok] / jion[ok] - 1).max() < 1e-4
+    np.testing.assert_allclose(fields[1], fields[0] * temp_lin.numpy(), rtol=1e-6)

@@ -135,6 +135,12 @@ def test_port_imports_neither_jax_nor_h5py():
         "from astro_sph_tools_tpu_torch import render_halo_maps\n"
         "from astro_sph_tools_tpu_torch.io import SnapshotEAGLE, SnapshotSWIFT, SnapshotTNG, CatalogueSUBFIND\n"
         "from astro_sph_tools_tpu_torch.tools import shift_centre, ArrayReorder, calculate_wrapped_distance\n"
+        "import astro_sph_tools_tpu_torch.io.packing, astro_sph_tools_tpu_torch.io.prefetch\n"
+        "import astro_sph_tools_tpu_torch.io.ionisation, astro_sph_tools_tpu_torch.native\n"
+        "import astro_sph_tools_tpu_torch.ops.interp, astro_sph_tools_tpu_torch.data_structures.ionisation\n"
+        "import astro_sph_tools_tpu_torch.utils.determinism, astro_sph_tools_tpu_torch.utils.profiling\n"
+        "from astro_sph_tools_tpu_torch.io import IonisationTable_HM01, stream_macro_chunks, unpack_particles_device\n"
+        "from astro_sph_tools_tpu_torch.utils import device_trace, assert_deterministic\n"
         "print(sorted(m for m in ('jax', 'h5py', 'astro_sph_tools_tpu') if m in sys.modules))\n"
     )
     out = subprocess.run(
