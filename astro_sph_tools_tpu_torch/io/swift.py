@@ -60,6 +60,47 @@ _CGS_KEY_COSMO = "Conversion factor to CGS (including cosmological corrections)"
 
 DM_NEIGHBOUR_COUNT = 32
 DM_CHUNK = 10_000
+# the DM k-NN's crossover: from this many particles "auto" takes the device
+# grid (ops.neighbors.knn_distances_grid), below it the host KDTree. On an
+# NVIDIA H100 80GB HBM3 (700 W) with an 8-core host, chip_smoke.py phase 22
+# found the grid faster at every size it measures, 3e3 to 3e6 clustered
+# points (1.1 vs 20 ms at 3e3, 30 vs 69 ms at 3e4, 0.64 vs 13.3 s at 3e6
+# with the KDTree built once), so the threshold is the smallest size
+# measured. (The JAX package's 3e5 was the TPU's, KNN_CROSSOVER.json.)
+DM_HSML_DEVICE_THRESHOLD = 3_000
+
+
+def dm_smoothing_lengths(pos, box: float, engine: str = "auto", device="cuda",
+                         stats: Optional[dict] = None) -> np.ndarray:
+    """32nd-nearest-neighbour distance (periodic) of every DM particle, f64
+    in the positions' units: ``engine="grid"`` runs the k-NN cascade on
+    ``device``, ``"kdtree"`` scipy's KDTree on the host (in 1e4-particle
+    chunks over all cores), ``"auto"`` the grid from
+    ``DM_HSML_DEVICE_THRESHOLD`` particles. ``pos`` is (N, 3), NumPy or a
+    tensor. ``stats``, when given, receives the engine taken and the grid's
+    stages (``knn_distances_grid``)."""
+    n = pos.shape[0]
+    if engine == "auto":
+        engine = "grid" if n >= DM_HSML_DEVICE_THRESHOLD else "kdtree"
+    if stats is not None:
+        stats["engine"] = engine
+    if engine == "grid":
+        from ..ops.neighbors import _knn_grid
+
+        d = _knn_grid(pos, pos, DM_NEIGHBOUR_COUNT, periodic_box=box, device=device, stats=stats)
+        return d[:, -1].double().cpu().numpy()
+    if engine != "kdtree":
+        raise ValueError(f"Unknown DM smoothing-length engine {engine!r} (auto | grid | kdtree)")
+    from scipy.spatial import KDTree
+
+    pos = np.mod(pos.cpu().numpy() if hasattr(pos, "cpu") else np.asarray(pos), box)
+    tree = KDTree(pos, boxsize=box)
+    out = np.empty(n, dtype=np.float64)
+    for start in range(0, n, DM_CHUNK):
+        stop = min(start + DM_CHUNK, n)  # reference used max() here
+        d, _ = tree.query(pos[start:stop], k=DM_NEIGHBOUR_COUNT, workers=-1)
+        out[start:stop] = d[:, -1]
+    return out
 
 
 class SnapshotSWIFT(SnapshotBase):
@@ -367,47 +408,30 @@ class SnapshotSWIFT(SnapshotBase):
             particle_type, "SmoothingLengths", "cm", use_proper_units
         ).to("Mpc")
 
-    # "auto" or "kdtree": the host KDTree; "grid" asks for the device grid
-    # query, which is not ported yet and raises
+    # "auto" picks by DM_HSML_DEVICE_THRESHOLD; "grid" / "kdtree" force an
+    # engine; the grid runs on dm_hsml_device
     dm_hsml_engine: str = "auto"
+    dm_hsml_device = "cuda"
+    DM_HSML_DEVICE_THRESHOLD: int = DM_HSML_DEVICE_THRESHOLD
 
     def _dm_hsml_pick_engine(self, n: int) -> str:
-        """Engine for an n-particle DM k-NN pass. The JAX package sends
-        ``"auto"`` to its device grid from ~3e5 particles; the grid query is
-        not ported yet, so ``"auto"`` is the host KDTree at every size
-        (both give the exact 32nd-neighbour distance)."""
+        """Engine for an n-particle DM k-NN pass: the device grid from
+        ``DM_HSML_DEVICE_THRESHOLD`` particles, the host KDTree below,
+        unless ``dm_hsml_engine`` forces one."""
         engine = self.dm_hsml_engine
-        return "kdtree" if engine == "auto" else engine
+        if engine == "auto":
+            return "grid" if n >= self.DM_HSML_DEVICE_THRESHOLD else "kdtree"
+        return engine
 
     def _dm_smoothing_lengths(self, use_proper_units: bool) -> UnitArray:
         """k-NN derived DM smoothing lengths (`_SnapshotSWIFT.py:58-85`,
-        with the chunk-slice bug fixed), from scipy's KDTree. Forcing
-        ``dm_hsml_engine = "grid"`` raises until the device grid query
-        (``ops.neighbors.knn_distances_grid``) is ported."""
+        with the chunk-slice bug fixed): :func:`dm_smoothing_lengths` with
+        the engine ``_dm_hsml_pick_engine`` names."""
         if self._dm_hsml_cache is None:
             pos = self.get_positions(ParticleType.dark_matter).to_value("Mpc")
             box = float(self.box_size.value[0])
-            n = pos.shape[0]
-            engine = self._dm_hsml_pick_engine(n)
-            if engine == "grid":
-                raise NotImplementedError(
-                    "the device grid k-NN (ops.neighbors.knn_distances_grid) is not "
-                    "ported to astro_sph_tools_tpu_torch yet (ROADMAP queue 1, the "
-                    "neighbours item); use dm_hsml_engine = 'kdtree'"
-                )
-            else:
-                from scipy.spatial import KDTree
-
-                tree = KDTree(np.mod(pos, box), boxsize=box)
-                out = np.empty(n, dtype=np.float64)
-                for start in range(0, n, DM_CHUNK):
-                    stop = min(start + DM_CHUNK, n)  # reference used max() here
-                    d, _ = tree.query(
-                        np.mod(pos[start:stop], box),
-                        k=DM_NEIGHBOUR_COUNT, workers=-1,
-                    )
-                    out[start:stop] = d[:, -1]
-                self._dm_hsml_cache = out
+            engine = self._dm_hsml_pick_engine(pos.shape[0])
+            self._dm_hsml_cache = dm_smoothing_lengths(pos, box, engine, self.dm_hsml_device)
         result = unit_array(self._dm_hsml_cache.copy(), "Mpc")
         return result * self.a if use_proper_units else result
 

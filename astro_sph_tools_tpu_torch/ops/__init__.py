@@ -1,14 +1,15 @@
-"""Device-side operations: the 2D and 3D deposit engines, sightlines and spectra.
+"""Device-side operations: the deposit engines, sightlines and spectra, neighbours.
 
-Counterpart: ``astro_sph_tools_tpu/ops/__init__.py`` (the ported slices: the
-plain torch stencil engine, the sorted tile engine, the coherent-order
-engine, the sightline column and absorption-spectra engines, the 3D voxel
-engines, periodic-box geometry, ID-matched reordering and regular-grid
-interpolation; the neighbour searches are still to port). As in
+Counterpart: ``astro_sph_tools_tpu/ops/__init__.py`` (the plain torch
+stencil engine, the sorted tile engine, the coherent-order engine, the
+sightline column and absorption-spectra engines, the 3D voxel engines,
+periodic-box geometry, cell lists and neighbour queries, ID-matched
+reordering and regular-grid interpolation). As in
 the JAX package, the exported function ``deposit_coherent`` shadows the
 module of the same name: import the module with
 ``importlib.import_module("astro_sph_tools_tpu_torch.ops.deposit_coherent")``."""
 
+from .cells import CellList, build_cell_list, linear_cell_id, morton_encode_3d
 from .deposit import MapSpec, deposit_2d, deposit_2d_fixed_h, deposit_weighted_mean
 from .deposit_coherent import (
     CoherentCaps,
@@ -43,6 +44,13 @@ from .grid3d_tiled import (
     tile_particles_3d,
 )
 from .interp import cubic_spline_1d, regular_grid_interpolate
+from .neighbors import (
+    knn_distances,
+    knn_distances_grid,
+    nearest_points,
+    nearest_points_device,
+    nearest_points_grid,
+)
 from .periodic import (
     calculate_periodic,
     make_periodic,
@@ -66,7 +74,16 @@ from .spectra_fused import absorption_spectra_pallas
 __all__ = [
     "ArrayMapping",
     "ArrayReorder",
+    "CellList",
     "MatchPlan",
+    "build_cell_list",
+    "knn_distances",
+    "knn_distances_grid",
+    "linear_cell_id",
+    "morton_encode_3d",
+    "nearest_points",
+    "nearest_points_device",
+    "nearest_points_grid",
     "calculate_periodic",
     "make_periodic",
     "match_ids",

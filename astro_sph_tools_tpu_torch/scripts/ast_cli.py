@@ -16,7 +16,8 @@ def main(argv=None) -> int:
     print(f"astro-sph-tools-tpu v{__version__} (PyTorch + CUDA port)")
     print("SPH snapshot analysis and rendering framework.")
     print("Tools: python -m astro_sph_tools_tpu_torch.scripts.render_map, "
-          "python -m astro_sph_tools_tpu_torch.scripts.sightlines_cli")
+          "python -m astro_sph_tools_tpu_torch.scripts.sightlines_cli, "
+          "python -m astro_sph_tools_tpu_torch.scripts.find_nearest_haloes")
     import torch
 
     n = torch.cuda.device_count() if torch.cuda.is_available() else 0

@@ -3,7 +3,7 @@
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
-    python3 chip_smoke.py                # phases 0-14, 16, 17 and 19-21
+    python3 chip_smoke.py                # phases 0-14, 16, 17 and 19-22
     python3 chip_smoke.py --phases 0,1,2 # a subset, for debugging
 
 It drives the port's main paths — the adaptive-h sorted tile engine behind
@@ -11,8 +11,10 @@ It drives the port's main paths — the adaptive-h sorted tile engine behind
 the sightline columns and absorption spectra of BASELINE config 4, the 3D
 voxel deposit of BASELINE config 3, the random-order path (shear grouping,
 ``deposit_2d_bucketed``), the halo-centred map stacks of BASELINE config
-5 (``render_halo_maps``), the streamed snapshot-to-map ingest and the
-ion-weighted render — on particles generated in memory from a seed, and
+5 (``render_halo_maps``), the streamed snapshot-to-map ingest, the
+ion-weighted render and the neighbour queries (SWIFT DM smoothing lengths,
+the DM map, the nearest-halo search) — on particles generated in memory
+from a seed, and
 fails (non-zero exit) if any phase fails (phase 19 runs after phase 9, on
 phase 3's particles):
 
@@ -177,7 +179,30 @@ phase 3's particles):
     synced coherent render, then ``deposit_2d_coherent_fused`` with its
     ``ok`` flag read on every pass; fused, synced and sorted maps within
     1e-5 * max; kernel #2-#3 launches; the warm wall, the payload alone,
-    the calibration, the device's busy share and peak memory.
+    the calibration, the device's busy share and peak memory;
+22. the neighbour path at EAGLE Ref-L0025N0376's size (``--neigh-side``,
+    default 376): 376^3 DM and 376^3 gas positions in a periodic 25 cMpc box
+    from ``benchmarks/knn_crossover.py``'s generator (``neighbour_positions``;
+    the particle masses of the run); (a) ``dm_smoothing_lengths(engine=
+    "grid")`` (k = 32, host positions in) cold and warm, each stage's grid,
+    bucket cap, active, spilled and settled queries and time, stragglers,
+    peak memory, the engine taken (must be the grid), every row ascending,
+    1024 random rows against the dense ``knn_distances`` over all points
+    (rtol 1e-4, atol 1e-5); (b) the DM map of those lengths, 1024^2
+    periodic through ``deposit_2d_auto`` (kernel #1's launches, each level
+    against its plain version and the f64 sum of the plain version's terms
+    (``plain_f64_sum``: ~2e4 footprints a pixel, where the f32 order of the
+    plain sum alone nears 1e-5; the kernel is held to the f64 sum) and
+    beside its bound, oversize count, against
+    the stencil engine on 2^22 particles, integrated mass); (c)
+    ``nearest_halo_search`` of every gas particle against 30,000 haloes
+    (``neighbour_haloes``: dN/dlogM ~ M^-0.9 on [9, 14.5], R200 at 200
+    rho_crit) at [all, 11, 12, 13], each pass's engine and wall, 2^16
+    queries a pass against scipy's KDTree; (d) the crossovers behind the
+    two ``auto`` constants: the 32-NN grid against the host KDTree at
+    KNN_CROSSOVER.json's sizes and two below (at 3e6 also traced: the
+    device's busy share and its top kernels), and ``nearest_points`` dense
+    against grid at 1e3-1e5 haloes and 2^22 queries.
 
 Every phase prints one JSON line; the kernels' summary line and the card's
 ``nvidia-smi`` line come before the last line, which is
@@ -1237,10 +1262,14 @@ def phase_coherent_kernel(torch, device, particles, n_dense: int = 1 << 20):
     return out
 
 
-def _level_vs_plain(torch, geom, args, sl, spec, what: str, **tags):
+def _level_vs_plain(torch, geom, args, sl, spec, what: str, f64_run: int = 0, **tags):
     """Kernel #1 (sorted-engine deposit) vs its plain version on one
     level's launch ``args`` (u, v, h, values, pstart, pcount), whose
-    particles are ``sl`` of the arrays, as the engine launches it."""
+    particles are ``sl`` of the arrays, as the engine launches it. With
+    ``f64_run`` > 0 (inputs of thousands of footprints a pixel, where the
+    order of two f32 sums alone comes near 1e-5) kernel and plain are also
+    held to ``plain_f64_sum`` of the plain version's terms in runs of that
+    many, and the kernel is checked against that sum."""
     from astro_sph_tools_tpu_torch.ops.deposit_tiled import deposit_tiles, deposit_tiles_plain
 
     psy, psx = spec.pixel_size
@@ -1252,7 +1281,6 @@ def _level_vs_plain(torch, geom, args, sl, spec, what: str, **tags):
     ref = deposit_tiles_plain(*args, **kw)
     torch.cuda.synchronize()
     err, rel = rel_err(got, ref)
-    del ref
     case = {
         "phase": "kernel_vs_plain", **tags, "K": geom.cfg.K, "F": n_fields, "projection": "kernel3d",
         "n": int(h[sl].shape[0]), "n_tiles": geom.n_tiles, "max_pcount": int(pcount.max()),
@@ -1263,9 +1291,15 @@ def _level_vs_plain(torch, geom, args, sl, spec, what: str, **tags):
         **bound(nbytes(u[sl], v[sl], h[sl], values[:, sl], pstart, pcount, got),
                 support_points(h[sl], 2.0, psx, 2) * pair_ops(n_fields)),
     }
+    if f64_run:
+        ref64 = plain_f64_sum(torch, deposit_tiles_plain, args, kw, run=f64_run)
+        case.update(f64_run=f64_run, f64_rel_err=rel_err(got, ref64)[1], plain_f64_rel_err=rel_err(ref, ref64)[1])
+        del ref64
+    del ref
     emit(case)
     check(bool(torch.isfinite(got).all()), f"non-finite {what} kernel output {case}")
-    check(rel <= REL_TOL, f"{what} kernel disagrees with its plain version: {case}")
+    check(case["f64_rel_err" if f64_run else "rel_err"] <= REL_TOL,
+          f"{what} kernel disagrees with its plain version: {case}")
     check_bound(case, f"kernel #1 {tags} {what} K={geom.cfg.K}")
     return case
 
@@ -1283,9 +1317,9 @@ def _tail_levels_vs_plain(torch, lay, spec, **tags):
     return out
 
 
-def _sorted_levels_vs_plain(torch, tp, **tags):
+def _sorted_levels_vs_plain(torch, tp, f64_run: int = 0, **tags):
     """Kernel #1 vs its plain version on each level of a sorted layout, as
-    ``deposit_tiled`` launches it."""
+    ``deposit_tiled`` launches it (``f64_run``: ``_level_vs_plain``'s)."""
     from astro_sph_tools_tpu_torch.ops.deposit_tiled import _tile_ranges
 
     out = []
@@ -1293,7 +1327,7 @@ def _sorted_levels_vs_plain(torch, tp, **tags):
         sl = slice(lo, lo + count)
         pstart, pcount = _tile_ranges(tp.sorted_tile[sl], geom.n_tiles)
         args = (tp.sorted_u[sl], tp.sorted_v[sl], tp.sorted_h[sl], tp.sorted_values[:, sl], pstart, pcount)
-        out.append(_level_vs_plain(torch, geom, args, slice(None), tp.spec, "sorted-level", **tags))
+        out.append(_level_vs_plain(torch, geom, args, slice(None), tp.spec, "sorted-level", f64_run, **tags))
     return out
 
 
@@ -3266,9 +3300,300 @@ def phase_ion(torch, device, n_log2: int = ION_LOG2N, res: int = 1024, repeats: 
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the neighbour path (EAGLE Ref-L0025N0376 at full size)
+# ---------------------------------------------------------------------------
+
+NEIGH_SIDE = 376  # Ref-L0025N0376: 376^3 DM particles and as many gas (Schaye et al. 2015, Table 2)
+NEIGH_BOX = 25.0  # cMpc
+NEIGH_DM_MASS = 9.70e6  # Msun, the run's DM particle mass
+NEIGH_GAS_MASS = 1.81e6  # Msun, its initial gas particle mass
+NEIGH_HUBBLE = 0.6777  # EAGLE's (Planck 2013) h and Omega_b
+NEIGH_OMEGA_B = 0.04825
+NEIGH_K = 32  # the SWIFT DM smoothing length: the 32nd neighbour
+NEIGH_HALOES = 30_000
+NEIGH_CUTS = (11.0, 12.0, 13.0)  # log10 M200 / Msun, after "all"
+NEIGH_LOGM = (9.0, 14.5)  # the halo mass function's range, dN/dlogM ~ M^-0.9
+NEIGH_SLOPE = -0.9
+NEIGH_DENSE_CHECK = 1024  # hsml rows held to the dense k-NN over all points
+NEIGH_KDTREE_CHECK = 1 << 16  # gas queries a halo pass is held to scipy's KDTree on
+# KNN_CROSSOVER.json's sizes, and two below them (the H100's crossover lies lower)
+KNN_SWEEP = (3_000, 10_000, 30_000, 100_000, 300_000, 1_000_000, 3_000_000)
+KNN_SWEEP_KDTREE_QUERIES = 100_000
+NEAREST_SWEEP = (1_000, 3_000, 10_000, 30_000, 100_000)  # haloes ...
+NEAREST_SWEEP_QUERIES = 1 << 22  # ... against these queries
+NEAREST_DENSE_STOP_S = 5.0  # no larger dense sweep once one wall passes this
+
+
+def neighbour_positions(rng, m: int, box: float):
+    """``benchmarks/knn_crossover.py::clustered`` (the same draws from
+    ``rng``): half the points in Gaussian blobs of sigma = box / 40 around
+    max(8, m // 1500) uniform centres, half uniform, wrapped, f32; and the
+    blob centres."""
+    nb = max(8, m // 1500)
+    centres = rng.uniform(0, box, (nb, 3))
+    half = m // 2
+    blob = centres[rng.integers(0, nb, half)] + rng.normal(0, box / 40, (half, 3))
+    pts = np.vstack([np.mod(blob, box), rng.uniform(0, box, (m - half, 3))]).astype(np.float32)
+    return pts, centres
+
+
+def neighbour_haloes(rng, centres, n: int, box: float):
+    """Phase 22's halo catalogue: ``n`` centres (the blob centres first,
+    the rest uniform), log10 M200 drawn from dN/dlogM ~ M^-0.9 on [9, 14.5]
+    (inverse CDF) and R200 from M200 = 200 rho_crit 4/3 pi R200^3 (comoving
+    rho_crit at z = 0 for EAGLE's h). Returns (centres, log10 M200, M200,
+    R200)."""
+    from astro_sph_tools_tpu_torch.data_structures import Cosmology
+
+    c = np.vstack([centres[:n], rng.uniform(0, box, (max(0, n - len(centres)), 3))])
+    lo, hi = (10.0 ** (NEIGH_SLOPE * v) for v in NEIGH_LOGM)
+    logm = np.log10(lo + rng.uniform(size=n) * (hi - lo)) / NEIGH_SLOPE
+    m200 = 10.0**logm
+    rho_crit = Cosmology.from_redshift(0.0, NEIGH_HUBBLE, NEIGH_OMEGA_B).critical_density_comoving()
+    r200 = np.cbrt(3.0 * m200 / (4.0 * math.pi * 200.0 * rho_crit))
+    return c, logm, m200, r200
+
+
+def crossover(sizes, device_s, host_s):
+    """The size at which the device's wall falls to the host's: the ratio
+    interpolated in log-log between the two sizes that bracket 1; None when
+    the device is faster at every size (below the first), inf when never."""
+    ratio = [d / h for d, h in zip(device_s, host_s)]
+    if ratio[0] <= 1.0:
+        return None
+    for (m0, r0), (m1, r1) in zip(zip(sizes, ratio), zip(sizes[1:], ratio[1:])):
+        if r1 <= 1.0:
+            t = math.log(r0) / (math.log(r0) - math.log(r1))
+            return float(math.exp(math.log(m0) + t * (math.log(m1) - math.log(m0))))
+    return math.inf
+
+
+def _knn_sweep(torch, device, rng, box: float) -> dict:
+    """32-NN wall of the device grid (``dm_smoothing_lengths(engine="grid")``,
+    host positions in, the 32nd distance out; best of 2 after a warm-up)
+    against scipy's KDTree with every host core: built on all points,
+    queried on a 1e5 subset; extrapolated to all points as
+    KNN_CROSSOVER.json did (build and query times m / 1e5) and with the
+    build counted once."""
+    from scipy.spatial import KDTree
+
+    from astro_sph_tools_tpu_torch.io.swift import dm_smoothing_lengths
+
+    rows = []
+    for m in KNN_SWEEP:
+        pts, _ = neighbour_positions(rng, m, box)
+        got = dm_smoothing_lengths(pts, box, "grid", device)
+        grid_s = min(wall_s(lambda: dm_smoothing_lengths(pts, box, "grid", device), 1) for _ in range(2))
+        t0 = time.perf_counter()
+        tree = KDTree(np.mod(pts.astype(np.float64), box), boxsize=box)
+        build_s = time.perf_counter() - t0
+        sub = np.mod(pts[:KNN_SWEEP_KDTREE_QUERIES].astype(np.float64), box)
+        t0 = time.perf_counter()
+        kd, _ = tree.query(sub, k=NEIGH_K, workers=-1)
+        query_s = time.perf_counter() - t0
+        scale = m / len(sub)
+        rows.append({
+            "m": m, "grid_s": grid_s, "kdtree_build_s": build_s, "kdtree_query_s": query_s,
+            "kdtree_queries": len(sub), "kdtree_s_extrapolated": (build_s + query_s) * scale,
+            "kdtree_s_build_once": build_s + query_s * scale,
+            "rel_err_vs_kdtree": float(np.abs(got[:len(sub)] - kd[:, -1]).max() / kd[:, -1].max()),
+        })
+        check(rows[-1]["rel_err_vs_kdtree"] <= 1e-4, f"phase 22: the grid k-NN is off the KDTree: {rows[-1]}")
+        emit({"phase": "neighbours", "knn_sweep": rows[-1]})
+    # the grid's device time by kernel, traced at the largest size (at 376^3
+    # the trace's ~2e5 launches take minutes to read back)
+    busy_ms, prof_wall_ms, top = device_busy_ms(lambda: dm_smoothing_lengths(pts, box, "grid", device), top=8)
+    trace = {"m": KNN_SWEEP[-1], "profiled_wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
+             "device_idle_share": None if busy_ms is None else 1.0 - busy_ms / prof_wall_ms,
+             "device_ms_by_kernel": top}
+    emit({"phase": "neighbours", "knn_trace": trace})
+    sizes = [r["m"] for r in rows]
+    grid = [r["grid_s"] for r in rows]
+    return {"rows": rows, "trace": trace,
+            "crossover_m": crossover(sizes, grid, [r["kdtree_s_extrapolated"] for r in rows]),
+            "crossover_m_build_once": crossover(sizes, grid, [r["kdtree_s_build_once"] for r in rows])}
+
+
+def _nearest_sweep(torch, device, rng, box: float) -> dict:
+    """``nearest_points`` dense against grid, M haloes against 2^22
+    queries on the card (best of 2 each); no larger dense sweep once one of
+    its walls passes 5 s."""
+    from astro_sph_tools_tpu_torch.ops import nearest_points
+
+    q = torch.as_tensor(neighbour_positions(rng, NEAREST_SWEEP_QUERIES, box)[0], device=device)
+    rows, dense_on = [], True
+    for m in NEAREST_SWEEP:
+        pts, _ = neighbour_positions(rng, m, box)
+        row = {"m": m, "queries": NEAREST_SWEEP_QUERIES}
+        for method in ("grid", "dense"):
+            if method == "dense" and not dense_on:
+                row["dense_s"] = None
+                continue
+            runs = [wall_s(lambda: nearest_points(q, pts, periodic_box=box, method=method, device=device), 1)
+                    for _ in range(2)]
+            row[f"{method}_s"] = min(runs)
+            dense_on = dense_on and (method == "grid" or max(runs) <= NEAREST_DENSE_STOP_S)
+        gi, gd = nearest_points(q, pts, periodic_box=box, method="grid", device=device)
+        if row["dense_s"] is not None:
+            di, dd = nearest_points(q, pts, periodic_box=box, method="dense", device=device)
+            row["dense_vs_grid_max_dist_diff"] = float(np.abs(gd - dd).max())
+            row["dense_vs_grid_index_share"] = float((gi == di).mean())
+            check(row["dense_vs_grid_max_dist_diff"] < 1e-4 and row["dense_vs_grid_index_share"] >= 0.999,
+                  f"phase 22: nearest_points dense and grid disagree: {row}")
+        rows.append(row)
+        emit({"phase": "neighbours", "nearest_sweep": row})
+    done = [r for r in rows if r["dense_s"] is not None]
+    # the dense engine's crossover: the size from which the grid is faster
+    return {"rows": rows, "crossover_m": crossover([r["m"] for r in done], [r["grid_s"] for r in done],
+                                                   [r["dense_s"] for r in done])}
+
+
+def phase_neighbours(torch, device, side: int = NEIGH_SIDE):
+    """Phase 22: SWIFT DM smoothing lengths at 376^3 on the grid k-NN, the
+    DM map they feed (kernel #1), the nearest-halo search of 376^3 gas
+    particles, and the two device/host crossovers."""
+    from scipy.spatial import KDTree
+
+    from astro_sph_tools_tpu_torch.io.swift import dm_smoothing_lengths
+    from astro_sph_tools_tpu_torch.ops import MapSpec, deposit_2d, deposit_2d_auto, knn_distances, tile_particles
+    from astro_sph_tools_tpu_torch.ops.deposit_tiled import deposit_tiles
+    from astro_sph_tools_tpu_torch.ops.neighbors import _knn_grid
+    from astro_sph_tools_tpu_torch.scripts.find_nearest_haloes import nearest_halo_search
+
+    t_phase = time.perf_counter()
+    n, box = side**3, NEIGH_BOX
+    rng = np.random.default_rng(22)
+    t0 = time.perf_counter()
+    dm, centres = neighbour_positions(rng, n, box)
+    gas, _ = neighbour_positions(rng, n, box)
+    out = {"phase": "neighbours", "config": "EAGLE Ref-L0025N0376", "n_dm": n, "n_gas": n, "box": box,
+           "k": NEIGH_K, "generate_s": time.perf_counter() - t0}
+
+    # (a) DM smoothing lengths on the grid k-NN, host positions in
+    reset_peak_mem(torch, device)
+    walls, stats = [], []
+    for _ in range(2):  # cold, warm
+        st = {}
+        sync(torch, device)
+        t0 = time.perf_counter()
+        hsml = dm_smoothing_lengths(dm, box, "grid", device, stats=st)
+        walls.append(time.perf_counter() - t0)
+        stats.append(st)
+    check(all(st["engine"] == "grid" for st in stats), f"phase 22: the hsml engine was not the grid: {stats}")
+    dm_t = torch.as_tensor(dm, device=device)
+    rows = _knn_grid(dm_t, dm_t, NEIGH_K, periodic_box=box, device=device)
+    ascending = bool((rows[:, 1:] >= rows[:, :-1]).all())
+    same_kth = bool(torch.equal(rows[:, -1].double().cpu(), torch.from_numpy(hsml)))
+    pick = torch.as_tensor(rng.choice(n, NEIGH_DENSE_CHECK, replace=False), device=device)
+    dense = knn_distances(dm_t[pick], dm_t, NEIGH_K, periodic_box=box, device=device)
+    grid_rows = rows[pick].cpu().numpy()
+    del rows
+    hsml_check = {
+        "queries": NEIGH_DENSE_CHECK, "rtol": 1e-4, "atol": 1e-5,
+        "max_abs_err": float(np.abs(grid_rows - dense).max()),
+        # the largest difference as a share of its allowance atol + rtol |dense|
+        "max_share_of_tolerance": float((np.abs(grid_rows - dense) / (1e-5 + 1e-4 * np.abs(dense))).max()),
+        "within": bool(np.allclose(grid_rows, dense, rtol=1e-4, atol=1e-5)),
+        "rows_ascending": ascending, "kth_equals_hsml": same_kth,
+    }
+    out["hsml"] = {
+        "engine": stats[-1]["engine"], "cold_s": walls[0], "warm_s": walls[1],
+        "stages": stats[-1]["stages"], "stages_cold": stats[0]["stages"], "stragglers": stats[-1]["stragglers"],
+        "peak_mem_gb": peak_mem_gb(torch, device), "check": hsml_check,
+
+        "h_median": float(np.median(hsml)), "h_min": float(hsml.min()), "h_max": float(hsml.max()),
+    }
+    emit({"phase": "neighbours", "hsml": out["hsml"]})
+    check(hsml_check["within"] and ascending and same_kth, f"phase 22: the hsml check failed: {hsml_check}")
+
+    # (b) the DM map they feed: render_map_stack's sorted engine, kernel #1
+    spec = MapSpec(shape=(1024, 1024), extent=(0.0, box, 0.0, box), periodic_wrap=True)
+    x, y = dm_t[:, 0].contiguous(), dm_t[:, 1].contiguous()
+    h = torch.as_tensor(hsml, dtype=torch.float32, device=device)
+    mass = torch.full((n,), NEIGH_DM_MASS, dtype=torch.float32, device=device)
+    deposit_tiles.launches = 0
+    img = deposit_2d_auto(x, y, h, mass, spec, device=device)
+    sync(torch, device)
+    launches = deposit_tiles.launches
+    tp = tile_particles(x, y, h, mass[None], spec, need_perm=False, device=device)
+    n_oversize = tp.n_oversize
+    level_counts = {geom.cfg.K: count for geom, lo, count in tp.geoms}
+    # ~2e4 footprints a pixel: each level also against the f64 sum of the
+    # plain version's terms, f32 over runs of 256
+    levels = _sorted_levels_vs_plain(torch, tp, f64_run=256, case="dm_map")
+    del tp
+    map_wall = wall_s(lambda: deposit_2d_auto(x, y, h, mass, spec, device=device), 3)
+    integ = deposit_2d_auto(x, y, h, mass, spec, projection="integrated", device=device)
+    px = box / 1024
+    mass_err = abs(float(integ.double().sum()) * px * px - NEIGH_DM_MASS * n) / (NEIGH_DM_MASS * n)
+    del integ
+    sub = min(n, 1 << 22)
+    a = deposit_2d_auto(x[:sub], y[:sub], h[:sub], mass[:sub], spec, device=device)
+    b = deposit_2d(x[:sub], y[:sub], h[:sub], mass[:sub], spec, device=device)
+    stencil_abs, stencil_rel = rel_err(a, b)
+    del a, b
+    out["dm_map"] = {
+        "map": [1024, 1024], "launches": launches, "levels": level_counts, "n_oversize": n_oversize,
+        "wall_s": map_wall, "integrated_mass_rel_err": mass_err,
+        "stencil_subset_n": sub, "stencil_subset_max_abs_err": stencil_abs, "stencil_subset_rel_err": stencil_rel,
+        "kernel_levels": [{k: c[k] for k in ("K", "n", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+                                               "rel_err", "f64_rel_err", "plain_f64_rel_err")}
+                          for c in levels],
+    }
+    emit({"phase": "neighbours", "dm_map": out["dm_map"]})
+    check(tuple(img.shape) == (1024, 1024) and bool(torch.isfinite(img).all()) and float(img.sum()) > 0,
+          "phase 22: bad DM map")
+    check(launches >= len(level_counts), f"phase 22: {launches} kernel #1 launches for levels {level_counts}")
+    check(mass_err < MASS_TOL, f"phase 22: DM map mass error {mass_err}")
+    check(stencil_rel <= PATH_TOL, f"phase 22: DM map off the stencil engine on {sub}: {stencil_rel}")
+    del img, x, y, h, mass, dm_t
+    torch.cuda.empty_cache()
+
+    # (c) the nearest-halo search of every gas particle
+    hc, logm, m200, r200 = neighbour_haloes(rng, centres, NEIGH_HALOES, box)
+    gas_t = torch.as_tensor(gas, device=device)
+    passes = []
+    keys, ids, dist, rad = nearest_halo_search(gas_t, np.arange(NEIGH_HALOES), hc, r200, m200, NEIGH_CUTS, box,
+                                               device=device, passes=passes)
+    del gas_t
+    q_idx = rng.choice(n, min(n, NEIGH_KDTREE_CHECK), replace=False)
+    q = np.mod(gas[q_idx].astype(np.float64), box)
+    for i, (key, p) in enumerate(zip(keys, passes)):
+        mask = m200 > (0.0 if key == -np.inf else 10.0**key)
+        if not mask.any():
+            p["check"] = {"null": bool((ids[q_idx, i] == -1).all() and np.isinf(dist[q_idx, i]).all())}
+            continue
+        kd, ki = KDTree(np.mod(hc[mask], box), boxsize=box).query(q, workers=-1)
+        p["check"] = {
+            "queries": len(q_idx), "max_dist_err": float(np.abs(dist[q_idx, i] - kd).max()),
+            "index_share": float((ids[q_idx, i] == np.arange(NEIGH_HALOES)[mask][ki]).mean()),
+            "radius_equal": bool(np.array_equal(rad[q_idx, i], r200[ids[q_idx, i]])),
+        }
+    out["haloes"] = {"n_haloes": NEIGH_HALOES, "cuts": list(NEIGH_CUTS), "passes": passes,
+                     "log10_m200_range": [float(logm.min()), float(logm.max())]}
+    emit({"phase": "neighbours", "haloes": out["haloes"]})
+    for p in passes:
+        c = p["check"]
+        check(c.get("null", True) and c.get("max_dist_err", 0.0) < 1e-4 and c.get("index_share", 1.0) >= 0.999
+              and c.get("radius_equal", True), f"phase 22: a halo pass is off the KDTree: {p}")
+    check(bool(np.isfinite(dist[:, 0]).all()) and (ids[:, 0] >= 0).all(), "phase 22: a gas particle has no halo")
+    del ids, dist, rad, gas
+
+    # (d) the crossovers that set the two "auto" constants
+    crng = np.random.default_rng(3)
+    out["knn_crossover"] = _knn_sweep(torch, device, crng, box)
+    out["nearest_crossover"] = _nearest_sweep(torch, device, crng, box)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "neighbours", "knn_crossover_m": out["knn_crossover"]["crossover_m"],
+          "knn_crossover_m_build_once": out["knn_crossover"]["crossover_m_build_once"],
+          "nearest_crossover_m": out["nearest_crossover"]["crossover_m"], "seconds": out["seconds"]})
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,19,10,11,12,13,14,16,17,20,21",
+    parser.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,19,10,11,12,13,14,16,17,20,21,22",
                         help="comma-separated phases to run (15 and 18 only when named)")
     parser.add_argument("--log2n", type=int, default=MAIN_LOG2N, help="log2 of the main path's particle count")
     parser.add_argument("--sight-n", type=int, default=SIGHT_N, help="gas particles of phases 10-12")
@@ -3277,6 +3602,8 @@ def main() -> None:
                         help="log2 of phases 16-17's shuffled particle count")
     parser.add_argument("--e2e-log2n", type=int, default=E2E_LOG2N, help="log2 of phase 20's particle count")
     parser.add_argument("--ion-log2n", type=int, default=ION_LOG2N, help="log2 of phase 21's particle count")
+    parser.add_argument("--neigh-side", type=int, default=NEIGH_SIDE,
+                        help="phase 22's particles per axis (DM and gas each side^3)")
     parser.add_argument("--cpu-probe", choices=("torch", "port"),
                         help="run one CPU first-call probe in this process and print its error (phase 0)")
     args = parser.parse_args()
@@ -3334,6 +3661,8 @@ def main() -> None:
     e2e_out = phase_e2e(torch, device, args.e2e_log2n) if 20 in phases else None
     torch.cuda.empty_cache()
     ion_out = phase_ion(torch, device, args.ion_log2n) if 21 in phases else None
+    torch.cuda.empty_cache()
+    neigh_out = phase_neighbours(torch, device, args.neigh_side) if 22 in phases else None
 
     def pick(rows, **match):
         return next((c for c in rows if all(c.get(k) == v for k, v in match.items())), None)
@@ -3359,7 +3688,7 @@ def main() -> None:
     sight_launches = sight_out["launches"] if sight_out else {}
     # phase 17's checks of kernels #1-#3 on the bucketed stream
     stream = rand_out["bucketed_stream_checks"] if rand_out else {}
-    dep_all = cases + stream.get("tail_levels", [])
+    dep_all = cases + stream.get("tail_levels", []) + (neigh_out["dm_map"]["kernel_levels"] if neigh_out else [])
     prep_all = prep_cases + ([stream["prep"]] if stream else [])
     coh_all = coh_cases + ([stream["coherent_deposit"]] if stream else [])
     emit({"kernels": [
@@ -3381,6 +3710,8 @@ def main() -> None:
             # the streamed and the ion-weighted paths' launches (phases 20, 21)
             "e2e_path_launches": e2e_out["launches"]["deposit2d"] if e2e_out else None,
             "ion_path_launches": ion_out["launches"]["deposit2d"] if ion_out else None,
+            # the DM map of phase 22's smoothing lengths
+            "dm_path_launches": neigh_out["dm_map"]["launches"] if neigh_out else None,
         },
         {
             "name": "coherent_prep",

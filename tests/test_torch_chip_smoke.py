@@ -300,3 +300,89 @@ def test_ion_inputs_follow_the_benchmark():
     ok = np.isfinite(jlogf)
     assert np.abs(fields[0][ok] / jion[ok] - 1).max() < 1e-4
     np.testing.assert_allclose(fields[1], fields[0] * temp_lin.numpy(), rtol=1e-6)
+
+
+def test_neighbour_positions_follow_the_crossover_benchmark():
+    """Phase 22's generator is ``benchmarks/knn_crossover.py::clustered``:
+    the same points from the same draws (half in blobs of sigma = box / 40
+    around max(8, m // 1500) centres, half uniform), and its blob centres."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("knn_crossover", os.path.join(ROOT, "benchmarks", "knn_crossover.py"))
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    for m in (5000, 30000):
+        pts, centres = cs.neighbour_positions(np.random.default_rng(3), m, cs.NEIGH_BOX)
+        np.testing.assert_array_equal(pts, bench.clustered(np.random.default_rng(3), m, cs.NEIGH_BOX))
+        assert pts.dtype == np.float32 and pts.shape == (m, 3) and len(centres) == max(8, m // 1500)
+        # the blob half sits within a few sigma of its centres
+        d = np.abs(pts[: m // 2, None, :] - centres[None, :, :].astype(np.float32))
+        d = np.minimum(d, cs.NEIGH_BOX - d)
+        nearest = np.sqrt((d**2).sum(-1)).min(1)
+        sigma = cs.NEIGH_BOX / 40
+        assert np.median(nearest) < 2 * sigma and np.quantile(nearest, 0.99) < 4.5 * sigma
+
+
+def test_neighbour_haloes_follow_the_mass_function():
+    """Phase 22's haloes: the blob centres first, the rest uniform; log10
+    M200 in [9, 14.5] with dN/dlogM ~ M^-0.9 (the share above each cut as
+    the CDF gives it) and M200 = 200 rho_crit 4/3 pi R200^3."""
+    from astro_sph_tools_tpu_torch.data_structures import Cosmology
+
+    rng = np.random.default_rng(5)
+    centres = rng.uniform(0, cs.NEIGH_BOX, (700, 3))
+    c, logm, m200, r200 = cs.neighbour_haloes(rng, centres, 200_000, cs.NEIGH_BOX)
+    np.testing.assert_array_equal(c[:700], centres)
+    assert c.shape == (200_000, 3) and (c >= 0).all() and (c < cs.NEIGH_BOX).all()
+    assert logm.min() >= 9.0 and logm.max() <= 14.5
+    a, b = 10 ** (-0.9 * 9.0), 10 ** (-0.9 * 14.5)
+    for cut in (10.0, 11.0, 12.0, 13.0):
+        expect = (10 ** (-0.9 * cut) - b) / (a - b)
+        assert abs((logm > cut).mean() - expect) <= 5 * np.sqrt(expect / 200_000) + 1e-5
+    rho = Cosmology.from_redshift(0.0, 0.6777, 0.04825).critical_density_comoving()
+    np.testing.assert_allclose(200 * rho * 4 / 3 * np.pi * r200**3, m200, rtol=1e-12)
+    assert 0.05 < r200[np.abs(logm - 12).argmin()] < 0.5  # ~0.2 Mpc at 1e12 Msun
+
+
+def test_nearest_halo_search_returns_what_the_cli_writes(tmp_path):
+    """The search phase 22 runs is the CLI's: on a synthetic EAGLE tree,
+    ``nearest_halo_search`` of the arrays the CLI reads gives the datasets
+    it writes."""
+    import h5py
+
+    from astro_sph_tools_tpu.io.synthetic import SyntheticSnapshotSpec, write_catalogue, write_snapshot
+    from astro_sph_tools_tpu_torch.data_structures import ParticleType
+    from astro_sph_tools_tpu_torch.io.catalogue import BasicHaloDefinitions
+    from astro_sph_tools_tpu_torch.io.filetree import FileTreeScraper_EAGLE
+    from astro_sph_tools_tpu_torch.scripts.find_nearest_haloes import main, nearest_halo_search
+
+    spec = SyntheticSnapshotSpec(n_gas=1024, n_dm=256, n_star=64, n_bh=2, n_groups=6, clustered=True)
+    _, truth = write_snapshot(str(tmp_path), spec)
+    write_catalogue(str(tmp_path), spec, truth)
+    assert main(["-z", "0.5", "--eagle", "-i", str(tmp_path), "-o", str(tmp_path / "out"), "-m", "11.0,30.0",
+                 "--device", "cpu"]) == 0
+    cats = FileTreeScraper_EAGLE(str(tmp_path)).catalogues
+    cat = cats.get_by_number(cats.find_file_number_from_redshift(0.5)).load()
+    so = BasicHaloDefinitions.SO_200_CRIT.value
+    passes = []
+    keys, ids, dist, rad = nearest_halo_search(
+        cat.snapshot.get_positions(ParticleType.gas).to_value("Mpc"), cat.get_halo_indexes(),
+        cat.get_halo_centres_of_potential().to_value("Mpc"), cat.get_halo_radii(so).to_value("Mpc"),
+        cat.get_halo_masses(so).value, [11.0, 30.0], float(cat.snapshot.box_size.value[0]), device="cpu",
+        passes=passes,
+    )
+    assert [p["n_haloes"] > 0 for p in passes] == [True, True, False] and passes[2]["engine"] is None
+    with h5py.File(tmp_path / "out.hdf5", "r") as f:
+        g = f[f"redshift_{cat.snapshot.redshift}"]
+        groups = [g, g["minimum_halo_mass_limited/11.00"], g["minimum_halo_mass_limited/30.00"]]
+        for i, grp in enumerate(groups):
+            np.testing.assert_array_equal(grp["halo_indexes"][:], ids[:, i])
+            np.testing.assert_array_equal(grp["halo_comoving_distance"][:], dist[:, i])
+            np.testing.assert_array_equal(grp["halo_comoving_radius"][:], rad[:, i])
+    assert keys[0] == -np.inf and (ids[:, 2] == -1).all() and np.isinf(dist[:, 2]).all()
+
+
+def test_crossover_interpolates_where_the_ratio_crosses_one():
+    assert cs.crossover([1e3, 1e4], [2.0, 0.5], [1.0, 1.0]) == pytest.approx(10 ** 3.5)
+    assert cs.crossover([1e3, 1e4], [0.5, 0.1], [1.0, 1.0]) is None
+    assert cs.crossover([1e3, 1e4], [2.0, 3.0], [1.0, 1.0]) == np.inf

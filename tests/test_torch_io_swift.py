@@ -5,9 +5,9 @@ Mirrors ``tests/test_io_swift.py`` and ``TestSWIFTHeaderVariants`` of
 ``tests/test_schema_tolerance.py``. The module is copied, so on the same
 files (the JAX package's fixture writers) every field, catalogue array and
 region-restricted read must equal JAX's exactly (``np.array_equal``, units
-included), and every refusal must raise the same error. One branch differs:
-the DM smoothing lengths come from the host KDTree at every size (the JAX
-package's device grid k-NN is not ported; forcing it raises).
+included), and every refusal must raise the same error. The DM smoothing
+lengths' engines are held to JAX's and to each other in
+``test_torch_swift_dm_hsml.py``.
 """
 
 import h5py
@@ -100,13 +100,14 @@ def test_metadata_and_abundances(swift):
 
 
 def test_dm_smoothing_lengths_from_the_kdtree(swift):
-    """DM h = the 32nd-neighbour distance (periodic), from scipy's KDTree,
-    equal to JAX's (whose "auto" takes the same branch below 3e5)."""
+    """DM h = the 32nd-neighbour distance (periodic), from scipy's KDTree
+    below the device crossover, equal to JAX's (whose "auto" takes the same
+    branch below 3e5)."""
     from scipy.spatial import KDTree
 
     path, truth, spec, *_ = swift
     port = SnapshotSWIFT(path)
-    assert port._dm_hsml_pick_engine(10**7) == "kdtree"
+    assert port._dm_hsml_pick_engine(spec.n_dm) == "kdtree"
     hs = port.get_smoothing_lengths(ParticleType.dark_matter)
     same(hs, JSnapshotSWIFT(path).get_smoothing_lengths(JParticleType.dark_matter))
     pos = truth.positions[JParticleType.dark_matter]
@@ -115,12 +116,17 @@ def test_dm_smoothing_lengths_from_the_kdtree(swift):
     np.testing.assert_allclose(hs.value, d[:, -1], rtol=1e-8)
 
 
-def test_dm_grid_engine_raises(swift):
-    path, *_ = swift
-    port = SnapshotSWIFT(path)
-    port.dm_hsml_engine = "grid"
-    with pytest.raises(NotImplementedError, match="neighbours"):
+def test_dm_grid_engine_raises(tmp_path):
+    """The grid engine refuses fewer DM particles than neighbours, as JAX's
+    does (the KDTree would pad with inf); it does not fall back to the
+    KDTree."""
+    path, _ = write_swift_snapshot(str(tmp_path), SyntheticSnapshotSpec(n_gas=64, n_dm=16, n_star=8, n_bh=2))
+    port, ref = SnapshotSWIFT(path), JSnapshotSWIFT(path)
+    port.dm_hsml_engine = ref.dm_hsml_engine = "grid"
+    port.dm_hsml_device = "cpu"
+    with pytest.raises(ValueError, match="exceeds"):
         port.get_smoothing_lengths(ParticleType.dark_matter)
+    both(port, ref, "get_smoothing_lengths", ("pt", "dark_matter"))
 
 
 def test_soap_catalogue_matches_jax(swift):

@@ -141,6 +141,9 @@ def test_port_imports_neither_jax_nor_h5py():
         "import astro_sph_tools_tpu_torch.utils.determinism, astro_sph_tools_tpu_torch.utils.profiling\n"
         "from astro_sph_tools_tpu_torch.io import IonisationTable_HM01, stream_macro_chunks, unpack_particles_device\n"
         "from astro_sph_tools_tpu_torch.utils import device_trace, assert_deterministic\n"
+        "import astro_sph_tools_tpu_torch.ops.cells, astro_sph_tools_tpu_torch.ops.neighbors\n"
+        "import astro_sph_tools_tpu_torch.scripts.find_nearest_haloes, astro_sph_tools_tpu_torch.tools.projections\n"
+        "from astro_sph_tools_tpu_torch.tools import create_image, ArrayReorder_2\n"
         "print(sorted(m for m in ('jax', 'h5py', 'astro_sph_tools_tpu') if m in sys.modules))\n"
     )
     out = subprocess.run(
