@@ -15,11 +15,13 @@ Fixes vs reference: the ``get_halo_masses``/``get_halo_radii`` isinstance
 ladder tested ``CriticalSphericalOverdensityAperture`` three times, crashing
 for Mean/TopHat definitions (`:236-246,270-277`, SURVEY.md §2.9.6) — here
 each flavour maps to its own field specifier (Crit/Mean/TopHat). The
-root-gather ``mpi_gather_array`` all-ranks variants return the local array
-(see :func:`_allgather_concat`).
+root-gather ``mpi_gather_array`` all-ranks variants give every rank the
+whole array (see :func:`_allgather_concat`).
 
 Counterpart: ``astro_sph_tools_tpu/io/subfind.py`` (copied; ``h5py`` is
-imported on first use; the cross-process gather is local-only).
+imported on first use; the cross-process gather runs over
+``torch.distributed`` and, unlike the JAX package's, lets its errors
+through).
 """
 
 from __future__ import annotations
@@ -325,7 +327,7 @@ class CatalogueSUBFIND(CatalogueBase):
 
         The reference root-gathers with ``mpi_gather_array`` (non-root gets
         None, `:304-308`); here every process would receive the full array
-        (:func:`_allgather_concat`; one process today).
+        (:func:`_allgather_concat` over the default process group).
         """
         local = self.get_halo_IDs_by_snapshot_particle(particle_type, snapshot_particle_ids)
         return _allgather_concat(local)
@@ -345,11 +347,17 @@ class CatalogueSUBFIND(CatalogueBase):
 
 
 def _allgather_concat(local: np.ndarray) -> np.ndarray:
-    """Concatenate a per-process array across all processes.
+    """Concatenate a per-process array across all processes, in rank order.
 
-    The JAX package gathers over its multihost runtime here. This package
-    has no multi-process reads yet (ROADMAP queue 1, the multi-GPU item on
-    ``torch.distributed``): a single process holds every row, so the local
-    array is the whole array and is returned as it is.
+    Gathers over the default ``torch.distributed`` group when it is
+    initialised with more than one rank (``all_gather_object``, which both
+    the gloo and the NCCL backends take); otherwise the local array is the
+    whole array. A failure of the gather propagates.
     """
-    return local
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() == 1:
+        return local
+    parts: list = [None] * dist.get_world_size()
+    dist.all_gather_object(parts, np.asarray(local))
+    return np.concatenate(parts)

@@ -618,18 +618,22 @@ def deposit_2d_pallas(
     _check_precision(precision)
     get_kernel(kernel)
     device = torch.device(device)
-    geom = _level_geometry(cfg, spec)
     values, single = _as_field_matrix(values, device)
+    geom, *layout = _level_layout(x, y, h, values, spec, cfg, device)
+    img = _render_level(geom, spec, kernel, projection, *layout)
+    return img[0] if single else img
+
+
+def _level_layout(x, y, h, values: Tensor, spec: MapSpec, cfg: PallasDepositConfig, device):
+    """One level's tile-sorted particles as :func:`deposit_2d_pallas`
+    renders them: (geom, u, v, h, values (F, N), tile), sorted by tile."""
+    geom = _level_geometry(cfg, spec)
     xs, ys = _coords(x, y, device)
     tile_id, u_loc, v_loc = _tile_local_coords(xs, ys, geom, spec)
     h = torch.as_tensor(h if isinstance(h, Tensor) else np.asarray(h), dtype=torch.float32, device=device)
     tile_sorted, perm = torch.sort(tile_id.to(device), stable=True)
-    img = _render_level(
-        geom, spec, kernel, projection,
-        u_loc.to(device)[perm], v_loc.to(device)[perm], h[perm],
-        values[:, perm].contiguous(), tile_sorted,
-    )
-    return img[0] if single else img
+    return (geom, u_loc.to(device)[perm], v_loc.to(device)[perm], h[perm], values[:, perm].contiguous(),
+            tile_sorted)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """High-level rendering API: snapshot -> multi-field map stacks.
 
 Counterpart: ``astro_sph_tools_tpu/render.py`` (``render_map_stack``,
-``render_halo_maps`` and ``MapStack``; ``render_halo_maps_sharded`` waits
-for the multi-GPU item of ROADMAP queue 1). One call reads the needed
+``render_halo_maps``, ``render_halo_maps_sharded`` and ``MapStack``). One
+call reads the needed
 fields, stacks the deposit payloads (weighted quantities ride the same pass
 as the weights), renders on the chosen engine on ``device``, and derives
 weighted means. Maps come back as NumPy arrays, as in the JAX package.
@@ -22,8 +22,10 @@ from .io.snapshot import SnapshotBase
 from .kernels.splines import get_kernel
 from .ops.deposit import MapSpec, deposit_2d
 from .ops.deposit_coherent import deposit_2d_coherent
-from .ops.deposit_tiled import deposit_2d_auto
+from .ops.deposit_tiled import _check_precision, deposit_2d_auto
 from .ops.periodic import shift_centre
+from .parallel._comm import all_reduce_
+from .parallel.mesh import Mesh
 from .utils.profiling import PhaseTimer
 
 _KNOWN_FIELDS = ("density", "mass", "temperature", "metallicity", "velocity_los", "sfr")
@@ -228,27 +230,26 @@ def render_halo_maps(
     holds each halo's recentre, select, deposit and derive seconds; the
     first stack's also holds ``io``, the call's one read and upload.
 
-    ``mesh``: sharded rendering over several cards is not ported yet
-    (ROADMAP queue 1, the multi-GPU item) and raises.
+    ``mesh`` (a :class:`~astro_sph_tools_tpu_torch.parallel.Mesh`): the
+    snapshot holds this rank's particles (``open_process_local_snapshot``);
+    each halo's maps are rendered from them on ``mesh.device`` and summed
+    over the mesh with one ``all_reduce`` before the means are derived, so
+    every rank returns the whole maps. Every rank must pass the same
+    catalogue and haloes.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "render_halo_maps over a mesh (render_halo_maps_sharded) is not ported to "
-            "astro_sph_tools_tpu_torch yet (ROADMAP queue 1, the multi-GPU item)"
-        )
     if engine not in ("pallas", "xla"):
         raise ValueError(f"Unknown engine {engine!r} (pallas | xla)")
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a Mesh from astro_sph_tools_tpu_torch.parallel.make_mesh, got {type(mesh)}")
     if radius_definition is None:
         radius_definition = BasicHaloDefinitions.SO_200_CRIT.value
-    device = torch.device(device)
+    device = mesh.device if mesh is not None else torch.device(device)
     io_timer = PhaseTimer(device)
-    i, j = axis.projection_plane
-    support_factor = get_kernel(kernel).support_factor
 
     with io_timer.phase("io"):
         box = float(snapshot.box_size.value[0])
-        centres = _host_f64(catalogue.get_halo_centres_of_potential().to_value("Mpc"))
-        radii = _host_f64(catalogue.get_halo_radii(radius_definition).to_value("Mpc"))
+        centres = catalogue.get_halo_centres_of_potential().to_value("Mpc")
+        radii = catalogue.get_halo_radii(radius_definition).to_value("Mpc")
         pos = snapshot.get_positions(particle_type).to_value("Mpc")
         h = snapshot.get_smoothing_lengths(particle_type).to_value("Mpc")
         mass = snapshot.get_masses(particle_type).to_value("Msun")
@@ -270,16 +271,39 @@ def render_halo_maps(
                 weighted.append("mass_weighted_metallicity")
             else:
                 raise ValueError(f"Unknown halo-map field {name!r}")
-        values = (
-            torch.stack([_on_device(p, torch.float32, device) for p in payloads])
-            if isinstance(payloads[0], torch.Tensor)
-            else _on_device(np.stack(payloads, axis=0), torch.float32, device)
-        )
-        plane = pos[:, [i, j]] if isinstance(pos, torch.Tensor) else np.ascontiguousarray(pos[:, [i, j]])
-        xy = _on_device(plane, torch.float64, device)
-        h64 = _on_device(h, torch.float64, device)
-        del pos, plane, payloads
+        particles = _halo_particles(pos, h, payloads, axis, device)
+        del pos, payloads
 
+    return _halo_stacks(
+        particles, names, weighted, centres, radii, halo_indexes, box=box, radius_multiple=radius_multiple,
+        axis=axis, resolution=resolution, kernel=kernel, engine=engine, particle_type=particle_type,
+        device=device, mesh=mesh, io_timings=io_timer.report(),
+    )
+
+
+def _halo_particles(pos, h, payloads, axis: CoordinateAxes, device) -> tuple:
+    """(in-plane positions (N, 2) f64, h f64, payloads (F, N) f32) on ``device``."""
+    i, j = axis.projection_plane
+    values = (
+        torch.stack([_on_device(p, torch.float32, device) for p in payloads])
+        if isinstance(payloads[0], torch.Tensor)
+        else _on_device(np.stack([np.asarray(p) for p in payloads], axis=0), torch.float32, device)
+    )
+    plane = pos[:, [i, j]] if isinstance(pos, torch.Tensor) else np.ascontiguousarray(np.asarray(pos)[:, [i, j]])
+    return _on_device(plane, torch.float64, device), _on_device(h, torch.float64, device), values
+
+
+def _halo_stacks(
+    particles, names, weighted, centres, radii, halo_indexes, *, box: float, radius_multiple: float,
+    axis: CoordinateAxes, resolution: int, kernel: str, engine: str, particle_type: ParticleType,
+    device, mesh, io_timings: dict,
+) -> list[MapStack]:
+    """The per-halo loop of :func:`render_halo_maps`: recentre, select,
+    deposit (then sum over ``mesh`` when given), derive."""
+    xy, h64, values = particles
+    centres, radii = _host_f64(centres), _host_f64(radii)
+    i, j = axis.projection_plane
+    support_factor = get_kernel(kernel).support_factor
     stacks = []
     for halo_index in np.atleast_1d(halo_indexes):
         timer = PhaseTimer(device)
@@ -305,9 +329,11 @@ def render_halo_maps(
                 maps = deposit_2d_auto(lx, ly, hs, vs, local_spec, kernel=kernel, device=device)
             else:
                 maps = deposit_2d(lx, ly, hs, vs.T, local_spec, kernel=kernel, device=device).permute(2, 0, 1)
-            maps = maps.cpu().numpy()
             if maps.ndim == 2:
                 maps = maps[None]
+            if mesh is not None:
+                maps = all_reduce_(maps.contiguous(), mesh)
+            maps = maps.cpu().numpy()
             del lx, ly, hs, vs
         with timer.phase("derive"):
             result = {name: m for name, m in zip(names, maps)}
@@ -318,6 +344,42 @@ def render_halo_maps(
                 )
         timings = timer.report()
         if not stacks:
-            timings = {**io_timer.report(), **timings}
+            timings = {**io_timings, **timings}
         stacks.append(MapStack(maps=result, spec=spec, axis=axis, particle_type=particle_type, timings=timings))
     return stacks
+
+
+def render_halo_maps_sharded(
+    positions,  # (N, 3) Mpc: this rank's particles
+    h,  # (N,)
+    mass,  # (N,)
+    centres,  # (n_haloes, 3) catalogue centres
+    radii,  # (n_haloes,) catalogue radii (R_def)
+    halo_indexes,
+    mesh,
+    *,
+    box: float,
+    radius_multiple: float = 2.0,
+    axis: CoordinateAxes = CoordinateAxes.Z,
+    resolution: int = 256,
+    kernel: str = "cubic_spline",
+    particle_type: ParticleType = ParticleType.gas,
+    axis_name: str = "data",
+    precision: str = "bf16x2",
+) -> list[MapStack]:
+    """Halo cutout surface-density maps from this rank's particles, summed
+    over ``mesh`` (BASELINE config 5's multi-GPU analysis shape): the
+    per-halo path of :func:`render_halo_maps` with ``mesh`` — f64
+    recentring and support cut on ``mesh.device``, the sorted engine
+    ``deposit_2d_auto`` (kernel #1; footprints past the largest level take
+    its oversize route), one ``all_reduce`` per halo. The JAX package
+    recentres in f32 and raises past K = 64; neither is copied.
+    ``precision`` is validated; the sums are f32.
+    """
+    _check_precision(precision)
+    particles = _halo_particles(positions, h, [mass], axis, mesh.device)
+    return _halo_stacks(
+        particles, ["surface_density"], [], centres, radii, halo_indexes, box=box,
+        radius_multiple=radius_multiple, axis=axis, resolution=resolution, kernel=kernel, engine="pallas",
+        particle_type=particle_type, device=mesh.device, mesh=mesh, io_timings={},
+    )

@@ -31,16 +31,16 @@ calculate_wrapped_distance = wrapped_distance
 
 # The reference also exports ArrayReorder_2 (its same-semantics v2 rewrite,
 # `tools/_ArrayReorder.py:660`) and the MPI variants (`:88,262`). Here the
-# modern ArrayReorder IS the v2 semantics; the distributed reorder is the
-# multi-GPU item of the port (ROADMAP queue 1 item 4), still to come.
+# modern ArrayReorder IS the v2 semantics, and the distributed engine lives
+# in ``parallel.distributed_reorder`` (owner-sharded all_to_all exchange).
 ArrayReorder_2 = ArrayReorder
 
 
 def ArrayReorder_MPI(*args, **kwargs):  # pragma: no cover - guidance shim
     raise NotImplementedError(
-        "ArrayReorder_MPI is replaced by a torch.distributed owner-sharded "
-        "reorder (parallel.distributed_reorder), which is not ported to "
-        "astro_sph_tools_tpu_torch yet (ROADMAP queue 1, the multi-GPU item)."
+        "ArrayReorder_MPI is replaced by "
+        "astro_sph_tools_tpu_torch.parallel.distributed_reorder (owner-sharded "
+        "all_to_all exchange over torch.distributed)."
     )
 
 

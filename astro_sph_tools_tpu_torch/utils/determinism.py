@@ -9,10 +9,10 @@ Counterpart: ``astro_sph_tools_tpu/utils/determinism.py``.
 - :func:`assert_deterministic` — run a function n times and require
   bitwise-identical outputs (a first call that differs from the next, as a
   cold CPU worker thread once gave, fails here);
-- :func:`assert_consistent_across_processes` — every process of an
-  initialised ``torch.distributed`` group must hold the same digest; a
-  no-op in a single process, as the JAX package's ``process_count() == 1``
-  branch.
+- :func:`assert_consistent_across_processes` — every process of a
+  mesh's group (or of the initialised default ``torch.distributed`` group)
+  must hold the same digest; a no-op in a single process, as the JAX
+  package's ``process_count() == 1`` branch.
 """
 
 from __future__ import annotations
@@ -84,18 +84,23 @@ def assert_deterministic(fn: Callable, *args, n_runs: int = 2, **kwargs) -> str:
     return digests[0]
 
 
-def assert_consistent_across_processes(value) -> None:
-    """All processes of the default ``torch.distributed`` group must hold
-    bitwise-identical data; a no-op when no group is initialised."""
+def assert_consistent_across_processes(value, mesh=None) -> None:
+    """All processes of ``mesh``'s group (default: the default
+    ``torch.distributed`` group) must hold bitwise-identical data; a no-op
+    when no group is initialised or it has one process."""
     import torch.distributed as dist
 
-    if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() == 1:
+    if not (dist.is_available() and dist.is_initialized()):
+        return
+    group = mesh.group if mesh is not None else None
+    size = dist.get_world_size(group)
+    if size == 1:
         return
     digest = hash_pytree(value)
-    gathered: list = [None] * dist.get_world_size()
-    dist.all_gather_object(gathered, digest)
+    gathered: list = [None] * size
+    dist.all_gather_object(gathered, digest, group=group)
     if any(g != gathered[0] for g in gathered):
         raise AssertionError(
             "Cross-process inconsistency: processes hold different data "
-            f"(digest mismatch on process set of {dist.get_world_size()})."
+            f"(digest mismatch on process set of {size})."
         )

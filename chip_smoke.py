@@ -3,7 +3,7 @@
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
-    python3 chip_smoke.py                # phases 0-14, 16, 17 and 19-22
+    python3 chip_smoke.py                # phases 0-14, 16, 17 and 19-23
     python3 chip_smoke.py --phases 0,1,2 # a subset, for debugging
 
 It drives the port's main paths — the adaptive-h sorted tile engine behind
@@ -13,10 +13,11 @@ voxel deposit of BASELINE config 3, the random-order path (shear grouping,
 ``deposit_2d_bucketed``), the halo-centred map stacks of BASELINE config
 5 (``render_halo_maps``), the streamed snapshot-to-map ingest, the
 ion-weighted render and the neighbour queries (SWIFT DM smoothing lengths,
-the DM map, the nearest-halo search) — on particles generated in memory
+the DM map, the nearest-halo search) and the multi-GPU layer
+(``parallel/`` on ``torch.distributed``) — on particles generated in memory
 from a seed, and
-fails (non-zero exit) if any phase fails (phase 19 runs after phase 9, on
-phase 3's particles):
+fails (non-zero exit) if any phase fails (phases 19 and 23 run after phase
+9, on phase 3's particles):
 
 0. device: torch version, card name and power limit (nvidia-smi); the CPU
    first-call probe (``cpu_probe``) in 8 fresh processes of plain torch
@@ -202,7 +203,31 @@ phase 3's particles):
     two ``auto`` constants: the 32-NN grid against the host KDTree at
     KNN_CROSSOVER.json's sizes and two below (at 3e6 also traced: the
     device's busy share and its top kernels), and ``nearest_points`` dense
-    against grid at 1e3-1e5 haloes and 2^22 queries.
+    against grid at 1e3-1e5 haloes and 2^22 queries;
+23. the multi-GPU layer on the one card: (a) a world of one rank over NCCL
+    (a ``FileStore`` in a temporary directory) at full size: the coherent
+    sharded engines, synced and fused (the fused also under sync debug
+    mode "error"), on phase 3's 2^26 particles against the single-device
+    engines beside their own run-to-run difference, the one-rank
+    all_reduce bit for bit; ``deposit_2d_sharded`` at the smallest level
+    that holds the largest footprint against ``deposit_2d_auto``;
+    ``deposit_3d_sharded`` (K = 16, F = 1) on config 3's 2^24 particles at
+    512^3 against ``deposit_3d_auto``; walls beside the single-device
+    engines' and the collective's share; (b) PAR_RANKS = 4 gloo ranks on
+    the card, each a process of its own (``--par-rank``) with a
+    process-group timeout, under one deadline (a rank that fails or hangs
+    fails the phase): every entry point of ``parallel/`` on its shard
+    (``PAR_SIZES``: 2^24 of phase 3's generator in Morton-contiguous
+    quarters, 1024^2 x 2; 256^3 periodic and open slabs of 2^22 of phase
+    14's; columns and Gaussian spectra of 2^22 config-4 particles on 2048
+    rays; the reorder of 2^22 int64 IDs above 2^40, a permutation and a
+    half overlap; a rebalance with one rank nearly full; four haloes of
+    phase 19's catalogue) against the single-device engine on the whole
+    input (1e-5 * max; the reorders and the rebalance exactly), the fused
+    engine's ``ok`` on every rank with merged capacities and on none when
+    one rank's capacities are too small; each entry's wall, the bytes a
+    rank hands to the collectives, its error; the launches of kernels
+    #1-#6 over both parts, each above zero.
 
 Every phase prints one JSON line; the kernels' summary line and the card's
 ``nvidia-smi`` line come before the last line, which is
@@ -286,16 +311,18 @@ def alternating_ms(fn_a, fn_b, pairs: int, reps: int) -> dict:
             "b_over_a_median": float(np.median(ratio)), "b_over_a_range": [min(ratio), max(ratio)]}
 
 
-def wall_s(fn, reps: int) -> float:
-    """Median over ``reps`` runs of the host wall clock around a synchronised call."""
+def wall_s(fn, reps: int, device=None) -> float:
+    """Median over ``reps`` runs of the host wall clock around a call
+    synchronised on ``device`` (default: the card)."""
     import torch
 
+    device = torch.device("cuda") if device is None else torch.device(device)
     times = []
     for _ in range(reps):
-        torch.cuda.synchronize()
+        sync(torch, device)
         t0 = time.perf_counter()
         fn()
-        torch.cuda.synchronize()
+        sync(torch, device)
         times.append(time.perf_counter() - t0)
     return float(np.median(times))
 
@@ -1167,7 +1194,8 @@ def _coherent_vs_plain(torch, lay, spec, h, projection, plain_reps: int, **tags)
     """Kernel #2 (coherent deposit) vs its plain version on a coherent
     layout's candidates, timed beside its bound, with the launch's split and
     its densest tile alone (the other tiles' candidates left out); ``h`` is
-    the layout's particles' smoothing lengths (for the bound)."""
+    the layout's particles' smoothing lengths (for the bound). With
+    ``plain_reps`` 0 the plain version runs once, untimed."""
     TC = _coherent_module()
     g0 = lay.geom0
     n_fields = lay.n_fields
@@ -1195,7 +1223,7 @@ def _coherent_vs_plain(torch, lay, spec, h, projection, plain_reps: int, **tags)
         "max_abs_err": err, "rel_err": rel,
         "ms": cuda_ms(lambda: TC.deposit_coherent_tiles(*args, **kw), 5),
         "densest_tile_ms": cuda_ms(lambda: TC.deposit_coherent_tiles(*dense, **kw), 5),
-        "plain_ms": cuda_ms(lambda: TC.deposit_coherent_tiles_plain(*args, **kw), plain_reps),
+        "plain_ms": cuda_ms(lambda: TC.deposit_coherent_tiles_plain(*args, **kw), plain_reps) if plain_reps else None,
         **bound(coherent_bytes(torch, *args, n_fields, g0.n_tiles, got),
                 support_points(h, 2.0, psx, 2) * pair_ops(n_fields, projection)),
     }
@@ -1262,10 +1290,11 @@ def phase_coherent_kernel(torch, device, particles, n_dense: int = 1 << 20):
     return out
 
 
-def _level_vs_plain(torch, geom, args, sl, spec, what: str, f64_run: int = 0, **tags):
+def _level_vs_plain(torch, geom, args, sl, spec, what: str, f64_run: int = 0, plain_reps: int = 1, **tags):
     """Kernel #1 (sorted-engine deposit) vs its plain version on one
     level's launch ``args`` (u, v, h, values, pstart, pcount), whose
-    particles are ``sl`` of the arrays, as the engine launches it. With
+    particles are ``sl`` of the arrays, as the engine launches it; the plain
+    version timed over ``plain_reps`` runs (0: untimed). With
     ``f64_run`` > 0 (inputs of thousands of footprints a pixel, where the
     order of two f32 sums alone comes near 1e-5) kernel and plain are also
     held to ``plain_f64_sum`` of the plain version's terms in runs of that
@@ -1287,7 +1316,7 @@ def _level_vs_plain(torch, geom, args, sl, spec, what: str, f64_run: int = 0, **
         **split_stats(torch, _deposit_module()._CLUSTER, pcount, 8),
         "max_abs_err": err, "rel_err": rel,
         "ms": cuda_ms(lambda: deposit_tiles(*args, **kw), 5),
-        "plain_ms": cuda_ms(lambda: deposit_tiles_plain(*args, **kw), 1),
+        "plain_ms": cuda_ms(lambda: deposit_tiles_plain(*args, **kw), plain_reps) if plain_reps else None,
         **bound(nbytes(u[sl], v[sl], h[sl], values[:, sl], pstart, pcount, got),
                 support_points(h[sl], 2.0, psx, 2) * pair_ops(n_fields)),
     }
@@ -1304,7 +1333,7 @@ def _level_vs_plain(torch, geom, args, sl, spec, what: str, f64_run: int = 0, **
     return case
 
 
-def _tail_levels_vs_plain(torch, lay, spec, **tags):
+def _tail_levels_vs_plain(torch, lay, spec, plain_reps: int = 1, **tags):
     """Kernel #1 vs its plain version on each level of a coherent layout's
     routed tail, as the coherent render launches it."""
     TC = _coherent_module()
@@ -1313,11 +1342,11 @@ def _tail_levels_vs_plain(torch, lay, spec, **tags):
     for li, geom, lo, count in lay.tail_metas:
         pstart, pcount = TC._tail_level_ranges(skey, lay.bases[li], geom, None)
         out.append(_level_vs_plain(torch, geom, (tu, tv, th, t_values, pstart, pcount), slice(lo, lo + count),
-                                   spec, "tail-level", **tags))
+                                   spec, "tail-level", plain_reps=plain_reps, **tags))
     return out
 
 
-def _sorted_levels_vs_plain(torch, tp, f64_run: int = 0, **tags):
+def _sorted_levels_vs_plain(torch, tp, f64_run: int = 0, plain_reps: int = 1, **tags):
     """Kernel #1 vs its plain version on each level of a sorted layout, as
     ``deposit_tiled`` launches it (``f64_run``: ``_level_vs_plain``'s)."""
     from astro_sph_tools_tpu_torch.ops.deposit_tiled import _tile_ranges
@@ -1327,30 +1356,32 @@ def _sorted_levels_vs_plain(torch, tp, f64_run: int = 0, **tags):
         sl = slice(lo, lo + count)
         pstart, pcount = _tile_ranges(tp.sorted_tile[sl], geom.n_tiles)
         args = (tp.sorted_u[sl], tp.sorted_v[sl], tp.sorted_h[sl], tp.sorted_values[:, sl], pstart, pcount)
-        out.append(_level_vs_plain(torch, geom, args, slice(None), tp.spec, "sorted-level", f64_run, **tags))
+        out.append(_level_vs_plain(torch, geom, args, slice(None), tp.spec, "sorted-level", f64_run, plain_reps,
+                                   **tags))
     return out
 
 
-def path_kernels_vs_plain(torch, device, x, y, h, values, spec, engines, case: str) -> dict:
+def path_kernels_vs_plain(torch, device, x, y, h, values, spec, engines, case: str, plain_reps: int = 1) -> dict:
     """Kernels #1-#3 against their plain versions on one input of a path,
     at the shapes the path gives them: with the sorted engine, #1 on each
     level of its layout; with the coherent engine, #3 on its rows (bit for
-    bit), #2 on its candidates and #1 on each level of its routed tail."""
+    bit), #2 on its candidates and #1 on each level of its routed tail.
+    ``plain_reps``: runs of #1's and #2's plain versions timed (0: none)."""
     from astro_sph_tools_tpu_torch.ops import tile_particles, tile_particles_coherent
 
     TC = _coherent_module()
     out = {}
     if "sorted" in engines:
         tp = tile_particles(x, y, h, values, spec, need_perm=False, device=device)
-        out["sorted_levels"] = _sorted_levels_vs_plain(torch, tp, case=case)
+        out["sorted_levels"] = _sorted_levels_vs_plain(torch, tp, plain_reps=plain_reps, case=case)
         del tp
     if "coherent" in engines:
         cx, cy, ch, cv, _ = TC._device_inputs(x, y, h, values, spec, device)
         out["prep"] = _prep_vs_plain(torch, case, spec, cx, cy, ch, cv)
         del cx, cy, ch, cv
         lay = tile_particles_coherent(x, y, h, values, spec, device=device)
-        out["coherent_deposit"] = _coherent_vs_plain(torch, lay, spec, h, "kernel3d", 1, case=case)
-        out["tail_levels"] = _tail_levels_vs_plain(torch, lay, spec, case=case)
+        out["coherent_deposit"] = _coherent_vs_plain(torch, lay, spec, h, "kernel3d", plain_reps, case=case)
+        out["tail_levels"] = _tail_levels_vs_plain(torch, lay, spec, plain_reps, case=case)
         del lay
     return out
 
@@ -3591,9 +3622,723 @@ def phase_neighbours(torch, device, side: int = NEIGH_SIDE):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the multi-GPU layer (parallel/) on the one card
+# ---------------------------------------------------------------------------
+
+PAR_RANKS = 4  # (b): gloo ranks on the one card (NCCL takes one rank a card)
+PAR_SIZES = {
+    "log2n": 24,  # the 2D inputs: 2^24 of phase 3's generator, 1024^2 x 2 fields
+    "res": 1024,
+    "vox": 256,  # the 3D grid, 256^3 over VOX_BOX, periodic and open ...
+    "vox_log2n": 22,  # ... 2^22 of phase 14's generator
+    "sight_log2n": 22,  # 2^22 config-4 particles ...
+    "rays": 2048,  # ... and 2048 rays
+    "ids_log2n": 22,  # int64 IDs above 2^40
+    "rebalance_cap": 1 << 20,  # each rank's block in the rebalance
+    "halo_res": 1024,  # four haloes of phase 19's catalogue, 1024^2 x 2 fields
+}
+PAR_HALOES = (0, 1, 14, 15)  # two dense cutouts and the two that cross the periodic edges
+PAR_TIMEOUT_S = 300  # the gloo group's timeout; the parent waits this long past the ranks' start
+
+
+def _par_counters():
+    """The launch counters of kernels #1-#6, by the ``kernels`` line's names."""
+    from astro_sph_tools_tpu_torch.ops.coherent_prep import prep_rows
+    from astro_sph_tools_tpu_torch.ops.deposit_tiled import deposit_tiles
+    from astro_sph_tools_tpu_torch.ops.grid3d_tiled import deposit_3d_tiles
+    from astro_sph_tools_tpu_torch.ops.sightlines_fused import columns_tiles
+    from astro_sph_tools_tpu_torch.ops.spectra_fused import spectra_tiles
+
+    return {"deposit2d": deposit_tiles, "coherent_prep": prep_rows,
+            "coherent_deposit": _coherent_module().deposit_coherent_tiles, "sightline_columns": columns_tiles,
+            "sightline_spectra": spectra_tiles, "deposit3d": deposit_3d_tiles}
+
+
+def reset_launches() -> None:
+    for fn in _par_counters().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in _par_counters().items()}
+
+
+def par_level_vs_plain(torch, x, y, h, values, spec, K: int, **tags) -> dict:
+    """Kernel #1 vs its plain version on the one level that
+    ``deposit_2d_sharded`` launches on these particles (``values`` (F, N)),
+    as ``deposit_2d_pallas(level=...)`` lays them out."""
+    from astro_sph_tools_tpu_torch.ops import PALLAS_LEVELS
+    from astro_sph_tools_tpu_torch.ops.deposit_tiled import _level_layout, _tile_ranges
+
+    cfg = next(c for c in PALLAS_LEVELS if c.K == K)
+    geom, u, v, hs, vals, tile = _level_layout(x, y, h, values.contiguous(), spec, cfg, values.device)
+    pstart, pcount = _tile_ranges(tile, geom.n_tiles)
+    return _level_vs_plain(torch, geom, (u, v, hs, vals, pstart, pcount), slice(None), spec, "sharded-level",
+                           plain_reps=0, **tags)
+
+
+def par_slab_vs_plain(torch, pos, h, values, spec, rank: int, n_dev: int, K: int, **tags) -> dict:
+    """Kernel #6 vs its plain version on the extended slab (its planes plus
+    K // 2 halo planes a side, periodic in x and y when the grid is, open in
+    z) that ``deposit_3d_sharded`` fills on rank ``rank`` of ``n_dev``."""
+    from astro_sph_tools_tpu_torch.ops.grid3d_tiled import (
+        PALLAS_3D_LEVELS, _f32, deposit_3d_tiles, deposit_3d_tiles_plain,
+    )
+    from astro_sph_tools_tpu_torch.parallel.sharded import _slab_launch
+
+    device = pos.device
+    nz, ny, nx = spec.shape
+    slab, halo = nz // n_dev, K // 2
+    ext_shape = (slab + 2 * halo, ny, nx)
+    cfg = next(c for c in PALLAS_3D_LEVELS if c.K >= K)
+    args, kw = _slab_launch(_f32(pos, device).reshape(-1, 3), _f32(h, device), _f32(values, device).reshape(-1),
+                            spec, cfg, rank * slab - halo, ext_shape, "cubic_spline")
+    got = torch.zeros((1, *ext_shape), dtype=torch.float32, device=device)
+    ref = torch.zeros_like(got)
+    deposit_3d_tiles(*args, got, **kw)
+    deposit_3d_tiles_plain(*args, ref, **kw)
+    sync(torch, device)
+    err, rel = rel_err(got, ref)
+    case = {"phase": "kernel_vs_plain_3d", **tags, "K": cfg.K, "ext_shape": list(ext_shape),
+            "periodic": list(kw["periodic"]), "n": int(args[3].shape[0]), "max_abs_err": err, "rel_err": rel}
+    emit(case)
+    check(bool(torch.isfinite(got).all()), f"non-finite 3D kernel output {case}")
+    check(rel <= REL_TOL, f"the 3D kernel disagrees with its plain version on the extended slab: {case}")
+    return case
+
+
+def par_columns_vs_plain(torch, x, y, h, m, rx, ry, box, **tags) -> dict:
+    """Kernel #4 vs its plain version on the layout ``column_integrate_sharded``
+    launches it on for one shard (one field, integrated, periodic)."""
+    from astro_sph_tools_tpu_torch.ops.sightlines_fused import _columns_layout, columns_tiles, columns_tiles_plain
+
+    lay, n_fields, _ = _columns_layout(x, y, h, m, rx, ry, kernel="cubic_spline", periodic_box=box, device=x.device)
+    args = (lay.packed, lay.bounds, lay.rx, lay.ry, lay.rays, lay.grids)
+    kw = dict(n_fields=n_fields, kernel="cubic_spline", projection="integrated", periodic=lay.periodic,
+              Lx=lay.Lx, Ly=lay.Ly)
+    got = columns_tiles(*args, **kw)
+    ref = columns_tiles_plain(*args, **kw)
+    sync(torch, x.device)
+    err, rel = rel_err(got, ref)
+    case = {"phase": "columns_kernel_vs_plain", **tags, "n": int(x.shape[0]), "n_rays": len(rx),
+            "max_abs_err": err, "rel_err": rel}
+    emit(case)
+    check(bool(torch.isfinite(got).all()), f"non-finite column kernel output {case}")
+    check(rel <= REL_TOL, f"column kernel disagrees with its plain version: {case}")
+    return case
+
+
+def par_spectra_vs_plain(torch, pos, h, m, v, T, rx, ry, cosmology, box, n_bins: int, **tags) -> dict:
+    """Kernel #5 vs its plain version on the layout ``absorption_spectra_sharded``
+    launches it on for one shard (Gaussian, periodic)."""
+    from astro_sph_tools_tpu_torch.ops.spectra import _resolve_profile
+    from astro_sph_tools_tpu_torch.ops.spectra_fused import _spectra_layout, spectra_tiles, spectra_tiles_plain
+
+    device = pos.device
+    lay, vc, v_box, n_images = _spectra_layout(
+        pos, h, m, v, T, rx, ry, cosmology=cosmology, box_size=box, atomic_weight=1.008, n_bins=n_bins,
+        kernel="cubic_spline", periodic=True, profile="gaussian", device=device,
+    )
+    args = (lay.packed, lay.rx, lay.ry, lay.lo, lay.hi, torch.as_tensor(vc, device=device))
+    kw = dict(kernel="cubic_spline", periodic=lay.periodic, Lx=lay.Lx, Ly=lay.Ly, v_box=v_box, n_images=n_images,
+              profile="gaussian", voigt_k=_resolve_profile("gaussian", None, 1215.67))
+    got = spectra_tiles(*args, **kw)
+    ref = spectra_tiles_plain(*args, **kw)
+    sync(torch, device)
+    err, rel = rel_err(got, ref)
+    case = {"phase": "spectra_kernel_vs_plain", **tags, "n": int(pos.shape[0]), "n_rays": len(rx),
+            "n_bins": n_bins, "max_abs_err": err, "rel_err": rel}
+    emit(case)
+    check(bool(torch.isfinite(got).all()), f"non-finite spectra kernel output {case}")
+    check(rel <= REL_TOL, f"spectra kernel disagrees with its plain version: {case}")
+    return case
+
+
+def par_kernels_vs_plain(torch, device, case: str, coherent=None, level=None, slabs=(), columns=None,
+                         spectra=None) -> dict:
+    """Phase 23's kernels against their plain versions on one rank's own
+    inputs, at the shapes its entry points launch them at (REL_TOL; #3 bit
+    for bit): ``coherent`` (x, y, h, values, spec): #3, #2 and #1 on the
+    routed tail; ``level`` (x, y, h, values, spec, K): #1 at
+    ``deposit_2d_sharded``'s level; ``slabs``, each (pos, h, values, spec,
+    rank, n_dev, K): #6 on the extended slab; ``columns`` and ``spectra``:
+    #4 and #5 on the shard. Returns each kernel's largest errors by the
+    ``kernels`` line's names."""
+    cases = {}
+    if coherent is not None:
+        got = path_kernels_vs_plain(torch, device, *coherent, ("coherent",), case, plain_reps=0)
+        cases["coherent_prep"] = [got["prep"]]
+        cases["coherent_deposit"] = [got["coherent_deposit"]]
+        cases["deposit2d"] = list(got["tail_levels"])
+    if level is not None:
+        cases.setdefault("deposit2d", []).append(par_level_vs_plain(torch, *level, case=case))
+    for pos, h, values, spec, rank, n_dev, K in slabs:
+        cases.setdefault("deposit3d", []).append(par_slab_vs_plain(
+            torch, pos, h, values, spec, rank, n_dev, K, case=case, grid_periodic=spec.periodic_wrap))
+    if columns is not None:
+        cases["sightline_columns"] = [par_columns_vs_plain(torch, *columns, case=case)]
+    if spectra is not None:
+        cases["sightline_spectra"] = [par_spectra_vs_plain(torch, *spectra, case=case)]
+    return {name: _worst(rows) for name, rows in cases.items()}
+
+
+def _worst(rows) -> dict:
+    """The largest errors over ``rows`` (cases, or summaries with their
+    ``cases`` count); a case without ``rel_err`` was held bit for bit."""
+    return {"max_abs_err": max(r["max_abs_err"] for r in rows), "rel_err": max(r.get("rel_err", 0.0) for r in rows),
+            "cases": sum(r.get("cases", 1) for r in rows)}
+
+
+def merge_vs_plain(parts) -> dict:
+    """Each kernel's largest errors over several ``par_kernels_vs_plain``
+    results (the ranks')."""
+    names = sorted({name for rows in parts for name in rows})
+    return {name: _worst([rows[name] for rows in parts if name in rows]) for name in names}
+
+
+def par_level_K(h, px: float, support_factor: float = 2.0) -> int:
+    """K of the smallest footprint level that holds the largest footprint."""
+    from astro_sph_tools_tpu_torch.ops import PALLAS_LEVELS
+
+    s_max = support_factor * float(h.max()) / px
+    return next(c.K for c in PALLAS_LEVELS if c.max_s_pix >= s_max)
+
+
+def phase_parallel_world1(torch, device, particles, backend: str = "nccl", vox_log2n: int = VOX_LOG2N,
+                          vox_grid: int = VOX_GRID) -> dict:
+    """Phase 23 (a): the sharded engines at a world of one rank (NCCL on
+    the card) at full size, against their single-device engines, 1e-5 *
+    max: the coherent maps (synced, fused, and fused again under sync debug
+    mode "error"), beside the single-device engine's own run-to-run
+    difference (kernels #1-#2 add with float atomics); the all_reduce over
+    one rank bit for bit; ``deposit_2d_sharded`` at the smallest level that
+    holds the largest footprint against ``deposit_2d_auto``;
+    ``deposit_3d_sharded`` (K = 16, F = 1) against ``deposit_3d_auto``;
+    each wall beside its single-device engine's and the collective's share
+    of the coherent walls; each launched kernel against its plain version
+    on these inputs (``par_kernels_vs_plain``)."""
+    import tempfile
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from astro_sph_tools_tpu_torch.ops import (
+        GridSpec, MapSpec, caps_from_layout, deposit_2d_auto, deposit_2d_coherent, deposit_2d_coherent_fused,
+        deposit_3d_auto, tile_particles_coherent,
+    )
+    from astro_sph_tools_tpu_torch.parallel import (
+        deposit_2d_coherent_sharded, deposit_2d_coherent_sharded_fused, deposit_2d_sharded, deposit_3d_sharded,
+        make_mesh,
+    )
+    from astro_sph_tools_tpu_torch.parallel._comm import all_reduce_
+
+    x, y, h, m, t, box = particles
+    n = x.shape[0]
+    res = 1024
+    spec = MapSpec(shape=(res, res), extent=(0.0, box, 0.0, box), periodic_wrap=True)
+    fields = torch.stack([m, m * t])
+    K = par_level_K(h, box / res)
+    vox = VOX_BOX / vox_grid
+    spec3 = GridSpec(shape=(vox_grid,) * 3, extent=(0.0, VOX_BOX) * 3, periodic_wrap=True)
+    pos3, h3, m3, _ = voxel_particles(torch, device, 1 << vox_log2n, VOX_BOX, seed=11)
+    h3 = torch.clamp(h3, max=3.5 * vox)  # every footprint fits the K = 16 level, as in phase 14
+    caps = caps_from_layout(tile_particles_coherent(x, y, h, fields, spec, device=device))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(backend, store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0,
+                                world_size=1, timeout=timedelta(seconds=PAR_TIMEOUT_S))
+        try:
+            mesh = make_mesh(1) if device.type == "cuda" else make_mesh(1, device=device)
+            sync(torch, device)
+            # the main path, once, with every launch count reset just before it
+            reset_launches()
+            img_cs = deposit_2d_coherent_sharded(x, y, h, fields, spec, mesh)
+            img_fs, ok_fs = deposit_2d_coherent_sharded_fused(x, y, h, fields, spec, mesh, caps)
+            img_ps = deposit_2d_sharded(x, y, h, fields.T, spec, mesh, K=K)
+            slab = deposit_3d_sharded(pos3, h3, m3, spec3, mesh, K=16)
+            sync(torch, device)
+            launches = read_launches()
+            ok_fs = bool(ok_fs)
+
+            # zero host syncs in the fused sharded render: a synchronising
+            # call inside raises in this mode
+            debug = device.type == "cuda"
+            if debug:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                img_fs2, ok_fs2 = deposit_2d_coherent_sharded_fused(x, y, h, fields, spec, mesh, caps)
+            finally:
+                if debug:
+                    torch.cuda.set_sync_debug_mode("default")
+            ok_fs2 = bool(ok_fs2)
+
+            # kernels #1-#2 add with shared-memory float atomics, so two runs
+            # of one engine may differ in the last bits (csrc/deposit2d.cu):
+            # the engine's own run-to-run difference stands beside the
+            # sharded one's, and the one-rank all_reduce is held bit for bit
+            img_c1 = deposit_2d_coherent(x, y, h, fields, spec, device=device)
+            img_c2 = deposit_2d_coherent(x, y, h, fields, spec, device=device)
+            img_f1, ok_f1 = deposit_2d_coherent_fused(x, y, h, fields, spec, caps, device=device)
+            reduced = all_reduce_(img_c1.clone(), mesh)
+            ref2 = deposit_2d_auto(x, y, h, fields, spec, device=device)
+            cube = deposit_3d_auto(pos3, h3, m3, spec3, device=device)
+            errs = {
+                "coherent_sharded_vs_coherent": rel_err(img_cs, img_c1),
+                "coherent_run_to_run": rel_err(img_c2, img_c1),
+                "fused_sharded_vs_fused": rel_err(img_fs, img_f1),
+                "fused_sharded_sync_debug_vs_fused": rel_err(img_fs2, img_f1),
+                "deposit_2d_sharded_vs_auto": rel_err(img_ps.permute(2, 0, 1), ref2),
+                "deposit_3d_sharded_vs_auto": rel_err(slab, cube),
+            }
+            del cube
+            buf = torch.zeros((2, res, res), dtype=torch.float32, device=device)
+            walls = {
+                "coherent_sharded": wall_s(lambda: deposit_2d_coherent_sharded(x, y, h, fields, spec, mesh), 3),
+                "coherent": wall_s(lambda: deposit_2d_coherent(x, y, h, fields, spec, device=device), 3),
+                "fused_sharded": wall_s(lambda: deposit_2d_coherent_sharded_fused(
+                    x, y, h, fields, spec, mesh, caps), 3),
+                "fused": wall_s(lambda: deposit_2d_coherent_fused(x, y, h, fields, spec, caps, device=device), 3),
+                "deposit_2d_sharded": wall_s(lambda: deposit_2d_sharded(x, y, h, fields.T, spec, mesh, K=K), 3),
+                "deposit_2d_auto": wall_s(lambda: deposit_2d_auto(x, y, h, fields, spec, device=device), 3),
+                "deposit_3d_sharded": wall_s(lambda: deposit_3d_sharded(pos3, h3, m3, spec3, mesh, K=16), 3),
+                "deposit_3d_auto": wall_s(lambda: deposit_3d_auto(pos3, h3, m3, spec3, device=device), 3),
+                # the one all_reduce of a (2, 1024, 1024) f32 map stack
+                "all_reduce_map": wall_s(lambda: all_reduce_(buf, mesh), 5),
+            }
+        finally:
+            dist.destroy_process_group()
+
+    # each kernel of this path against its plain version on the path's own
+    # inputs: #1-#3 on the coherent layout of the 2^26 particles, #1 at the
+    # one level that deposit_2d_sharded runs them all at, #6 on the one
+    # rank's slab extended by its halo planes
+    vs_plain = par_kernels_vs_plain(
+        torch, device, "par_world1", coherent=(x, y, h, fields, spec), level=(x, y, h, fields, spec, K),
+        slabs=[(pos3, h3, m3, spec3, 0, 1, 16)],
+    )
+    out = {
+        "phase": "parallel_world1", "backend": backend, "n": n, "map": [res, res], "fields": 2,
+        "vox_n": int(pos3.shape[0]), "vox_grid": vox_grid, "K_2d": K, "launches": launches,
+        "all_reduce_identity_bitwise": bool(torch.equal(reduced, img_c1)),
+        "ok_fused_sharded": ok_fs, "ok_fused_sharded_sync_debug": ok_fs2, "ok_fused": bool(ok_f1),
+        "max_abs_err": {k: e for k, (e, _) in errs.items()}, "rel_err": {k: r for k, (_, r) in errs.items()},
+        "walls_s": walls,
+        "collective_share_coherent_sharded": walls["all_reduce_map"] / walls["coherent_sharded"],
+        "collective_share_fused_sharded": 2 * walls["all_reduce_map"] / walls["fused_sharded"],
+        "kernels_vs_plain": vs_plain,
+    }
+    emit(out)
+    for name in ("deposit2d", "coherent_prep", "coherent_deposit", "deposit3d"):
+        check(launches[name] > 0, f"phase 23 (a) launched no {name} kernel: {launches}")
+        check(vs_plain[name]["rel_err"] <= REL_TOL, f"phase 23 (a) {name} off its plain version: {vs_plain[name]}")
+    check(out["all_reduce_identity_bitwise"], "the all_reduce over one rank changed the map")
+    check(ok_fs and ok_fs2 and out["ok_fused"],
+          "the fused render reported overflow with capacities from its own layout")
+    check(tuple(img_cs.shape) == (2, res, res) and bool(torch.isfinite(img_cs).all()), "bad coherent sharded map")
+    for name, rel in out["rel_err"].items():
+        check(rel <= REL_TOL, f"phase 23 (a) {name}: {rel}")
+    return out
+
+
+def par_inputs(torch, device, sizes: dict) -> dict:
+    """Phase 23 (b)'s whole inputs, made from seeds on ``device`` (the
+    ranks and the parent make the same ones)."""
+    from astro_sph_tools_tpu_torch.data_structures import Cosmology
+
+    x, y, h, m, t = clustered_particles(1 << sizes["log2n"], 25.0, sizes["res"], seed=7, device=device)
+    vox_box = VOX_BOX
+    pos3, h3, m3, _ = voxel_particles(torch, device, 1 << sizes["vox_log2n"], vox_box, seed=11)
+    h3 = torch.clamp(h3, max=3.5 * vox_box / 512)  # at most 1.75 voxels of 256^3: the K = 16 level
+    pos_s, h_s, m_s, v_s, T_s = sightline_particles(torch, device, 1 << sizes["sight_log2n"], SIGHT_BOX, seed=17)
+    rng = np.random.default_rng(8)
+    rx = rng.uniform(0.0, SIGHT_BOX, sizes["rays"])
+    ry = rng.uniform(0.0, SIGHT_BOX, sizes["rays"])
+    n_ids = 1 << sizes["ids_log2n"]
+    g = torch.Generator(device=device)
+    g.manual_seed(5)
+    p1 = torch.randperm(n_ids, generator=g, device=device)
+    p2 = torch.randperm(n_ids, generator=g, device=device)
+    base = 1 << 40
+    src_ids = base + 3 * p1
+    return {
+        "2d": (x, y, h, m, t, 25.0), "3d": (pos3, h3, m3),
+        "sight": (pos_s, h_s, m_s, v_s, T_s, rx, ry, Cosmology.from_redshift(0.5, 0.6777, 0.04825)),
+        "ids": (src_ids, (src_ids % 1000003).float(), base + 3 * p2, base + 3 * p2 + (p2 % 2)),
+    }
+
+
+def par_rebalance_blocks(torch, device, rank: int, cap: int):
+    """Rank ``rank``'s rebalance blocks: one rank nearly full. Each holds
+    its valid elements' global indices (int64) and their f32 halves,
+    padding after; returns (blocks, counts of every rank)."""
+    counts = np.array([cap - 7, 3, 0, cap // 3], np.int64)
+    off = int(counts[:rank].sum())
+    idx = torch.full((cap,), -1, dtype=torch.int64, device=device)
+    idx[:counts[rank]] = off + torch.arange(int(counts[rank]), device=device)
+    return [idx, torch.where(idx >= 0, idx.float() * 0.5, 0.0)], counts
+
+
+def par_rank_work(torch, mesh, sizes: dict) -> dict:
+    """One rank of phase 23 (b): every entry point of ``parallel/`` on this
+    rank's shard of ``par_inputs``; each entry's output, wall and the bytes
+    this rank hands to the collectives."""
+    from astro_sph_tools_tpu_torch import render_halo_maps
+    from astro_sph_tools_tpu_torch.ops import CoherentCaps, GridSpec, MapSpec, caps_from_layout, tile_particles_coherent
+    from astro_sph_tools_tpu_torch.parallel import (
+        absorption_spectra_sharded, caps_union_mesh, column_integrate_sharded, deposit_2d_coherent_sharded,
+        deposit_2d_coherent_sharded_fused, deposit_2d_sharded, deposit_3d_sharded, distributed_reorder,
+        rebalance_evenly,
+    )
+    from astro_sph_tools_tpu_torch.parallel._comm import all_reduce_
+
+    device, r, s = mesh.device, mesh.rank, mesh.size
+    inp = par_inputs(torch, device, sizes)
+    x, y, h, m, t, box = inp["2d"]
+    q = x.shape[0] // s
+    sl = slice(r * q, (r + 1) * q)  # Morton-contiguous quarters
+    res = sizes["res"]
+    spec = MapSpec(shape=(res, res), extent=(0.0, box, 0.0, box), periodic_wrap=True)
+    fields = torch.stack([m, m * t])
+    xs, ys, hs, fs = x[sl], y[sl], h[sl], fields[:, sl].contiguous()
+    K = par_level_K(h, box / res)
+    caps = caps_union_mesh(caps_from_layout(tile_particles_coherent(xs, ys, hs, fs, spec, device=device)), mesh)
+    tiny = CoherentCaps(b0=4096, bucket_caps=(0,) * len(caps.bucket_caps), level_caps=(0,) * len(caps.level_caps))
+
+    pos3, h3, m3 = inp["3d"]
+    ng = sizes["vox"]
+    slab_of = torch.clamp((pos3[:, 2] / (VOX_BOX / s)).long(), 0, s - 1)
+    mine = torch.nonzero(slab_of == r).squeeze(1)
+    p3, hh3, mm3 = pos3[mine], h3[mine], m3[mine]
+    grids = [GridSpec(shape=(ng,) * 3, extent=(0.0, VOX_BOX) * 3, periodic_wrap=p) for p in (True, False)]
+    pos_s, h_s, m_s, v_s, T_s, rx, ry, cosmo = inp["sight"]
+    qs = pos_s.shape[0] // s
+    ss = slice(r * qs, (r + 1) * qs)
+    src_ids, data, tgt_full, tgt_part = inp["ids"]
+    qi = src_ids.shape[0] // s
+    si = slice(r * qi, (r + 1) * qi)
+    blocks, counts = par_rebalance_blocks(torch, device, r, sizes["rebalance_cap"])
+    snap = memory_snapshot(xs, ys, hs, m[sl], t[sl], box)
+    centres, radii = halo_catalogue(torch, inp["2d"])
+    cat = memory_catalogue(centres, radii, snap)
+    map_bytes = 2 * res * res * 4
+    halo = 8  # K = 16
+    entries = [
+        ("deposit_2d_sharded", lambda: deposit_2d_sharded(xs, ys, hs, fs.T, spec, mesh, K=K), map_bytes),
+        ("coherent_synced", lambda: deposit_2d_coherent_sharded(xs, ys, hs, fs, spec, mesh), map_bytes + 16),
+        ("coherent_fused", lambda: deposit_2d_coherent_sharded_fused(xs, ys, hs, fs, spec, mesh, caps),
+         map_bytes + 4),
+        ("coherent_fused_tiny_caps_on_rank_3", lambda: deposit_2d_coherent_sharded_fused(
+            xs, ys, hs, fs, spec, mesh, tiny if r == s - 1 else caps), map_bytes + 4),
+        ("deposit_3d_sharded_periodic", lambda: deposit_3d_sharded(p3, hh3, mm3, grids[0], mesh, K=16),
+         2 * halo * ng * ng * 4),
+        ("deposit_3d_sharded_open", lambda: deposit_3d_sharded(p3, hh3, mm3, grids[1], mesh, K=16),
+         2 * halo * ng * ng * 4),
+        ("columns_sharded", lambda: column_integrate_sharded(
+            [(pos_s[ss, 0], pos_s[ss, 1], h_s[ss], m_s[ss])], rx, ry, periodic_box=SIGHT_BOX, mesh=mesh),
+         sizes["rays"] * 4),
+        ("spectra_sharded", lambda: absorption_spectra_sharded(
+            [(pos_s[ss], h_s[ss], m_s[ss], v_s[ss], T_s[ss])], rx, ry, cosmology=cosmo, box_size=SIGHT_BOX,
+            n_bins=512, mesh=mesh)[0], sizes["rays"] * 512 * 4),
+        ("reorder_permutation", lambda: distributed_reorder(src_ids[si], data[si], tgt_full[si], mesh)[:2],
+         qi * (8 + 4) + qi * 8 + qi * (4 + 1)),
+        ("reorder_partial", lambda: distributed_reorder(src_ids[si], data[si], tgt_part[si], mesh,
+                                                        default_value=-1.0)[:2],
+         qi * (8 + 4) + qi * 8 + qi * (4 + 1)),
+        ("rebalance", lambda: rebalance_evenly(blocks, counts, mesh, pad_values=(-1, 0.0)),
+         int(counts[r]) * (8 + 4)),
+        ("render_halo_maps", lambda: [{k: st[k] for k in st.keys()} for st in render_halo_maps(
+            snap, cat, list(PAR_HALOES), fields=("density", "temperature"), resolution=sizes["halo_res"],
+            mesh=mesh)], len(PAR_HALOES) * map_bytes),
+    ]
+    out = {"rank": r, "device": str(device), "caps": [caps.b0, list(caps.bucket_caps), list(caps.level_caps)],
+           "entries": {}}
+    # the main path, once, with every launch count reset just before it
+    reset_launches()
+    for name, fn, nbytes_ in entries:
+        sync(torch, device)
+        t0 = time.perf_counter()
+        value = fn()
+        sync(torch, device)
+        out["entries"][name] = {"wall_s_cold": time.perf_counter() - t0, "bytes_exchanged": nbytes_,
+                                "result": _to_host(torch, value)}
+    out["launches"] = read_launches()
+    for name, fn, _ in entries:
+        out["entries"][name]["wall_s"] = wall_s(fn, 2, device)
+    # the map stack's all_reduce alone: gloo stages it through the host
+    buf = torch.zeros((2, res, res), dtype=torch.float32, device=device)
+    out["all_reduce_map_s"] = wall_s(lambda: all_reduce_(buf, mesh), 3, device)
+    if device.type == "cuda":  # on the CPU every wrapper runs its plain version
+        # each launched kernel against its plain version on this rank's own
+        # inputs, after the last collective
+        out["kernels_vs_plain"] = par_kernels_vs_plain(
+            torch, device, f"par_rank{r}", coherent=(xs, ys, hs, fs, spec), level=(xs, ys, hs, fs, spec, K),
+            slabs=[(p3, hh3, mm3, spec3, r, s, 16) for spec3 in grids],
+            columns=(pos_s[ss, 0].contiguous(), pos_s[ss, 1].contiguous(), h_s[ss], m_s[ss], rx, ry, SIGHT_BOX),
+            spectra=(pos_s[ss], h_s[ss], m_s[ss], v_s[ss], T_s[ss], rx, ry, cosmo, SIGHT_BOX, 512),
+        )
+    return out
+
+
+def _to_host(torch, value):
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu()
+    if isinstance(value, (list, tuple)):
+        return type(value)(_to_host(torch, v) for v in value)
+    if isinstance(value, dict):
+        return {k: _to_host(torch, v) for k, v in value.items()}
+    return value
+
+
+def par_rank_main(rank: int, par_dir: str) -> None:
+    """A phase 23 (b) rank process: a gloo group of PAR_RANKS ranks on the
+    card through a FileStore in ``par_dir``; writes ``rank<r>.pt``."""
+    from datetime import timedelta
+
+    sys.path.insert(0, ROOT)
+    import torch
+    import torch.distributed as dist
+
+    from astro_sph_tools_tpu_torch.parallel import make_mesh
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch.cuda.is_available() is False: phase 23's ranks need the GPU")
+    with open(os.path.join(par_dir, "sizes.json")) as f:
+        sizes = json.load(f)
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(par_dir, "store"), PAR_RANKS), rank=rank,
+                            world_size=PAR_RANKS, timeout=timedelta(seconds=PAR_TIMEOUT_S))
+    try:
+        mesh = make_mesh(PAR_RANKS)
+        torch.cuda.set_device(mesh.device)
+        out = par_rank_work(torch, mesh, sizes)
+        torch.save(out, os.path.join(par_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(cmds, par_dir: str, timeout_s: float) -> list:
+    """Start one process per command, wait for all of them with one
+    deadline; a rank that fails or outlives the deadline fails the phase.
+    Every process is stopped before this returns. Returns their exit codes."""
+    procs, logs = [], []
+    try:
+        for r, cmd in enumerate(cmds):
+            log = open(os.path.join(par_dir, f"rank{r}.log"), "w")
+            logs.append(log)
+            env = {k: v for k, v in os.environ.items() if k != "LOCAL_RANK"}
+            procs.append(subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, env=env))
+        deadline = time.monotonic() + timeout_s
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"phase 23's ranks outlived {timeout_s} s")
+            if any(p.poll() not in (None, 0) for p in procs):
+                time.sleep(2)  # let the others report, then stop them
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log in logs:
+            log.close()
+    rcs = [p.returncode for p in procs]
+    if any(rc != 0 for rc in rcs):
+        for r in range(len(cmds)):
+            with open(os.path.join(par_dir, f"rank{r}.log")) as f:
+                print(f"--- rank {r} (exit {rcs[r]}) ---\n" + f.read()[-3000:], file=sys.stderr, flush=True)
+        raise AssertionError(f"phase 23's ranks failed: exit codes {rcs}")
+    return rcs
+
+
+def par_check(torch, device, results: list, sizes: dict) -> dict:
+    """Phase 23 (b)'s checks in the parent: every rank's outputs against
+    the single-device engines on the same whole inputs, and the rebalance
+    against the even split of the counts the ranks were given."""
+    from astro_sph_tools_tpu_torch import render_halo_maps
+    from astro_sph_tools_tpu_torch.ops import (
+        PALLAS_LEVELS, ArrayReorder, GridSpec, MapSpec, absorption_spectra_pallas, column_integrate_pallas,
+        deposit_2d_auto, deposit_2d_coherent, deposit_2d_pallas, deposit_3d_auto,
+    )
+
+    inp = par_inputs(torch, device, sizes)
+    x, y, h, m, t, box = inp["2d"]
+    res = sizes["res"]
+    spec = MapSpec(shape=(res, res), extent=(0.0, box, 0.0, box), periodic_wrap=True)
+    fields = torch.stack([m, m * t])
+    ref_auto = deposit_2d_auto(x, y, h, fields, spec, device=device)
+    ref_coh = deposit_2d_coherent(x, y, h, fields, spec, device=device)
+    pos3, h3, m3 = inp["3d"]
+    ng = sizes["vox"]
+    pos_s, h_s, m_s, v_s, T_s, rx, ry, cosmo = inp["sight"]
+    src_ids, data, tgt_full, tgt_part = inp["ids"]
+    centres, radii = halo_catalogue(torch, inp["2d"])
+    snap = memory_snapshot(x, y, h, m, t, box)
+    level = next(c for c in PALLAS_LEVELS if c.K == par_level_K(h, box / res))
+    # deposit_2d_sharded is deposit_2d_pallas at one level on each shard:
+    # held to it on the whole input (REL_TOL), and to the adaptive engine
+    # (PATH_TOL: the levels' tile-local f32 frames differ)
+    refs = {
+        "deposit_2d_sharded": lambda: deposit_2d_pallas(x, y, h, fields, spec, level=level, device=device).permute(
+            1, 2, 0),
+        "deposit_2d_sharded_vs_auto": lambda: ref_auto.permute(1, 2, 0),
+        "coherent_synced": lambda: ref_coh,
+        "coherent_fused": lambda: ref_coh,
+        "deposit_3d_sharded_periodic": lambda: deposit_3d_auto(
+            pos3, h3, m3, GridSpec(shape=(ng,) * 3, extent=(0.0, VOX_BOX) * 3, periodic_wrap=True), device=device),
+        "deposit_3d_sharded_open": lambda: deposit_3d_auto(
+            pos3, h3, m3, GridSpec(shape=(ng,) * 3, extent=(0.0, VOX_BOX) * 3), device=device),
+        "columns_sharded": lambda: column_integrate_pallas(
+            pos_s[:, 0].contiguous(), pos_s[:, 1].contiguous(), h_s, m_s, rx, ry, periodic_box=SIGHT_BOX,
+            device=device),
+        "spectra_sharded": lambda: absorption_spectra_pallas(
+            pos_s, h_s, m_s, v_s, T_s, rx, ry, cosmology=cosmo, box_size=SIGHT_BOX, n_bins=512, device=device)[0],
+    }
+    rows = {}
+    for name, ref_fn in refs.items():
+        ref = ref_fn()
+        entry = "deposit_2d_sharded" if name == "deposit_2d_sharded_vs_auto" else name
+        if name.startswith("deposit_3d"):
+            got = torch.cat([r["entries"][name]["result"] for r in results])
+            same = True
+        else:
+            got_all = [r["entries"][entry]["result"] for r in results]
+            if name.startswith("coherent_fused"):
+                got_all = [g[0] for g in got_all]
+            got = got_all[0]
+            same = all(torch.equal(g, got) for g in got_all)
+        err, rel = rel_err(got.to(device), ref)
+        rows[name] = {"max_abs_err": err, "rel_err": rel, "same_on_every_rank": same,
+                      "tolerance": PATH_TOL if name == "deposit_2d_sharded_vs_auto" else REL_TOL}
+    rows["coherent_fused"]["ok"] = [bool(r["entries"]["coherent_fused"]["result"][1]) for r in results]
+    rows["coherent_fused_tiny_caps_on_rank_3"] = {
+        "ok": [bool(r["entries"]["coherent_fused_tiny_caps_on_rank_3"]["result"][1]) for r in results]}
+
+    ref_perm = ArrayReorder.create(src_ids, tgt_full)(data, default_value=-1.0)
+    ref_part = ArrayReorder.create(src_ids, tgt_part)(data, default_value=-1.0)
+    for name, ref, tgt in (("reorder_permutation", ref_perm, tgt_full), ("reorder_partial", ref_part, tgt_part)):
+        vals = torch.cat([r["entries"][name]["result"][0] for r in results]).to(device)
+        matched = torch.cat([r["entries"][name]["result"][1] for r in results]).to(device)
+        present = torch.isin(tgt, src_ids)
+        rows[name] = {"exact": bool(torch.equal(vals, ref)), "matched_exact": bool(torch.equal(matched, present)),
+                      "matched": int(matched.sum()), "n": int(tgt.shape[0])}
+
+    # the even split of the input counts, from the counts the ranks were
+    # given: total // size each, the first total % size ranks one more
+    counts_before = par_rebalance_blocks(torch, "cpu", 0, sizes["rebalance_cap"])[1]
+    total, n_ranks = int(counts_before.sum()), len(results)
+    even = [total // n_ranks + (1 if r < total % n_ranks else 0) for r in range(n_ranks)]
+    counts_ok = all([int(c) for c in r["entries"]["rebalance"]["result"][1]] == even for r in results)
+    idx = torch.cat([r["entries"]["rebalance"]["result"][0][0][:c] for r, c in zip(results, even)])
+    half = torch.cat([r["entries"]["rebalance"]["result"][0][1][:c] for r, c in zip(results, even)])
+    pads = all(bool((r["entries"]["rebalance"]["result"][0][0][c:] == -1).all()) for r, c in zip(results, even))
+    rows["rebalance"] = {
+        "counts_before": counts_before.tolist(),
+        "counts_after": results[0]["entries"]["rebalance"]["result"][1].tolist(), "counts_even": even,
+        "counts_exact": counts_ok,
+        "exact": counts_ok and bool(torch.equal(idx, torch.arange(total)))
+        and bool(torch.equal(half, idx.float() * 0.5)) and pads,
+    }
+
+    ref_halo = render_halo_maps(snap, memory_catalogue(centres, radii, snap), list(PAR_HALOES),
+                                fields=("density", "temperature"), resolution=sizes["halo_res"], device=device)
+    halo_errs = []
+    for r in results:
+        for got, ref in zip(r["entries"]["render_halo_maps"]["result"], ref_halo):
+            covered = ref["surface_density"] > 1e-3 * ref["surface_density"].max()
+            for k in got:
+                g, want = got[k], ref[k]
+                if k.startswith("mean_"):
+                    g, want = g[covered], want[covered]
+                halo_errs.append(rel_err(g, want))
+    rows["render_halo_maps"] = {"max_abs_err": max(e for e, _ in halo_errs),
+                                "rel_err": max(e for _, e in halo_errs), "tolerance": REL_TOL}
+    for name, row in rows.items():
+        entry = results[0]["entries"].get(name)
+        if entry is None:
+            continue
+        row["wall_s_cold"] = [r["entries"][name]["wall_s_cold"] for r in results]
+        row["wall_s"] = [r["entries"][name]["wall_s"] for r in results]
+        row["bytes_exchanged_per_rank"] = entry["bytes_exchanged"]
+    return rows
+
+
+def phase_parallel_gloo(torch, device, sizes: dict = PAR_SIZES) -> dict:
+    """Phase 23 (b): PAR_RANKS gloo ranks on the one card, each a process of
+    its own (``par_rank_main``), with a deadline; every entry point against
+    the single-device result of the same particles, and on every rank each
+    launched kernel against its plain version on the rank's own inputs."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "sizes.json"), "w") as f:
+            json.dump(sizes, f)
+        cmds = [[sys.executable, os.path.abspath(__file__), "--par-rank", str(r), "--par-dir", tmp]
+                for r in range(PAR_RANKS)]
+        run_ranks(cmds, tmp, PAR_TIMEOUT_S + 120)
+        spawn_s = time.perf_counter() - t0
+        results = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(PAR_RANKS)]
+    rows = par_check(torch, device, results, sizes)
+    vs_plain = merge_vs_plain([r["kernels_vs_plain"] for r in results])
+    launches = {k: sum(r["launches"][k] for r in results) for k in results[0]["launches"]}
+    all_reduce_s = [r["all_reduce_map_s"] for r in results]
+    staged = {name: max(all_reduce_s) / float(np.median(rows[name]["wall_s"]))
+              for name in ("deposit_2d_sharded", "coherent_synced", "coherent_fused")}
+    out = {"phase": "parallel_gloo", "ranks": PAR_RANKS, "backend": "gloo", "sizes": sizes,
+           "devices": [r["device"] for r in results], "ranks_s": spawn_s, "launches": launches, "entries": rows,
+           "all_reduce_map_s": all_reduce_s, "staged_all_reduce_share": staged, "caps_union": results[0]["caps"],
+           "kernels_vs_plain": vs_plain}
+    emit(out)
+    check_par_rows(rows, results)
+    for name in ("deposit2d", "coherent_prep", "coherent_deposit", "sightline_columns", "sightline_spectra",
+                 "deposit3d"):
+        check(launches[name] > 0, f"phase 23 (b) launched no {name} kernel: {launches}")
+        check(vs_plain[name]["cases"] >= PAR_RANKS and vs_plain[name]["rel_err"] <= REL_TOL,
+              f"phase 23 (b) {name} off its plain version on a rank's inputs: {vs_plain}")
+    return out
+
+
+def check_par_rows(rows: dict, results: list) -> None:
+    """Phase 23 (b)'s verdict on ``par_check``'s rows: each map within
+    REL_TOL of its single-device engine and the same on every rank, every
+    rank ``ok`` with merged capacities and none when one rank's overflow,
+    the reorders and the rebalance exact, one set of merged capacities."""
+    check(len({json.dumps(r["caps"]) for r in results}) == 1, "the ranks' merged capacities differ")
+    for name in ("deposit_2d_sharded", "deposit_2d_sharded_vs_auto", "coherent_synced", "coherent_fused",
+                 "deposit_3d_sharded_periodic", "deposit_3d_sharded_open", "columns_sharded", "spectra_sharded",
+                 "render_halo_maps"):
+        check(rows[name]["rel_err"] <= rows[name]["tolerance"],
+              f"phase 23 (b) {name} off its single-device engine: {rows[name]}")
+        check(rows[name].get("same_on_every_rank", True), f"phase 23 (b) {name} differs between ranks")
+    check(all(rows["coherent_fused"]["ok"]), "the fused sharded render reported overflow with merged capacities")
+    check(not any(rows["coherent_fused_tiny_caps_on_rank_3"]["ok"]),
+          "one rank's overflow did not make ok False on every rank")
+    for name in ("reorder_permutation", "reorder_partial"):
+        check(rows[name]["exact"] and rows[name]["matched_exact"], f"phase 23 (b) {name} not exact: {rows[name]}")
+    check(rows["rebalance"]["exact"], f"phase 23 (b) rebalance not exact: {rows['rebalance']}")
+
+
+def phase_parallel(torch, device, particles) -> dict:
+    """Phase 23: (a) a world of one rank over NCCL at full size, (b)
+    PAR_RANKS gloo ranks on the one card; the launches of kernels #1-#6
+    over both, each above zero, and each kernel's largest error against its
+    plain version on the phase's inputs."""
+    t0 = time.perf_counter()
+    a = phase_parallel_world1(torch, device, particles)
+    torch.cuda.empty_cache()
+    b = phase_parallel_gloo(torch, device)
+    launches = {k: a["launches"][k] + b["launches"][k] for k in a["launches"]}
+    out = {"phase": "parallel", "launches": launches,
+           "kernels_vs_plain": merge_vs_plain([a["kernels_vs_plain"], b["kernels_vs_plain"]]),
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    check(all(v > 0 for v in launches.values()), f"phase 23 launched a kernel of #1-#6 no time: {launches}")
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,19,10,11,12,13,14,16,17,20,21,22",
+    parser.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,19,23,10,11,12,13,14,16,17,20,21,22",
                         help="comma-separated phases to run (15 and 18 only when named)")
     parser.add_argument("--log2n", type=int, default=MAIN_LOG2N, help="log2 of the main path's particle count")
     parser.add_argument("--sight-n", type=int, default=SIGHT_N, help="gas particles of phases 10-12")
@@ -3604,11 +4349,16 @@ def main() -> None:
     parser.add_argument("--ion-log2n", type=int, default=ION_LOG2N, help="log2 of phase 21's particle count")
     parser.add_argument("--neigh-side", type=int, default=NEIGH_SIDE,
                         help="phase 22's particles per axis (DM and gas each side^3)")
+    parser.add_argument("--par-rank", type=int, help="run one rank of phase 23 (b) (started by phase 23 itself)")
+    parser.add_argument("--par-dir", help="phase 23 (b)'s shared directory (with --par-rank)")
     parser.add_argument("--cpu-probe", choices=("torch", "port"),
                         help="run one CPU first-call probe in this process and print its error (phase 0)")
     args = parser.parse_args()
     if args.cpu_probe:
         print(json.dumps(cpu_probe(args.cpu_probe)), flush=True)
+        return
+    if args.par_rank is not None:
+        par_rank_main(args.par_rank, args.par_dir)
         return
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -3626,7 +4376,7 @@ def main() -> None:
     if phases - {0}:
         phase_build()
     cases = phase_kernels(torch, device) if 2 in phases else []
-    particles, gen_s = main_particles(torch, device, args.log2n) if phases & {3, 4, 6, 7, 8, 9, 19} else (None, 0.0)
+    particles, gen_s = main_particles(torch, device, args.log2n) if phases & {3, 4, 6, 7, 8, 9, 19, 23} else (None, 0.0)
     main_out = phase_main(torch, device, particles, gen_s) if 3 in phases else None
     if 4 in phases:
         phase_render(torch, device, particles)
@@ -3638,6 +4388,7 @@ def main() -> None:
     if 9 in phases:
         phase_render_coherent(torch, device, particles)
     halo_out = phase_halo(torch, device, particles) if 19 in phases else None
+    par_out = phase_parallel(torch, device, particles) if 23 in phases else None
     del particles
     torch.cuda.empty_cache()
     sl = sightline_setup(torch, device, args.sight_n) if phases & {10, 11, 12} else None
@@ -3676,6 +4427,15 @@ def main() -> None:
             "library_ms": None,
         }
 
+    def par_launches(name):
+        """The multi-GPU path's launches of a kernel (phase 23, both parts)
+        and its largest error against its plain version on that path's
+        inputs."""
+        row = par_out["kernels_vs_plain"][name] if par_out else None
+        return {"parallel_path_launches": par_out["launches"][name] if par_out else None,
+                "parallel_path_max_abs_err": row["max_abs_err"] if row else None,
+                "parallel_path_rel_err": row["rel_err"] if row else None}
+
     ref_case = pick(cases, case="uniform", K=8, F=2, projection="kernel3d")
     main_k8 = pick(main_out["levels"], K=8) if main_out else None
     prep_case = pick(prep_cases, case="coherent_order")
@@ -3712,6 +4472,7 @@ def main() -> None:
             "ion_path_launches": ion_out["launches"]["deposit2d"] if ion_out else None,
             # the DM map of phase 22's smoothing lengths
             "dm_path_launches": neigh_out["dm_map"]["launches"] if neigh_out else None,
+            **par_launches("deposit2d"),
         },
         {
             "name": "coherent_prep",
@@ -3725,6 +4486,7 @@ def main() -> None:
             **bound_keys(prep_case),
             "e2e_path_launches": e2e_out["launches"]["coherent_prep"] if e2e_out else None,
             "ion_path_launches": ion_out["launches"]["coherent_prep"] if ion_out else None,
+            **par_launches("coherent_prep"),
         },
         {
             "name": "coherent_deposit",
@@ -3741,6 +4503,7 @@ def main() -> None:
             "main_path_k8_bound_ms": coh_case["bound_ms"] if coh_case else None,
             "e2e_path_launches": e2e_out["launches"]["coherent_deposit"] if e2e_out else None,
             "ion_path_launches": ion_out["launches"]["coherent_deposit"] if ion_out else None,
+            **par_launches("coherent_deposit"),
         },
         {
             "name": "sightline_columns",
@@ -3755,6 +4518,7 @@ def main() -> None:
             # the config-4 columns' launch: 10^4 rays (phase 12)
             "main_path_ms": sight_out["columns_work"]["ms"] if sight_out else None,
             "main_path_bound_ms": sight_out["columns_work"]["bound_ms"] if sight_out else None,
+            **par_launches("sightline_columns"),
         },
         {
             "name": "sightline_spectra",
@@ -3766,6 +4530,7 @@ def main() -> None:
             "ms": spec_case["ms"] if spec_case else None,
             "plain_ms": spec_case["plain_ms"] if spec_case else None,
             **bound_keys(spec_case),
+            **par_launches("sightline_spectra"),
         },
         {
             "name": "deposit3d",
@@ -3778,6 +4543,7 @@ def main() -> None:
             "ms": vox_case["ms"] if vox_case else None,
             "plain_ms": vox_case["plain_ms"] if vox_case else None,
             **bound_keys(vox_case),
+            **par_launches("deposit3d"),
         },
         {
             "name": "append_gangs",

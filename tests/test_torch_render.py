@@ -144,6 +144,12 @@ def test_port_imports_neither_jax_nor_h5py():
         "import astro_sph_tools_tpu_torch.ops.cells, astro_sph_tools_tpu_torch.ops.neighbors\n"
         "import astro_sph_tools_tpu_torch.scripts.find_nearest_haloes, astro_sph_tools_tpu_torch.tools.projections\n"
         "from astro_sph_tools_tpu_torch.tools import create_image, ArrayReorder_2\n"
+        "import astro_sph_tools_tpu_torch.parallel, astro_sph_tools_tpu_torch.parallel.mesh\n"
+        "import astro_sph_tools_tpu_torch.parallel._comm, astro_sph_tools_tpu_torch.parallel.sharded\n"
+        "import astro_sph_tools_tpu_torch.parallel.coherent, astro_sph_tools_tpu_torch.parallel.sightlines\n"
+        "import astro_sph_tools_tpu_torch.parallel.reorder, astro_sph_tools_tpu_torch.parallel.rebalance\n"
+        "import astro_sph_tools_tpu_torch.parallel.sharded_io\n"
+        "from astro_sph_tools_tpu_torch.parallel import distributed_reorder, make_mesh, Mesh\n"
         "print(sorted(m for m in ('jax', 'h5py', 'astro_sph_tools_tpu') if m in sys.modules))\n"
     )
     out = subprocess.run(

@@ -127,8 +127,10 @@ class TestRenderHaloMaps:
             assert rel_err(stack["surface_density"], expected) <= ORACLE_TOL
 
     def test_mesh_raises(self, eagle):
+        """``mesh`` takes a parallel.Mesh (the mesh path itself runs in
+        tests/test_torch_parallel_multiprocess.py); anything else raises."""
         (snap, cat), _ = eagle
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
+        with pytest.raises(TypeError, match="make_mesh"):
             t_render(snap, cat, [0], mesh=object(), device="cpu")
 
     def test_bad_field_and_engine(self, eagle):
