@@ -74,9 +74,9 @@ _SIGNATURES = {
             ctypes.POINTER(_F), ctypes.POINTER(_I),  # host float / int parameters
             _P,  # cudaStream_t
         ],
-        "coherent_deposit_launch": [
+        "coherent_launch": [
             _P, _I,  # packed rows, n_fields
-            _P, _P, _P, _I,  # cand_row, cstart, cend, n_tiles
+            _P, _P, _P, _P, _I, _I,  # rows, lane0 (window branch) or NULL, start, end, n_tiles, window
             _P,  # out (n_tiles, F*R, 128)
             _I, _I, _F, _F, _F,  # K, R, offset, psx, psy
             _I, _I, _F, _F,  # kernel id, integrated, norm_3d, support_factor
@@ -84,7 +84,7 @@ _SIGNATURES = {
             _I,  # blocks a tile (cluster size)
             _P,  # cudaStream_t
         ],
-        "coherent_prep_param_counts": [ctypes.POINTER(_I), ctypes.POINTER(_I)],
+        "coherent_prep_param_counts":[ctypes.POINTER(_I), ctypes.POINTER(_I)],
     },
     "sightlines": {
         "sightline_columns_launch": [

@@ -80,6 +80,21 @@
 //    candidate arrays and the accumulators written once). The split keeps
 //    a dense tile's rows (up to ~9x the mean on the clustered main path)
 //    from serialising in one block.
+//
+//    The window branch (WIN = true, coherent_launch with lane0) replaces the
+//    TPU kernel's window-step mode (_deposit_kernel_coherent with wb_bits >
+//    0: its window words and (1, 8, W) lane blocks). In window mode the row
+//    sort leaves each candidate's lanes one contiguous segment, and the
+//    layout gives each candidate the W-lane windows (wb0, nw) that cover
+//    it; the layout expands the candidates into one window step each
+//    (row, first lane) in tile order. The kernel is the whole-row kernel
+//    with window steps in place of candidate rows: rank r of a tile's
+//    cluster takes every C-th step, a warp one (step, chunk) item at a
+//    time, a chunk being min(W, 256) lanes (W = 128: half a whole-row
+//    chunk; W = 1024: four), and ballots only those lanes. The K4 class of
+//    a window (k4n) changes no value here, as above, and is not read.
+//    Bound: as the whole-row kernel, with the key channel of each window
+//    step's W lanes in place of each candidate row's 2048.
 
 #include <float.h>
 #include <limits.h>
@@ -322,20 +337,30 @@ coherent_prep_kernel(const float* __restrict__ x, const float* __restrict__ y,
   }
 }
 
-template <int KID, bool INTEG>
+// WIN = false: the whole-row kernel. Item i of a rank is chunk i % 8 of
+// its candidate i / 8: cand_row holds each candidate's packed row and
+// [cstart[t], cend[t]) is tile t's slice of the candidates.
+// WIN = true: the window branch. The list is one of window steps (the
+// layout expands each candidate into its nw W-lane windows): cand_row holds
+// each step's row, lane0 its first lane (wb0 + j) * W, and [cstart[t],
+// cend[t]) tile t's slice of the steps. Item i of a rank is chunk i % nch of
+// its step i / nch, nch = W / min(W, 256) chunks of min(W, 256) lanes.
+template <int KID, bool INTEG, bool WIN>
 __global__ void __launch_bounds__(kThreads)
 coherent_deposit_kernel(const float* __restrict__ packed, int n_fields,
                         const int* __restrict__ cand_row,
+                        const int* __restrict__ lane0,
                         const int* __restrict__ cstart,
                         const int* __restrict__ cend, float* __restrict__ out,
-                        Footprint p, const float* __restrict__ cheb, int n_cheb, int C) {
+                        Footprint p, const float* __restrict__ cheb, int n_cheb, int C,
+                        int window) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* s_cheb = smem;          // kMaxCheb
   float* acc = smem + kMaxCheb;  // n_fields * R * kLanes
   const int plane = p.R * kLanes;
   const int n_acc = n_fields * plane;
-  // each warp's matching lanes of one 256-lane chunk of its row
+  // each warp's matching lanes of one chunk (<= 256 lanes) of its row
   unsigned short* s_list = reinterpret_cast<unsigned short*>(acc + n_acc) + (threadIdx.x >> 5) * kChunkLanes;
   __shared__ int s_next;
 
@@ -353,25 +378,28 @@ coherent_deposit_kernel(const float* __restrict__ packed, int n_fields,
   const float tkey = (float)t;
   const int key_ch = 3 + n_fields;
   const unsigned lt_mask = (1u << lane) - 1u;
-  // this rank's candidate rows: every C-th of the tile's, from `rank`; the
-  // warps take their (row, 256-lane chunk) items one at a time from a
-  // shared counter
+  // this rank's candidate rows (window steps): every C-th of the tile's,
+  // from `rank`; the warps take their (row, chunk) items one at a time from
+  // a shared counter
   const int c0 = cstart[t];
-  constexpr int kChunks = kC / kChunkLanes;
-  const int n_items = ast::cluster_groups(cend[t] - c0, 1, rank, C) * kChunks;
+  const int chunk_lanes = WIN ? min(window, kChunkLanes) : kChunkLanes;
+  const int n_chunks = WIN ? window / chunk_lanes : kC / kChunkLanes;
+  const int n_items = ast::cluster_groups(cend[t] - c0, 1, rank, C) * n_chunks;
   for (;;) {
     int i = 0;
     if (lane == 0) i = atomicAdd(&s_next, 1);
     i = __shfl_sync(0xffffffffu, i, 0);
     if (i >= n_items) break;
-    const float* rowp = packed + (long long)cand_row[c0 + rank + (i / kChunks) * C] * 8 * kC;
+    const int c = c0 + rank + (i / n_chunks) * C;
+    const float* rowp = packed + (long long)cand_row[c] * 8 * kC;
     const float* keyp = rowp + key_ch * kC;
     {
-      const int ch = (i % kChunks) * kChunkLanes;
+      const int ch = (WIN ? lane0[c] : 0) + (i % n_chunks) * chunk_lanes;
       // the chunk's lanes whose key is this tile, in lane order
       int cnt = 0;
 #pragma unroll
       for (int k = 0; k < kChunkLanes / 32; ++k) {
+        if (WIN && k * 32 >= chunk_lanes) break;
         const int ln = ch + k * 32 + lane;
         const bool match = keyp[ln] == tkey;
         const unsigned mask = __ballot_sync(0xffffffffu, match);
@@ -448,20 +476,24 @@ int coherent_prep_launch(const float* x, const float* y, const float* h,
   return cudaGetLastError();
 }
 
-// Coherent deposit of n_tiles level-0 tiles from packed (n_rows, 8, 2048)
-// rows over clusters of C blocks a tile; tile t reads candidates
-// [cstart[t], cend[t]) of cand_row. Writes out (n_tiles, F*R, 128).
-// Returns the cudaError_t of the first failing attribute call or launch.
-int coherent_deposit_launch(const float* packed, int n_fields,
-                            const int* cand_row, const int* cstart,
-                            const int* cend, int n_tiles, float* out, int K,
-                            int R, float offset, float psx, float psy,
-                            int kernel_id, int integrated, float norm3d,
-                            float support_factor, const float* cheb,
-                            int n_cheb, int C, void* stream) {
+// Kernel #2, both branches, over clusters of C blocks a tile; writes out
+// (n_tiles, F*R, 128). Whole rows (lane0 == nullptr, window == 2048): tile
+// t reads candidates [cstart[t], cend[t]) of cand_row. The window branch:
+// tile t reads window steps [cstart[t], cend[t]) of (cand_row, lane0), each
+// `window` lanes (a power of two in [128, 2048)) of row cand_row[j] from
+// lane lane0[j]. Returns the cudaError_t of the first failing attribute
+// call or launch.
+int coherent_launch(const float* packed, int n_fields, const int* cand_row, const int* lane0,
+                    const int* cstart, const int* cend, int n_tiles, int window, float* out, int K,
+                    int R, float offset, float psx, float psy, int kernel_id, int integrated,
+                    float norm3d, float support_factor, const float* cheb, int n_cheb, int C,
+                    void* stream) {
   if (n_tiles <= 0) return cudaSuccess;
+  const bool win = lane0 != nullptr;
   if (n_fields < 1 || n_fields > kMaxFields || n_cheb > kMaxCheb || R <= 0 ||
-      K <= 0 || C < 1 || C > 8)
+      K <= 0 || C < 1 || C > 8 ||
+      (win && (window < 128 || window >= kC || (window & (window - 1)))) ||
+      (!win && window != kC))
     return cudaErrorInvalidValue;
   int optin = 0;
   cudaError_t err = ast::smem_optin(&optin);
@@ -473,11 +505,14 @@ int coherent_deposit_launch(const float* packed, int n_fields,
                                           support_factor, integrated);
   cudaStream_t s = (cudaStream_t)stream;
   return ast::dispatch_footprint(kernel_id, integrated, [&](auto kid, auto integ) {
-    auto kern = coherent_deposit_kernel<decltype(kid)::value, decltype(integ)::value>;
-    cudaError_t e = ast::allow_smem(kern, smem);
-    if (e != cudaSuccess) return e;
-    return ast::launch_clusters(kern, n_tiles, C, kThreads, smem, s, packed, n_fields,
-                                cand_row, cstart, cend, out, p, cheb, n_cheb, C);
+    auto run = [&](auto w) {
+      auto kern = coherent_deposit_kernel<decltype(kid)::value, decltype(integ)::value, decltype(w)::value>;
+      cudaError_t e = ast::allow_smem(kern, smem);
+      if (e != cudaSuccess) return e;
+      return ast::launch_clusters(kern, n_tiles, C, kThreads, smem, s, packed, n_fields,
+                                  cand_row, lane0, cstart, cend, out, p, cheb, n_cheb, C, window);
+    };
+    return win ? run(std::true_type{}) : run(std::false_type{});
   });
 }
 

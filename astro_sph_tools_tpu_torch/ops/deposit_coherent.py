@@ -21,7 +21,10 @@ consecutive particles instead:
    the lanes of its candidate rows whose key equals the tile, reading the
    rows in place, each block every C-th of the tile's candidate rows, a
    warp a row at a time (:func:`deposit_coherent_tiles`,
-   ``csrc/coherent.cu``).
+   ``csrc/coherent.cu``). In window mode (``window`` = W) the row sort keeps
+   each candidate's lanes in one segment and the kernel's window branch
+   reads only the W-lane windows that cover it
+   (:func:`deposit_coherent_windows`).
 3. **Tail**: each row's last ``tail_eff`` lanes (its level >= 1 lanes, or
    all C for a heavy row) are pulled into one compact array, sorted by key,
    and rendered per level through the sorted engine's kernel
@@ -82,6 +85,7 @@ _K4 = 4
 _AUX_W = 128  # width of the row prep's aux row
 _MAX_FIELDS = 4  # the key channel takes the 8th slot of a packed row
 _PREPS = ("pallas", "xla")
+_WINDOW_MIN = 128  # the least window (the JAX package's least TPU lane block)
 
 
 def _next_size_class(n: int, bits: int = 3) -> int:
@@ -180,18 +184,21 @@ def _assign(x: Tensor, y: Tensor, h: Tensor, st: _Setup):
     return level, tile, u_loc, v_loc, s_pix, ckey
 
 
-def _stage_a_glue(cand_keys, cand_k4, tail_eff, heavy, n_l0, lev_counts, st: _Setup):
+def _stage_a_glue(cand_keys, cand_k4, tail_eff, heavy, n_l0, lev_counts, st: _Setup, cand_win=()):
     """The small per-row work after the row prep, on the device: candidate
     sort, bucket grouping and the counts vector
     ``[n_cand, n_heavy, n_tail, rows per tail bucket..., lc0, routed lanes
     per level 1..n_levels (the last is oversize)]``, where lc0 counts the
-    heavy rows' level-0 lanes. Returns (sk, sr, sk4, tail_eff,
-    rows_by_bucket, counts)."""
+    heavy rows' level-0 lanes; in window mode (``cand_win``: the (n_rows,
+    d_max) window geometry (wb0, nw, k4n)) the vector ends with the window
+    step count. Returns (sk, sr, sk4, tail_eff, rows_by_bucket, counts),
+    then the sorted window geometry in window mode."""
     n_rows, d_max = cand_keys.shape
     dev = cand_keys.device
     sk, order = torch.sort(cand_keys.reshape(-1))
     sr = torch.div(order, d_max, rounding_mode="floor").to(torch.int32)
     sk4 = cand_k4.reshape(-1).index_select(0, order)
+    s_win = tuple(a.reshape(-1).index_select(0, order).to(torch.int32) for a in cand_win)
     n_cand = (sk < st.bases[1]).sum()
     thr = device_const(_TAIL_BUCKETS, torch.int32, dev)
     bucket = torch.searchsorted(thr, tail_eff)
@@ -202,62 +209,107 @@ def _stage_a_glue(cand_keys, cand_k4, tail_eff, heavy, n_l0, lev_counts, st: _Se
     counts = torch.cat([
         torch.stack([n_cand, heavy.sum(), tail_eff.sum()]),
         nb, lc0[None], lev_counts,
-    ]).to(torch.int64)
-    return sk, sr, sk4, tail_eff, rows_by_bucket, counts
+    ] + ([cand_win[1].sum()[None]] if cand_win else [])).to(torch.int64)
+    return (sk, sr, sk4, tail_eff, rows_by_bucket, counts) + s_win
 
 
-def _assign_and_rowsort(x, y, h, values, st: _Setup):
+def _assign_and_rowsort(x, y, h, values, st: _Setup, window: int = 0):
     """Stage A with ``prep="xla"``, in plain torch: assignment, a stable
     batched row sort by key, row classification, candidates, candidate sort,
     bucket grouping and the counts vector. Returns (packed (n_rows, 8, C):
     [u_loc, v_loc, h, values..., ckey, 0...], sk, sr, sk4, tail_eff,
-    rows_by_bucket, counts). The JAX package's window geometry is not
-    ported (``tile_particles_coherent`` rejects ``window != 0``)."""
+    rows_by_bucket, counts).
+
+    With ``window`` = W (a power of two below C; 0 = whole-row mode), as
+    the JAX package's stage A: the row sort key is ``2 * ckey + big``
+    (``big``: a level-0 lane wider than the K4 bound, s_pix > 1), so each
+    candidate's lanes are one segment [sub-pixel | wider]; the key channel
+    still holds ``ckey``. Each candidate also gets its W-lane window
+    geometry (wb0, nw, k4n): its first window, its window count, and the
+    count of its leading windows whose lanes are all sub-pixel. The return
+    then ends with the three, in candidate order, and ``counts`` with
+    their Σ nw."""
     C, d_max, nl = _CHUNK, st.d_max, st.n_levels
     n_rows = x.shape[0] // C
     n_fields = values.shape[0]
     level, _, u_loc, v_loc, s_pix, ckey = _assign(x, y, h, st)
+    dev = x.device
 
     def to2(a):
         return a.reshape(n_rows, C)
 
-    k2, order = torch.sort(to2(ckey), dim=1, stable=True)
+    big2 = to2((level == 0) & (s_pix > _K4_MAX_S))
+    if window:
+        rk2, order = torch.sort(to2(ckey) * 2 + big2.to(ckey.dtype), dim=1, stable=True)
+        cls2 = rk2 & 1
+        k2 = rk2 >> 1
+    else:
+        k2, order = torch.sort(to2(ckey), dim=1, stable=True)
     chans = [torch.gather(to2(a), 1, order) for a in [u_loc, v_loc, h, *values]]
     is_first = torch.cat(
-        [torch.ones((n_rows, 1), dtype=torch.bool, device=x.device), k2[:, 1:] != k2[:, :-1]], dim=1
+        [torch.ones((n_rows, 1), dtype=torch.bool, device=dev), k2[:, 1:] != k2[:, :-1]], dim=1
     )
     is_l0 = k2 < st.bases[1]
     coherent = (is_first & is_l0).sum(1) <= d_max
     n_l0 = is_l0.sum(1)
     tail_eff = torch.where(coherent, C - n_l0, C).to(torch.int32)
-    masked = torch.where(is_first & is_l0 & coherent[:, None], k2, st.pad_key)
+    live_first = is_first & is_l0 & coherent[:, None]
+    masked = torch.where(live_first, k2, st.pad_key)
     # first d_max distinct head keys per row (each appears once in masked)
     cand_keys = torch.topk(masked, d_max, dim=1, largest=False, sorted=True).values
     ck2 = to2(ckey)
-    big2 = to2((level == 0) & (s_pix > _K4_MAX_S))
     cand_k4 = torch.stack(
         [~((ck2 == cand_keys[:, j:j + 1]) & big2).any(1) for j in range(d_max)], dim=1
     ).to(torch.int32)
+    cand_win = ()
+    if window:
+        # the row is key-sorted, so ascending candidate keys have ascending
+        # first lanes: the d_max least first lanes align with cand_keys
+        lane = torch.arange(C, dtype=torch.int64, device=dev).expand(n_rows, C)
+        starts = torch.topk(torch.where(live_first, lane, C), d_max, dim=1, largest=False, sorted=True).values
+        head_len = (C - tail_eff).to(torch.int64)[:, None]  # level-0 lanes of a coherent row
+        ends = torch.minimum(torch.cat([starts[:, 1:], torch.full_like(starts[:, :1], C)], dim=1), head_len)
+        real = starts < head_len
+        # sub-pixel lanes come first in a candidate's segment: its count of
+        # them is a prefix sum over the lanes, differenced at the bounds
+        small_l0 = is_l0 & (cls2 == 0) & coherent[:, None]
+        spre = torch.cat([torch.zeros_like(starts[:, :1]), torch.cumsum(small_l0, dim=1)], dim=1)
+        mids = starts + (torch.gather(spre, 1, ends) - torch.gather(spre, 1, starts))
+        wb0 = torch.where(real, starts, 0) // window
+        nw = torch.where(real, torch.div(ends - 1, window, rounding_mode="floor") - wb0 + 1, 0)
+        k4n = torch.where(ends <= mids, nw, torch.clamp(mids // window - wb0, min=torch.zeros_like(nw), max=nw))
+        cand_win = (wb0, nw, k4n)
     zeros = [torch.zeros_like(k2, dtype=torch.float32)] * (8 - 4 - n_fields)
     packed = torch.stack(chans + [k2.to(torch.float32)] + zeros, dim=1)
     lev = torch.clamp(level, max=nl)
     lev_counts = torch.stack([(lev == li).sum() for li in range(1, nl + 1)])
-    return (packed, *_stage_a_glue(cand_keys, cand_k4, tail_eff, ~coherent, n_l0, lev_counts, st))
+    return (packed, *_stage_a_glue(cand_keys, cand_k4, tail_eff, ~coherent, n_l0, lev_counts, st, cand_win))
 
 
-def _stage_a(prep: str, x, y, h, values, st: _Setup):
+def _stage_a(prep: str, x, y, h, values, st: _Setup, window: int = 0):
     if prep == "pallas":
         from .coherent_prep import _stage_a_prep  # late import: it imports this module
 
         return _stage_a_prep(x, y, h, values, st)
-    return _assign_and_rowsort(x, y, h, values, st)
+    return _assign_and_rowsort(x, y, h, values, st, window)
 
 
-def _resolve_prep(prep: Optional[str], device: torch.device) -> str:
+def _resolve_prep(prep: Optional[str], device: torch.device, window: int = 0) -> str:
     """``None`` picks the CUDA row-prep kernel on a card and the plain torch
-    row sort elsewhere, as the JAX package picks its Pallas prep on a TPU."""
+    row sort elsewhere or in window mode, as the JAX package picks its
+    Pallas prep on a TPU outside window mode. Window mode needs the row
+    sort: the row-prep kernel is a stable two-sided partition, not a key
+    sort, so it leaves a candidate's lanes in more than one segment."""
+    if window:
+        if window & (window - 1) or not _WINDOW_MIN <= window < _CHUNK:
+            raise ValueError(f"window must be a power of two in [{_WINDOW_MIN}, {_CHUNK}), got {window}")
+        if prep == "pallas":
+            raise ValueError(
+                "window mode requires prep='xla' (the row-prep kernel does not "
+                "emit window-step geometry)"
+            )
     if prep is None:
-        return "pallas" if device.type == "cuda" else "xla"
+        return "pallas" if device.type == "cuda" and not window else "xla"
     if prep not in _PREPS:
         raise ValueError(f"unknown prep engine {prep!r}; use 'pallas'|'xla'")
     return prep
@@ -371,11 +423,21 @@ def deposit_coherent_tiles_plain(
     each candidate row whose key equals the candidate's tile are gathered in
     tile order and deposited by the sorted engine's plain version
     (``deposit_tiles_plain``, the same footprint math)."""
+    return _plain_deposit(packed, cand_tile, cand_row, None, n_fields=n_fields, n_tiles=n_tiles, cfg=cfg,
+                          kernel=kernel, projection=projection, psx=psx, psy=psy, offset=offset)
+
+
+def _plain_deposit(packed, cand_tile, cand_row, lane_ok, *, n_fields, n_tiles, cfg, kernel, projection,
+                   psx, psy, offset) -> Tensor:
+    """Both plain versions of kernel #2: ``lane_ok`` (B, C) bool, or None
+    for every lane, restricts each candidate's lanes."""
     C = _CHUNK
     rows = cand_row.to(torch.int64)
     live = cand_tile < n_tiles
     keys = packed[rows, 3 + n_fields, :]  # (B, C)
     match = (keys == cand_tile.to(torch.float32)[:, None]) & live[:, None]
+    if lane_ok is not None:
+        match &= lane_ok
     ci, lane = torch.nonzero(match, as_tuple=True)  # candidate-major: tile order
     src = rows[ci] * (8 * C) + lane
     pv = packed.reshape(-1)
@@ -386,6 +448,66 @@ def deposit_coherent_tiles_plain(
         u, v, h, values, pstart, pcount, cfg=cfg, kernel=kernel,
         projection=projection, psx=psx, psy=psy, offset=offset,
     )
+
+
+def _check_kernel_inputs(packed: Tensor, n_fields: int, **candidates: Tensor) -> None:
+    """What both branches of kernel #2 take: a CUDA tensor of contiguous
+    (n_rows, 8, C) f32 rows, 1..4 fields, and contiguous 1-D int32
+    candidate arrays of one length on its device; raises otherwise."""
+    if packed.device.type != "cuda":
+        raise ValueError(f"no coherent deposit kernel for device {packed.device}")
+    dev = packed.device
+    if (
+        packed.dtype != torch.float32 or packed.ndim != 3 or tuple(packed.shape[1:]) != (8, _CHUNK)
+        or not packed.is_contiguous()
+    ):
+        raise ValueError(f"packed must be a contiguous (n_rows, 8, {_CHUNK}) float32 tensor")
+    for name, a in candidates.items():
+        if a.dtype != torch.int32 or a.device != dev or a.ndim != 1 or not a.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 1-D int32 tensor on {dev}")
+    if len({a.shape for a in candidates.values()}) > 1:
+        raise ValueError(f"{', '.join(candidates)} differ in length")
+    if not 1 <= n_fields <= _MAX_FIELDS:
+        raise ValueError(f"the coherent deposit kernel takes 1..{_MAX_FIELDS} fields, got {n_fields}")
+
+
+def _footprint_consts(kernel: str, projection: str, dev):
+    """(kernel spec, integrated flag, Chebyshev table on ``dev`` or None)."""
+    integrated = projection == "integrated"
+    cheb = device_const(integrated_kernel_chebyshev(kernel), torch.float32, dev) if integrated else None
+    return get_kernel(kernel), integrated, cheb
+
+
+def _launch(packed, rows, lane0, start, end, *, window, n_fields, n_tiles, cfg, kernel, projection, psx, psy,
+            offset) -> Tensor:
+    """One launch of ``csrc/coherent.cu``'s ``coherent_launch``, the entry
+    point of both branches of kernel #2: tile t reads items [start[t],
+    end[t]) of ``rows`` (and, in the window branch, of ``lane0``, None for
+    whole rows at ``window`` = 2048). Raises, naming the window and the
+    cluster size, if the build or the launch fails."""
+    dev = packed.device
+    out = torch.empty((n_tiles, n_fields * cfg.R, cfg.S), dtype=torch.float32, device=dev)
+    if n_tiles == 0:
+        return out
+    kspec, integrated, cheb = _footprint_consts(kernel, projection, dev)
+    lib, _ = _build.load("coherent")
+    C = _CLUSTER
+    with torch.cuda.device(dev):
+        code = lib.coherent_launch(
+            packed.data_ptr(), n_fields, rows.data_ptr(), lane0.data_ptr() if lane0 is not None else None,
+            start.data_ptr(), end.data_ptr(), n_tiles, window, out.data_ptr(), cfg.K, cfg.R,
+            float(offset), float(psx), float(psy),
+            kspec.kernel_id, int(integrated), float(kspec.norm_3d), float(kspec.support_factor),
+            cheb.data_ptr() if integrated else None, cheb.numel() if integrated else 0,
+            C, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if code != 0:
+        branch = f"window kernel at window {window}" if lane0 is not None else "deposit kernel"
+        raise RuntimeError(
+            f"coherent {branch} launch failed with clusters of {C} blocks (F={n_fields}): "
+            f"{lib.cuda_error_string(code).decode()} ({code})"
+        )
+    return out
 
 
 def deposit_coherent_tiles(
@@ -420,52 +542,108 @@ def deposit_coherent_tiles(
                 projection=projection, psx=psx, psy=psy, offset=offset)
     if packed.device.type == "cpu":
         return deposit_coherent_tiles_plain(packed, cand_tile, cand_row, **args)
-    if packed.device.type != "cuda":
-        raise ValueError(f"no coherent deposit kernel for device {packed.device}")
-    dev = packed.device
-    if (
-        packed.dtype != torch.float32 or packed.ndim != 3 or tuple(packed.shape[1:]) != (8, _CHUNK)
-        or not packed.is_contiguous()
-    ):
-        raise ValueError(f"packed must be a contiguous (n_rows, 8, {_CHUNK}) float32 tensor")
-    for name, a in (("cand_tile", cand_tile), ("cand_row", cand_row)):
-        if a.dtype != torch.int32 or a.device != dev or a.ndim != 1 or not a.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous 1-D int32 tensor on {dev}")
-    if cand_tile.shape != cand_row.shape:
-        raise ValueError("cand_tile and cand_row differ in length")
-    if not 1 <= n_fields <= _MAX_FIELDS:
-        raise ValueError(f"the coherent deposit kernel takes 1..{_MAX_FIELDS} fields, got {n_fields}")
-    out = torch.empty((n_tiles, n_fields * cfg.R, cfg.S), dtype=torch.float32, device=dev)
-    if n_tiles == 0:
-        return out
-    tr = torch.arange(n_tiles, dtype=torch.int32, device=dev)
+    _check_kernel_inputs(packed, n_fields, cand_tile=cand_tile, cand_row=cand_row)
+    tr = torch.arange(n_tiles, dtype=torch.int32, device=packed.device)
     cstart = torch.searchsorted(cand_tile, tr).to(torch.int32)
     cend = torch.searchsorted(cand_tile, tr, right=True).to(torch.int32)
-    kspec = get_kernel(kernel)
-    integrated = projection == "integrated"
-    cheb = device_const(integrated_kernel_chebyshev(kernel), torch.float32, dev) if integrated else None
-    lib, _ = _build.load("coherent")
-    C = _CLUSTER
-    with torch.cuda.device(dev):
-        code = lib.coherent_deposit_launch(
-            packed.data_ptr(), n_fields, cand_row.data_ptr(), cstart.data_ptr(),
-            cend.data_ptr(), n_tiles, out.data_ptr(), cfg.K, cfg.R,
-            float(offset), float(psx), float(psy),
-            kspec.kernel_id, int(integrated), float(kspec.norm_3d), float(kspec.support_factor),
-            cheb.data_ptr() if integrated else None, cheb.numel() if integrated else 0,
-            C, torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if code != 0:
-        raise RuntimeError(
-            f"coherent deposit kernel launch failed with clusters of {C} blocks (F={n_fields}): "
-            f"{lib.cuda_error_string(code).decode()} ({code})"
-        )
+    out = _launch(packed, cand_row, None, cstart, cend, window=_CHUNK, **args)
     deposit_coherent_tiles.launches += 1
     return out
 
 
 #: kernel launches made by :func:`deposit_coherent_tiles` in this process (CUDA only)
 deposit_coherent_tiles.launches = 0
+
+
+def deposit_coherent_windows_plain(
+    packed: Tensor, cand_tile: Tensor, cand_row: Tensor, cand_wb0: Tensor, cand_nw: Tensor,
+    *,
+    window: int,
+    n_fields: int,
+    n_tiles: int,
+    cfg: PallasDepositConfig,
+    kernel: str,
+    projection: str,
+    psx: float,
+    psy: float,
+    offset: float,
+) -> Tensor:
+    """Plain torch version of :func:`deposit_coherent_windows`: the plain
+    whole-row deposit restricted to each candidate's windows, lanes
+    ``[wb0 * W, (wb0 + nw) * W)`` of its row. It does not expand window
+    steps, so the kernel's step list is checked against it."""
+    lane = torch.arange(_CHUNK, device=packed.device)[None, :]
+    lo = cand_wb0.to(torch.int64)[:, None] * window
+    lane_ok = (lane >= lo) & (lane < lo + cand_nw.to(torch.int64)[:, None] * window)
+    return _plain_deposit(packed, cand_tile, cand_row, lane_ok, n_fields=n_fields, n_tiles=n_tiles, cfg=cfg,
+                          kernel=kernel, projection=projection, psx=psx, psy=psy, offset=offset)
+
+
+def window_steps(cand_tile: Tensor, cand_row: Tensor, cand_wb0: Tensor, cand_nw: Tensor, *,
+                 window: int, n_steps: int, n_tiles: int):
+    """The window kernel's step list, on the candidates' device: each
+    candidate (in tile order) expands into its ``nw`` window steps. Returns
+    (step_row, step_lane0, wstart, wend), int32: step j reads ``window``
+    lanes of row ``step_row[j]`` from lane ``step_lane0[j]``, and tile t
+    owns steps ``[wstart[t], wend[t])``. ``n_steps`` is Σ nw (the layout's
+    ``b0w``), so that no count comes back to the host."""
+    dev = cand_tile.device
+    nw = cand_nw.to(torch.int64)
+    cnw = torch.cumsum(nw, 0)  # steps up to and including each candidate
+    g = torch.arange(n_steps, dtype=torch.int64, device=dev)
+    ci = torch.searchsorted(cnw, g, right=True)  # zero-width candidates are skipped
+    j = g - (cnw.index_select(0, ci) - nw.index_select(0, ci))
+    step_row = cand_row.index_select(0, ci).to(torch.int32)
+    step_lane0 = ((cand_wb0.to(torch.int64).index_select(0, ci) + j) * window).to(torch.int32)
+    tr = torch.arange(n_tiles, dtype=cand_tile.dtype, device=dev)
+    cnw0 = torch.cat([cnw.new_zeros(1), cnw])
+    wstart = cnw0.index_select(0, torch.searchsorted(cand_tile, tr)).to(torch.int32)
+    wend = cnw0.index_select(0, torch.searchsorted(cand_tile, tr, right=True)).to(torch.int32)
+    return step_row.contiguous(), step_lane0.contiguous(), wstart, wend
+
+
+def deposit_coherent_windows(
+    packed: Tensor, cand_tile: Tensor, cand_row: Tensor, cand_wb0: Tensor, cand_nw: Tensor, steps: tuple,
+    *,
+    window: int,
+    n_fields: int,
+    n_tiles: int,
+    cfg: PallasDepositConfig,
+    kernel: str,
+    projection: str,
+    psx: float,
+    psy: float,
+    offset: float,
+) -> Tensor:
+    """Kernel #2's window branch: the level-0 tiles' extended accumulators,
+    (n_tiles, F*R, 128) f32, from the candidates' W-lane windows only.
+
+    The candidates are as :func:`deposit_coherent_tiles` takes them, plus
+    each one's first window ``cand_wb0`` and window count ``cand_nw``
+    (int32), and ``steps``, their window steps as :func:`window_steps`
+    expands them (the layout's ``win_steps``). On a CUDA tensor this
+    launches ``csrc/coherent.cu``'s window kernel over the steps, clusters
+    of ``_CLUSTER`` blocks a tile, and raises, naming the window, if the
+    build or the launch fails; on a CPU tensor it runs
+    :func:`deposit_coherent_windows_plain` on the candidates. The TPU
+    kernel's per-window K4 column class (the layout's ``k4n``) changes no
+    value on the card and is not taken."""
+    if projection not in ("kernel3d", "integrated"):
+        raise ValueError(f"projection must be 'kernel3d' or 'integrated', got {projection!r}")
+    args = dict(n_fields=n_fields, n_tiles=n_tiles, cfg=cfg, kernel=kernel,
+                projection=projection, psx=psx, psy=psy, offset=offset)
+    if packed.device.type == "cpu":
+        return deposit_coherent_windows_plain(packed, cand_tile, cand_row, cand_wb0, cand_nw, window=window, **args)
+    step_row, step_lane0, wstart, wend = steps
+    _check_kernel_inputs(packed, n_fields, step_row=step_row, step_lane0=step_lane0)
+    _check_kernel_inputs(packed, n_fields, wstart=wstart, wend=wend)
+    out = _launch(packed, step_row, step_lane0, wstart, wend, window=window, **args)
+    deposit_coherent_windows.launches += 1
+    return out
+
+
+#: kernel launches made by :func:`deposit_coherent_windows` in this process (CUDA only)
+deposit_coherent_windows.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -493,6 +671,10 @@ class CoherentLayout:
     n_valid: int
     stats: dict  # row/candidate diagnostics (coherent_fraction etc.)
     cand_k4: Optional[Tensor] = None  # (n_cand,) 1 = every lane sub-pixel
+    window: int = 0  # W-lane window steps (0 = whole-row steps)
+    cand_win: tuple = ()  # (wb0, nw, k4n) (n_cand,) int32 each, window mode only
+    b0w: int = 0  # window steps, Σ nw (the TPU pads this count to 4096s; here it is exact)
+    win_steps: tuple = ()  # window_steps(...): (step_row, step_lane0, wstart, wend), window mode only
 
 
 def tile_particles_coherent(
@@ -512,23 +694,25 @@ def tile_particles_coherent(
 
     ``prep``: stage-A engine — ``"pallas"`` (the CUDA row-prep kernel; its
     plain torch version on the CPU), ``"xla"`` (the plain torch row sort),
-    or ``None``: the kernel on a CUDA device, the row sort elsewhere.
-    ``window != 0`` (the JAX package's window-step mode) is not ported.
+    or ``None``: the kernel on a CUDA device outside window mode, the row
+    sort elsewhere.
+
+    ``window``: 0 renders each candidate as whole-row steps; a power of two
+    W in [128, 2048) renders only the W-lane windows that cover each
+    candidate's lane segment (kernel #2's window branch,
+    :func:`deposit_coherent_windows`). It needs ``prep="xla"`` (``None``
+    resolves to it; ``"pallas"`` raises). Exact for any value.
     """
-    if window:
-        raise NotImplementedError(
-            "coherent window mode (window != 0) is not ported to the torch "
-            "package (ROADMAP queue 1, the window-mode item)"
-        )
     device = torch.device(device)
-    prep = _resolve_prep(prep, device)
+    prep = _resolve_prep(prep, device, window)
     st = _setup(spec, kernel, levels, d_max)
     values, _ = _field_matrix(values, device)
     x, y, h, values, n_valid = _device_inputs(x, y, h, values, spec, device)
     n_rows = x.shape[0] // _CHUNK
     n_fields = values.shape[0]
-    packed, sk, sr, sk4, tail_eff, _, counts = _stage_a(prep, x, y, h, values, st)
+    packed, sk, sr, sk4, tail_eff, _, counts, *cand_win = _stage_a(prep, x, y, h, values, st, window)
     cvec = counts.tolist()  # the ONLY host sync
+    n_wsteps = cvec[-1] if window else 0
     n_cand, n_heavy, n_tail = cvec[:3]
     nb = len(_TAIL_BUCKETS)
     nbs = cvec[3:3 + nb]
@@ -544,9 +728,13 @@ def tile_particles_coherent(
                 metas.append((li, g, lo, lc[li]))
             lo += lc[li]
     n_coh_rows = n_rows - n_heavy
+    cand_win = tuple(a[:n_cand] for a in cand_win)
+    win_steps = window_steps(sk[:n_cand], sr[:n_cand], *cand_win[:2], window=window, n_steps=n_wsteps,
+                             n_tiles=st.geom0.n_tiles) if window else ()
     return CoherentLayout(
         spec=spec, kernel=kernel, geom0=st.geom0, bases=st.bases, packed=packed,
         cand_tile=sk[:n_cand], cand_row=sr[:n_cand], cand_k4=sk4[:n_cand],
+        window=window, cand_win=cand_win, b0w=n_wsteps, win_steps=win_steps,
         n_cand=n_cand, tail=tail, tail_metas=tuple(metas),
         n_tail_oversize=lc[st.n_levels], n_tail_sorted=sum(lc),
         n_fields=n_fields, n_valid=n_valid,
@@ -563,23 +751,32 @@ def tile_particles_coherent(
             # per-level routed-tail particle counts (+ oversize last); the
             # fused engine's caps_from_layout reads these
             "level_tail_counts": list(lc),
-            "n_window_steps": 0,
+            "n_window_steps": n_wsteps,
         },
     )
 
 
 def _render(packed, cand_tile, cand_row, tail, tail_levels, *, spec, kernel, projection,
-            geom0, bases, n_fields) -> Tensor:
-    """(F, ny, nx): the coherent pass over the candidates, then each routed
-    tail level ``(li, geom, cap)`` through the sorted engine's kernel."""
+            geom0, bases, n_fields, win=None) -> Tensor:
+    """(F, ny, nx): the coherent pass over the candidates (whole rows, or
+    with ``win`` = (W, wb0, nw, steps) their W-lane windows), then each
+    routed tail level ``(li, geom, cap)`` through the sorted engine's
+    kernel."""
     ny, nx = spec.shape
     psy, psx = spec.pixel_size
     kw = dict(kernel=kernel, projection=projection, psx=psx, psy=psy, offset=spec.sample_offset)
     total = torch.zeros((n_fields, ny, nx), dtype=torch.float32, device=packed.device)
     if cand_tile is not None and cand_tile.numel():
-        tiles = deposit_coherent_tiles(
-            packed, cand_tile, cand_row, n_fields=n_fields, n_tiles=geom0.n_tiles, cfg=geom0.cfg, **kw
-        )
+        if win is not None:
+            W, wb0, nw, steps = win
+            tiles = deposit_coherent_windows(
+                packed, cand_tile, cand_row, wb0, nw, steps, window=W,
+                n_fields=n_fields, n_tiles=geom0.n_tiles, cfg=geom0.cfg, **kw
+            )
+        else:
+            tiles = deposit_coherent_tiles(
+                packed, cand_tile, cand_row, n_fields=n_fields, n_tiles=geom0.n_tiles, cfg=geom0.cfg, **kw
+            )
         total += _overlap_add(
             tiles, geom0.cfg, geom0.tx, geom0.n_tiles_y, geom0.n_tiles_x, n_fields, ny, nx, spec.periodic_wrap
         )
@@ -601,7 +798,8 @@ def deposit_coherent(
     projection: str = "kernel3d",
 ) -> Tensor:
     """Render the full adaptive map stack from a :class:`CoherentLayout`, on
-    the layout's device: the coherent pass (kernel ``csrc/coherent.cu``),
+    the layout's device: the coherent pass (kernel ``csrc/coherent.cu``, its
+    window branch for a window-mode layout),
     each routed tail level (kernel ``csrc/deposit2d.cu``), and oversize
     particles through the plain torch stencil engine on the same device.
     Returns (F, ny, nx). ``precision`` is validated; the sums are f32."""
@@ -612,6 +810,7 @@ def deposit_coherent(
         tuple((li, g, None) for li, g, _, _ in layout.tail_metas),
         spec=spec, kernel=layout.kernel, projection=projection, geom0=layout.geom0,
         bases=layout.bases, n_fields=layout.n_fields,
+        win=(layout.window, *layout.cand_win[:2], layout.win_steps) if layout.window else None,
     )
     if layout.n_tail_oversize:
         # oversize particles end the sorted tail, in global pixel coordinates

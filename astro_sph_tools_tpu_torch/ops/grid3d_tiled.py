@@ -424,9 +424,22 @@ def _f32(a, device) -> Tensor:
     return torch.as_tensor(a if isinstance(a, Tensor) else np.asarray(a), dtype=torch.float32, device=device)
 
 
+def _placement_coords(pos, device) -> Tensor:
+    """Positions for the level/tile assignment on ``device``: f64 input
+    (NumPy or tensor) stays f64, so the tile-local f32 voxel coordinates
+    carry f64's precision (f32 voxel coordinates round ~1.5e-5 voxel once
+    they pass 256, past the 1e-5 budget for sub-voxel footprints); anything
+    else becomes f32, as in the JAX package."""
+    if (isinstance(pos, Tensor) and pos.dtype == torch.float64) or (
+        isinstance(pos, np.ndarray) and pos.dtype == np.float64
+    ):
+        return torch.as_tensor(pos, device=device)
+    return _f32(pos, device)
+
+
 def _voxel_coords(pos: Tensor, spec: GridSpec) -> tuple[Tensor, Tensor, Tensor]:
-    """f32 voxel-space (u, v, w) = (x, y, z) coordinates, wrapped into the
-    grid on periodic axes."""
+    """Voxel-space (u, v, w) = (x, y, z) coordinates in the dtype of
+    ``pos``, wrapped into the grid on periodic axes."""
     nz, ny, nx = spec.shape
     x0, x1, y0, y1, z0, z1 = (float(e) for e in spec.extent)
     u = (pos[:, 0] - x0) / ((x1 - x0) / nx)
@@ -553,7 +566,7 @@ def tile_particles_3d(
     values, _ = _as_field_matrix_3d(values, device)
     geoms = [_geometry_3d(cfg, spec.shape) for cfg in levels]
     bounds = tuple(g.cfg.max_s_vox for g in geoms)
-    pos = _f32(pos, device)
+    pos = _placement_coords(pos, device)
     h = _f32(h, device)
     n_valid = int(h.shape[0])
     u, v, w = _voxel_coords(pos, spec)
@@ -564,7 +577,7 @@ def tile_particles_3d(
 
     sorted_key, perm = torch.sort(key, stable=True)
     del key
-    su, sv, sw = u_loc[perm], v_loc[perm], w_loc[perm]
+    su, sv, sw = (a[perm].to(torch.float32) for a in (u_loc, v_loc, w_loc))
     del u_loc, v_loc, w_loc
     sh = h[perm]
     s_values = values[:, perm].contiguous()

@@ -127,3 +127,20 @@ class PhaseTimer:
             for name, secs in sorted(self._totals.items(), key=lambda kv: -kv[1])
         ]
         return "phase timings:\n" + "\n".join(lines)
+
+
+def kernel_counters() -> dict:
+    """Every CUDA kernel wrapper of the package by kernel name; each
+    carries ``launches``, the launches it made in this process (the CPU
+    plain versions count none)."""
+    from ..ops.coherent_prep import prep_rows
+    from ..ops.deposit_coherent import deposit_coherent_tiles, deposit_coherent_windows
+    from ..ops.deposit_tiled import deposit_tiles
+    from ..ops.grid3d_tiled import deposit_3d_tiles
+    from ..ops.layout_shear import append_gangs
+    from ..ops.sightlines_fused import columns_tiles
+    from ..ops.spectra_fused import spectra_tiles
+
+    return {"deposit2d": deposit_tiles, "coherent_prep": prep_rows, "coherent_deposit": deposit_coherent_tiles,
+            "coherent_window": deposit_coherent_windows, "sightline_columns": columns_tiles,
+            "sightline_spectra": spectra_tiles, "deposit3d": deposit_3d_tiles, "append_gangs": append_gangs}

@@ -3,7 +3,7 @@
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
-    python3 chip_smoke.py                # phases 0-14, 16, 17 and 19-23
+    python3 chip_smoke.py                # phases 0-14, 16, 17 and 19-24
     python3 chip_smoke.py --phases 0,1,2 # a subset, for debugging
 
 It drives the port's main paths — the adaptive-h sorted tile engine behind
@@ -14,8 +14,9 @@ voxel deposit of BASELINE config 3, the random-order path (shear grouping,
 5 (``render_halo_maps``), the streamed snapshot-to-map ingest, the
 ion-weighted render and the neighbour queries (SWIFT DM smoothing lengths,
 the DM map, the nearest-halo search) and the multi-GPU layer
-(``parallel/`` on ``torch.distributed``) — on particles generated in memory
-from a seed, and
+(``parallel/`` on ``torch.distributed``) and the rest (the coherent
+engine's window mode, the fidelity artifact, the examples, the multi-GPU
+dry run) — on particles generated in memory from a seed, and
 fails (non-zero exit) if any phase fails (phases 19 and 23 run after phase
 9, on phase 3's particles):
 
@@ -227,7 +228,26 @@ fails (non-zero exit) if any phase fails (phases 19 and 23 run after phase
     engine's ``ok`` on every rank with merged capacities and on none when
     one rank's capacities are too small; each entry's wall, the bytes a
     rank hands to the collectives, its error; the launches of kernels
-    #1-#6 over both parts, each above zero.
+    #1-#6 over both parts, each above zero;
+24. the rest: (a) the coherent engine's window mode on phase 3's 2^26
+    particles (1024^2 x 2, ``prep="xla"``) at W = 256, 512 and 1024
+    through ``deposit_2d_coherent`` (the window kernel's launches, each
+    map within 1e-5 * max of the whole-row map) and kernel #2's window
+    branch against its plain version on each layout (at W = 512 also F =
+    1 and 4 and the integrated projection) and on phase 7's dense tiles,
+    its time beside the whole-row kernel's on the same candidates and
+    beside its bound (``coherent_window_bytes``); (b) the fidelity
+    artifact (``scripts/fidelity_check.py`` at full size, written to
+    ``--fidelity-out``, default FIDELITY_TORCH.json in the temporary
+    directory), every in-budget case
+    within 1e-5; (c) ``examples.render_service`` at 4 chunks of 2^25,
+    1024^2 x 2: every ``ok`` True, the summed map against one sorted
+    render of all the chunks (1e-5 * max), kernels #1-#3 against their
+    plain versions on the first fused chunk; (d) ``examples.full_workflow``
+    on the card (served from memory: no h5py on the card's machine), then
+    REST_RANKS gloo ranks on the card (``--rest-rank``) running
+    ``parallel.dryrun.dryrun_multichip(4)`` and
+    ``examples.multichip_render`` under one deadline.
 
 Every phase prints one JSON line; the kernels' summary line and the card's
 ``nvidia-smi`` line come before the last line, which is
@@ -247,6 +267,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -952,57 +973,19 @@ def phase_main(torch, device, particles, gen_s):
 
 
 def memory_snapshot(x, y, h, m, t, box, metal_seed: int = 19):
-    """An in-memory gas-only snapshot serving device tensors (positions in
-    the z = 0 plane, smoothing lengths, masses, temperatures, and
-    metallicities drawn uniformly in [0, 0.04) from a ``torch.Generator``
-    seeded with ``metal_seed``)."""
+    """An in-memory gas-only snapshot (``io.memory.MemorySnapshot``) serving
+    device tensors (positions in the z = 0 plane, smoothing lengths,
+    masses, temperatures, and metallicities drawn uniformly in [0, 0.04)
+    from a ``torch.Generator`` seeded with ``metal_seed``)."""
     import torch
+
+    from astro_sph_tools_tpu_torch.io.memory import MemorySnapshot
 
     gen = torch.Generator(device=x.device)
     gen.manual_seed(metal_seed)
     z_metal = 0.04 * torch.rand(x.shape[0], generator=gen, device=x.device)
-
-    from astro_sph_tools_tpu_torch.data_structures import ParticleType
-    from astro_sph_tools_tpu_torch.io.snapshot import SnapshotBase
-    from astro_sph_tools_tpu_torch.units import unit_array
-
-    class MemorySnapshot(SnapshotBase):
-        def __init__(self):
-            super().__init__(
-                filepath="<memory>", number="000", redshift=0.0,
-                hubble_param=0.6777, omega_baryon=0.04825,
-                expansion_factor=1.0, box_size=unit_array(np.full(3, box), "Mpc"),
-            )
-
-        def _get_number_of_particles(self):
-            return {pt: (x.shape[0] if pt == ParticleType.gas else 0) for pt in ParticleType.get_all()}
-
-        _get_number_of_particles_this_rank = _get_number_of_particles
-
-        def _get_positions(self, particle_type, use_proper_units):
-            return unit_array(torch.stack([x, y, torch.zeros_like(x)], dim=1), "Mpc")
-
-        def _get_smoothing_lengths(self, particle_type, use_proper_units):
-            return unit_array(h, "Mpc")
-
-        def _get_masses(self, particle_type):
-            return unit_array(m, "Msun")
-
-        def _get_temperatures(self, particle_type):
-            return unit_array(t, "K")
-
-        def _get_metallicities(self, particle_type, solar_units, solar_metallicity):
-            return unit_array(z_metal, "")
-
-        def _missing(self, *args, **kwargs):
-            raise NotImplementedError("not served by the in-memory snapshot")
-
-        _get_IDs = _get_black_hole_subgrid_masses = _get_black_hole_dynamical_masses = _missing
-        _get_velocities = _get_sfr = _missing
-        _get_mean_enrichment_redshift = _get_densities = _missing
-        _get_number_densities = _get_elemental_abundance = _missing
-
-    return MemorySnapshot()
+    return MemorySnapshot({"positions": torch.stack([x, y, torch.zeros_like(x)], dim=1), "smoothing_lengths": h,
+                           "masses": m, "temperatures": t, "metallicities": z_metal}, box)
 
 
 def phase_render(torch, device, particles):
@@ -1500,45 +1483,13 @@ def phase_render_coherent(torch, device, particles):
 
 
 def memory_catalogue(centres, radii, snapshot):
-    """An in-memory halo catalogue serving what ``render_halo_maps`` reads:
-    centres of potential (Mpc) and SO 200 crit radii (Mpc), as
-    ``memory_snapshot`` serves fields; everything else raises."""
-    from astro_sph_tools_tpu_torch.io.catalogue import BasicHaloDefinitions, CatalogueBase
-    from astro_sph_tools_tpu_torch.units import unit_array
+    """An in-memory halo catalogue (``io.memory.MemoryCatalogue``) serving
+    what ``render_halo_maps`` reads: centres of potential (Mpc) and SO 200
+    crit radii (Mpc); everything else raises."""
+    from astro_sph_tools_tpu_torch.io.catalogue import BasicHaloDefinitions
+    from astro_sph_tools_tpu_torch.io.memory import MemoryCatalogue
 
-    centres = np.array(centres, np.float64)
-    radii = np.array(radii, np.float64)
-
-    class MemoryCatalogue(CatalogueBase):
-        def __init__(self):
-            super().__init__("<memory>", "<memory>", snapshot)
-
-        def get_number_of_haloes(self, particle_type=None):
-            return len(radii)
-
-        def get_halo_IDs(self, particle_type=None):
-            return np.arange(1, len(radii) + 1)
-
-        def get_halo_indexes(self, particle_type=None):
-            return np.arange(len(radii))
-
-        def get_halo_centres_of_potential(self, particle_type=None, use_proper_units=False):
-            return unit_array(centres.copy(), "Mpc")
-
-        def get_halo_radii(self, halo_type, particle_type=None, use_proper_units=False):
-            if halo_type != BasicHaloDefinitions.SO_200_CRIT.value:
-                raise halo_type.make_error(type(self))
-            return unit_array(radii.copy(), "Mpc")
-
-        def _missing(self, *args, **kwargs):
-            raise NotImplementedError("not served by the in-memory catalogue")
-
-        _get_hierarchy_IDs = get_halo_parent_IDs = get_halo_parent_indexes = _missing
-        get_halo_top_level_parent_IDs = get_halo_top_level_parent_indexes = _missing
-        get_halo_centres_of_mass = get_halo_masses = get_particle_IDs = _missing
-        get_halo_IDs_by_snapshot_particle = get_halo_indexes_by_snapshot_particle = _missing
-
-    return MemoryCatalogue()
+    return MemoryCatalogue(snapshot, centres, {BasicHaloDefinitions.SO_200_CRIT.value: radii})
 
 
 def halo_catalogue(torch, particles, n_dense: int = HALO_N - 2, grid: int = 64):
@@ -3644,15 +3595,10 @@ PAR_TIMEOUT_S = 300  # the gloo group's timeout; the parent waits this long past
 
 def _par_counters():
     """The launch counters of kernels #1-#6, by the ``kernels`` line's names."""
-    from astro_sph_tools_tpu_torch.ops.coherent_prep import prep_rows
-    from astro_sph_tools_tpu_torch.ops.deposit_tiled import deposit_tiles
-    from astro_sph_tools_tpu_torch.ops.grid3d_tiled import deposit_3d_tiles
-    from astro_sph_tools_tpu_torch.ops.sightlines_fused import columns_tiles
-    from astro_sph_tools_tpu_torch.ops.spectra_fused import spectra_tiles
+    from astro_sph_tools_tpu_torch.utils.profiling import kernel_counters
 
-    return {"deposit2d": deposit_tiles, "coherent_prep": prep_rows,
-            "coherent_deposit": _coherent_module().deposit_coherent_tiles, "sightline_columns": columns_tiles,
-            "sightline_spectra": spectra_tiles, "deposit3d": deposit_3d_tiles}
+    names = ("deposit2d", "coherent_prep", "coherent_deposit", "sightline_columns", "sightline_spectra", "deposit3d")
+    return {k: v for k, v in kernel_counters().items() if k in names}
 
 
 def reset_launches() -> None:
@@ -3818,7 +3764,6 @@ def phase_parallel_world1(torch, device, particles, backend: str = "nccl", vox_l
     each wall beside its single-device engine's and the collective's share
     of the coherent walls; each launched kernel against its plain version
     on these inputs (``par_kernels_vs_plain``)."""
-    import tempfile
     from datetime import timedelta
 
     import torch.distributed as dist
@@ -4267,7 +4212,6 @@ def phase_parallel_gloo(torch, device, sizes: dict = PAR_SIZES) -> dict:
     its own (``par_rank_main``), with a deadline; every entry point against
     the single-device result of the same particles, and on every rank each
     launched kernel against its plain version on the rank's own inputs."""
-    import tempfile
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -4336,9 +4280,277 @@ def phase_parallel(torch, device, particles) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the rest (window mode, the fidelity artifact, the examples, the
+# multi-GPU dry run)
+# ---------------------------------------------------------------------------
+
+REST_WINDOWS = (256, 512, 1024)  # phase 24 (a)'s windows at full width
+REST_SERVICE_LOG2N = 25  # phase 24 (c): render_service's chunks of 2^25 ...
+REST_SERVICE_CHUNKS = 4  # ... four of them, 1024^2 x 2
+REST_RANKS = 4  # phase 24 (d): gloo ranks of the dry run and multichip_render
+REST_TIMEOUT_S = 300.0
+
+
+def coherent_window_bytes(torch, lay, out) -> int:
+    """Bytes kernel #2's window branch must move on a window-mode layout:
+    ``coherent_bytes`` with the key channel of each distinct window step's
+    W lanes in place of each candidate row's 2048, and the step arrays it
+    reads (the layout's ``win_steps``) in place of the candidate arrays."""
+    g0 = lay.geom0
+    step_row, step_lane0, _, _ = lay.win_steps
+    n_windows = int(torch.unique(step_row.long() * lay.packed.shape[2] + step_lane0.long()).numel())
+    live = lay.cand_tile < g0.n_tiles
+    n_rows = int(torch.unique(lay.cand_row[live]).numel())
+    whole = coherent_bytes(torch, lay.packed, lay.cand_tile, lay.cand_row, lay.n_fields, g0.n_tiles, out)
+    return (whole + (n_windows * lay.window - n_rows * lay.packed.shape[2]) * 4 + nbytes(*lay.win_steps)
+            - nbytes(lay.cand_tile, lay.cand_row))
+
+
+def _window_vs_plain(torch, lay, spec, h, projection, plain_reps: int, **tags):
+    """Kernel #2's window branch vs its plain version on a window-mode
+    layout, its time beside the whole-row kernel's on the same candidates
+    (which read every lane of their rows) and beside its bound."""
+    TC = _coherent_module()
+    g0 = lay.geom0
+    psy, psx = spec.pixel_size
+    kw = dict(n_fields=lay.n_fields, n_tiles=g0.n_tiles, cfg=g0.cfg, kernel="cubic_spline",
+              projection=projection, psx=psx, psy=psy, offset=spec.sample_offset)
+    wb0, nw, _ = lay.cand_win
+    wargs = (lay.packed, lay.cand_tile, lay.cand_row, wb0, nw)
+    got = TC.deposit_coherent_windows(*wargs, lay.win_steps, window=lay.window, **kw)
+    ref = TC.deposit_coherent_windows_plain(*wargs, window=lay.window, **kw)
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, ref)
+    del ref
+    case = {
+        "phase": "window_kernel_vs_plain", **tags, "window": lay.window, "F": lay.n_fields, "projection": projection,
+        "n_candidates": lay.n_cand, "n_window_steps": lay.b0w, "n_tiles": g0.n_tiles,
+        "max_abs_err": err, "rel_err": rel,
+        "ms": cuda_ms(lambda: TC.deposit_coherent_windows(*wargs, lay.win_steps, window=lay.window, **kw), 5),
+        "whole_row_ms": cuda_ms(lambda: TC.deposit_coherent_tiles(lay.packed, lay.cand_tile, lay.cand_row, **kw), 5),
+        "plain_ms": cuda_ms(lambda: TC.deposit_coherent_windows_plain(*wargs, window=lay.window, **kw), plain_reps)
+        if plain_reps else None,
+        **bound(coherent_window_bytes(torch, lay, got), support_points(h, 2.0, psx, 2) * pair_ops(lay.n_fields,
+                                                                                                   projection)),
+    }
+    emit(case)
+    check(bool(torch.isfinite(got).all()), f"non-finite window kernel output {case}")
+    check(rel <= REL_TOL, f"the window kernel disagrees with its plain version: {case}")
+    check_bound(case, f"kernel #2's window branch {tags} W={lay.window} F={lay.n_fields} {projection}")
+    return case
+
+
+def rest_window(torch, device, particles) -> dict:
+    """Phase 24 (a): window mode at full width on phase 3's particles."""
+    from astro_sph_tools_tpu_torch.ops import MapSpec, deposit_2d_coherent, tile_particles_coherent
+    from astro_sph_tools_tpu_torch.ops.deposit_tiled import deposit_tiles
+
+    TC = _coherent_module()
+    x, y, h, m, t, box = particles
+    spec = MapSpec(shape=(1024, 1024), extent=(0.0, box, 0.0, box), periodic_wrap=True)
+    all_fields = [m, m * t, t, 2.0 * m]
+    vals = torch.stack(all_fields[:2])
+    whole = deposit_2d_coherent(x, y, h, vals, spec, prep="xla", device=device)
+    maps, cases, launches = [], [], {"coherent_window": 0, "deposit2d": 0}
+    for W in REST_WINDOWS:
+        # the main path: the entry point, with the counts set to 0 just before
+        TC.deposit_coherent_windows.launches = deposit_tiles.launches = 0
+        sync(torch, device)
+        t0 = time.perf_counter()
+        img = deposit_2d_coherent(x, y, h, vals, spec, window=W, device=device)
+        sync(torch, device)
+        wall = time.perf_counter() - t0
+        launches["coherent_window"] += TC.deposit_coherent_windows.launches
+        launches["deposit2d"] += deposit_tiles.launches
+        check(TC.deposit_coherent_windows.launches > 0, f"window mode W={W} launched no window kernel")
+        err, rel = rel_err(img, whole)
+        maps.append({"window": W, "vs_whole_row_max_abs_err": err, "vs_whole_row_rel_err": rel, "wall_s": wall,
+                     "finite": bool(torch.isfinite(img).all())})
+        emit({"phase": "rest_window_map", **maps[-1]})
+        check(maps[-1]["finite"] and rel <= REL_TOL, f"window map off the whole-row map: {maps[-1]}")
+        del img
+        lay = tile_particles_coherent(x, y, h, vals, spec, window=W, device=device)
+        cases.append(_window_vs_plain(torch, lay, spec, h, "kernel3d", 1, case="main"))
+        if W == 512:
+            cases.append(_window_vs_plain(torch, lay, spec, h, "integrated", 0, case="main"))
+            del lay
+            for n_fields in (1, 4):
+                lay = tile_particles_coherent(x, y, h, torch.stack(all_fields[:n_fields]), spec, window=W,
+                                              device=device)
+                for projection in ("kernel3d", "integrated"):
+                    cases.append(_window_vs_plain(torch, lay, spec, h, projection, 0, case="main"))
+                del lay
+        else:
+            del lay
+    dx, dy, dh, dv = dense_coherent_particles(torch, device, 1 << 20, box, seed=17)
+    lay = tile_particles_coherent(dx, dy, dh, dv[:2], spec, window=512, device=device)
+    for projection in ("kernel3d", "integrated"):
+        cases.append(_window_vs_plain(torch, lay, spec, dh, projection, 1, case="dense"))
+    del lay
+    return {"maps": maps, "cases": cases, "launches": launches}
+
+
+def rest_fidelity(torch, device, out_path: str) -> dict:
+    """Phase 24 (b): the fidelity artifact at full size, written to
+    ``out_path``; every in-budget case within its budget."""
+    from astro_sph_tools_tpu_torch.scripts import fidelity_check
+
+    art = fidelity_check.run(device)
+    with open(out_path, "w") as f:
+        json.dump(art, f, indent=1)
+    scored = [c for c in art["cases"] if c["in_budget_flag"]]
+    out = {"path": os.path.abspath(out_path), "all_within_budget": art["all_within_budget"],
+           "worst_case": art["worst_case"], "n_cases": len(art["cases"]), "n_in_budget": len(scored),
+           "seconds": art["seconds"], "nvidia_smi": art["nvidia_smi"],
+           "window_launches": sum(c["kernels"].get("coherent_window", 0) for c in art["cases"])}
+    emit({"phase": "rest_fidelity", **out})
+    over = [c for c in scored if not c["max_rel_err"] <= fidelity_check.BUDGET]
+    check(not over, f"fidelity cases over their budget: {over}")
+    return out
+
+
+def rest_service(torch, device) -> dict:
+    """Phase 24 (c): ``examples.render_service`` at 4 chunks of 2^25 on
+    1024^2 x 2: every ok True, the summed map against one sorted render of
+    every chunk, kernels #1-#3 against their plain versions on the first
+    fused chunk."""
+    from astro_sph_tools_tpu_torch.examples import render_service
+    from astro_sph_tools_tpu_torch.ops import MapSpec, deposit_2d_auto
+
+    reset_launches()
+    out = render_service.run(1 << REST_SERVICE_LOG2N, 1024, REST_SERVICE_CHUNKS, device, keep=True)
+    launches = {k: v for k, v in read_launches().items() if k in ("deposit2d", "coherent_prep", "coherent_deposit")}
+    parts = out.pop("chunks")
+    spec = MapSpec(shape=(1024, 1024), extent=(0.0, render_service.BOX, 0.0, render_service.BOX), periodic_wrap=True)
+    x, y, h, f = (torch.as_tensor(np.concatenate([p[i] for p in parts], axis=-1), device=device) for i in range(4))
+    ref = deposit_2d_auto(x, y, h, f, spec, device=device)
+    err, rel = rel_err(out.pop("map"), ref)
+    del x, y, h, f, ref
+    torch.cuda.empty_cache()
+    first_fused = [torch.as_tensor(a, device=device) for a in parts[1]]
+    del parts
+    vs_plain = path_kernels_vs_plain(torch, device, *first_fused, spec, ("coherent",), "render_service")
+    res = {"phase": "rest_render_service", "chunk_wall_s": out["chunk_wall_s"], "engines": out["engines"],
+           "ok": out["ok"], "calibration": out["calibration"], "caps": out["caps"], "launches": launches,
+           "vs_sorted_max_abs_err": err, "vs_sorted_rel_err": rel,
+           "kernels_vs_plain": {"prep": vs_plain["prep"]["max_abs_err"],
+                                "coherent_deposit": vs_plain["coherent_deposit"]["rel_err"],
+                                "tail_levels": max((c["rel_err"] for c in vs_plain["tail_levels"]), default=0.0)}}
+    emit(res)
+    check(all(out["ok"]) and len(out["ok"]) == REST_SERVICE_CHUNKS - 1, f"render_service overflowed: {out['ok']}")
+    check(rel <= REL_TOL, f"render_service's map off the sorted render: {rel}")
+    check(all(v > 0 for v in launches.values()), f"render_service launched a kernel of #1-#3 no time: {launches}")
+    return {**res, "vs_plain": vs_plain}
+
+
+def rest_rank_main(rank: int, rest_dir: str) -> None:
+    """A phase 24 (d) rank process: a gloo group of REST_RANKS ranks on the
+    card through a FileStore in ``rest_dir``; ``dryrun_multichip`` then
+    ``examples.multichip_render``; writes ``rank<r>.pt``."""
+    from datetime import timedelta
+
+    sys.path.insert(0, ROOT)
+    import torch
+    import torch.distributed as dist
+
+    from astro_sph_tools_tpu_torch.examples import multichip_render
+    from astro_sph_tools_tpu_torch.parallel import make_mesh
+    from astro_sph_tools_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch.cuda.is_available() is False: phase 24's ranks need the GPU")
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(rest_dir, "store"), REST_RANKS), rank=rank,
+                            world_size=REST_RANKS, timeout=timedelta(seconds=REST_TIMEOUT_S))
+    try:
+        t0 = time.perf_counter()
+        dry = dryrun_multichip(REST_RANKS)
+        dry_s = time.perf_counter() - t0
+        mesh = make_mesh(REST_RANKS)
+        t0 = time.perf_counter()
+        mc = multichip_render.run(mesh)
+        mc_s = time.perf_counter() - t0
+        torch.save({"dryrun": dry, "dryrun_s": dry_s, "multichip": _to_host(torch, mc), "multichip_s": mc_s},
+                   os.path.join(rest_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def rest_examples(torch, device) -> dict:
+    """Phase 24 (d): ``examples.full_workflow`` on the card (in-memory
+    source: this machine has no h5py), then REST_RANKS gloo ranks running
+    ``dryrun_multichip`` and ``examples.multichip_render`` under one
+    deadline."""
+
+    from astro_sph_tools_tpu_torch.examples import full_workflow
+
+    counters = {k: v for k, v in _par_counters().items()
+                if k in ("deposit2d", "sightline_columns", "sightline_spectra", "deposit3d")}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    wf = full_workflow.run(None, device=device, source="memory")
+    wf_s = time.perf_counter() - t0
+    wf_launches = {k: fn.launches for k, fn in counters.items()}
+    keys = ("n_haloes", "surface_density_sum", "cutout_sums", "cube_mass_recon", "columns_median", "spectra_shape",
+            "spectra_finite", "nearest_median", "reorder_lossless", "reorder_exact", "ion_log_fraction",
+            "filter_selected", "skipped")
+    res = {"phase": "rest_examples", "full_workflow": {k: wf[k] for k in keys}, "full_workflow_s": wf_s,
+           "full_workflow_launches": wf_launches}
+    check(all(v > 0 for v in wf_launches.values()), f"full_workflow launched a kernel no time: {wf_launches}")
+    check(wf["spectra_finite"] and wf["reorder_exact"] and abs(wf["cube_mass_recon"] - 1.0) < 1e-3,
+          f"full_workflow's checks failed: {res['full_workflow']}")
+    with tempfile.TemporaryDirectory() as tmp:
+        cmds = [[sys.executable, os.path.abspath(__file__), "--rest-rank", str(r), "--rest-dir", tmp]
+                for r in range(REST_RANKS)]
+        t0 = time.perf_counter()
+        run_ranks(cmds, tmp, REST_TIMEOUT_S)
+        res["ranks_s"] = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(REST_RANKS)]
+    res["dryrun_launches"] = {k: sum(r["dryrun"]["launches"][k] for r in ranks) for k in ranks[0]["dryrun"]["launches"]}
+    res["dryrun_step_seconds"] = ranks[0]["dryrun"]["step_seconds"]
+    res["dryrun_s"] = [r["dryrun_s"] for r in ranks]
+    mc = [r["multichip"] for r in ranks]
+    res["multichip"] = {k: mc[0][k] for k in ("coherent", "cube", "reorder", "columns")}
+    res["multichip_s"] = [r["multichip_s"] for r in ranks]
+    res["multichip_same_on_every_rank"] = all(
+        torch.equal(m["coherent_map"], mc[0]["coherent_map"]) and torch.equal(m["columns_values"], mc[0]["columns_values"])
+        for m in mc)
+    emit(res)
+    check(all(r["dryrun"]["device"] == "cuda:0" for r in ranks), "a dry-run rank ran off the card")
+    check(all(res["dryrun_launches"][k] > 0 for k in _par_counters()),
+          f"the dry run launched a kernel of #1-#6 no time: {res}")
+    check(all(m["reorder"] == {"exact": True, "matched": True} for m in mc), "multichip_render's reorder not exact")
+    check(res["multichip_same_on_every_rank"], "multichip_render's reduced maps differ between ranks")
+    return res
+
+
+def phase_rest(torch, device, particles, fidelity_out: str) -> dict:
+    """Phase 24: (a) window mode, (b) the fidelity artifact, (c)
+    render_service, (d) full_workflow, dryrun_multichip and
+    multichip_render."""
+    t0 = time.perf_counter()
+    a = rest_window(torch, device, particles)
+    ta = time.perf_counter() - t0
+    del particles
+    torch.cuda.empty_cache()
+    b = rest_fidelity(torch, device, fidelity_out)
+    tb = time.perf_counter() - t0 - ta
+    torch.cuda.empty_cache()
+    c = rest_service(torch, device)
+    tc = time.perf_counter() - t0 - ta - tb
+    torch.cuda.empty_cache()
+    d = rest_examples(torch, device)
+    out = {"phase": "rest", "seconds": time.perf_counter() - t0,
+           "part_seconds": {"window": ta, "fidelity": tb, "render_service": tc,
+                            "examples": time.perf_counter() - t0 - ta - tb - tc}}
+    emit(out)
+    return {**out, "window": a, "fidelity": b, "service": c, "examples": d}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,19,23,10,11,12,13,14,16,17,20,21,22",
+    parser.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,19,23,10,11,12,13,14,16,17,20,21,22,24",
                         help="comma-separated phases to run (15 and 18 only when named)")
     parser.add_argument("--log2n", type=int, default=MAIN_LOG2N, help="log2 of the main path's particle count")
     parser.add_argument("--sight-n", type=int, default=SIGHT_N, help="gas particles of phases 10-12")
@@ -4351,6 +4563,10 @@ def main() -> None:
                         help="phase 22's particles per axis (DM and gas each side^3)")
     parser.add_argument("--par-rank", type=int, help="run one rank of phase 23 (b) (started by phase 23 itself)")
     parser.add_argument("--par-dir", help="phase 23 (b)'s shared directory (with --par-rank)")
+    parser.add_argument("--rest-rank", type=int, help="run one rank of phase 24 (d) (started by phase 24 itself)")
+    parser.add_argument("--rest-dir", help="phase 24 (d)'s shared directory (with --rest-rank)")
+    parser.add_argument("--fidelity-out", default=os.path.join(tempfile.gettempdir(), "FIDELITY_TORCH.json"),
+                        help="where phase 24 writes the fidelity artifact (default: the temporary directory)")
     parser.add_argument("--cpu-probe", choices=("torch", "port"),
                         help="run one CPU first-call probe in this process and print its error (phase 0)")
     args = parser.parse_args()
@@ -4359,6 +4575,9 @@ def main() -> None:
         return
     if args.par_rank is not None:
         par_rank_main(args.par_rank, args.par_dir)
+        return
+    if args.rest_rank is not None:
+        rest_rank_main(args.rest_rank, args.rest_dir)
         return
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -4414,6 +4633,10 @@ def main() -> None:
     ion_out = phase_ion(torch, device, args.ion_log2n) if 21 in phases else None
     torch.cuda.empty_cache()
     neigh_out = phase_neighbours(torch, device, args.neigh_side) if 22 in phases else None
+    torch.cuda.empty_cache()
+    rest_out = None
+    if 24 in phases:
+        rest_out = phase_rest(torch, device, main_particles(torch, device, args.log2n)[0], args.fidelity_out)
 
     def pick(rows, **match):
         return next((c for c in rows if all(c.get(k) == v for k, v in match.items())), None)
@@ -4445,6 +4668,8 @@ def main() -> None:
     spec_case = pick(spec_cases, input="config4", profile="gaussian", periodic=True)
     vox_case = pick(vox_cases, K=8, F=4, periodic=True)
     app_case = pick(app_cases, case="coarse")
+    win = rest_out["window"] if rest_out else None
+    win_case = pick(win["cases"], case="main", window=512, F=2, projection="kernel3d") if win else None
     sight_launches = sight_out["launches"] if sight_out else {}
     # phase 17's checks of kernels #1-#3 on the bucketed stream
     stream = rand_out["bucketed_stream_checks"] if rand_out else {}
@@ -4504,6 +4729,23 @@ def main() -> None:
             "e2e_path_launches": e2e_out["launches"]["coherent_deposit"] if e2e_out else None,
             "ion_path_launches": ion_out["launches"]["coherent_deposit"] if ion_out else None,
             **par_launches("coherent_deposit"),
+        },
+        {
+            "name": "coherent_window",
+            "route": "cuda",
+            "source": "astro_sph_tools_tpu_torch/csrc/coherent.cu",
+            # the window-step branch of _deposit_kernel_coherent: its window words
+            "replaces": "astro_sph_tools_tpu/ops/deposit_coherent.py:683",
+            "launches": win["launches"]["coherent_window"] if win else None,
+            "max_abs_err": max((c["max_abs_err"] for c in win["cases"]), default=None) if win else None,
+            "ms": win_case["ms"] if win_case else None,
+            "plain_ms": win_case["plain_ms"] if win_case else None,
+            **bound_keys(win_case),
+            # each window at full width: kernel, the whole-row kernel on the same candidates, bound
+            "by_window": {c["window"]: {"ms": c["ms"], "whole_row_ms": c["whole_row_ms"], "bound_ms": c["bound_ms"],
+                                        "n_window_steps": c["n_window_steps"]}
+                          for c in (win["cases"] if win else []) if c["case"] == "main" and c["F"] == 2
+                          and c["projection"] == "kernel3d"},
         },
         {
             "name": "sightline_columns",

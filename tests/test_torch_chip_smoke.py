@@ -350,7 +350,7 @@ def test_nearest_halo_search_returns_what_the_cli_writes(tmp_path):
     it writes."""
     import h5py
 
-    from astro_sph_tools_tpu.io.synthetic import SyntheticSnapshotSpec, write_catalogue, write_snapshot
+    from astro_sph_tools_tpu_torch.io.synthetic import SyntheticSnapshotSpec, write_catalogue, write_snapshot
     from astro_sph_tools_tpu_torch.data_structures import ParticleType
     from astro_sph_tools_tpu_torch.io.catalogue import BasicHaloDefinitions
     from astro_sph_tools_tpu_torch.io.filetree import FileTreeScraper_EAGLE

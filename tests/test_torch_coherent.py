@@ -392,10 +392,10 @@ def test_bad_arguments_raise():
         deposit_2d_coherent(x, x, h, x, spec, precision="fp32", device="cpu")
     with pytest.raises(ValueError, match="unknown precision"):
         deposit_2d_coherent_fused(x, x, h, x, spec, caps, precision="bf16x22", device="cpu")
-    with pytest.raises(NotImplementedError, match="window"):
-        deposit_2d_coherent(x, x, h, x, spec, window=256, device="cpu")
-    with pytest.raises(NotImplementedError, match="window"):
-        tile_particles_coherent(x, x, h, x, spec, window=128, device="cpu")
+    with pytest.raises(ValueError, match="prep"):
+        deposit_2d_coherent(x, x, h, x, spec, window=256, prep="pallas", device="cpu")
+    with pytest.raises(ValueError, match="power of two"):
+        tile_particles_coherent(x, x, h, x, spec, window=100, device="cpu")
     with pytest.raises(ValueError, match="d_max"):
         tile_particles_coherent(x, x, h, x, spec, d_max=0, device="cpu")
     with pytest.raises(ValueError, match="no coherent deposit kernel"):

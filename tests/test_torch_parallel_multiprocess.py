@@ -16,11 +16,11 @@ import numpy as np
 import pytest
 
 import torch_parallel_tasks as T
-from astro_sph_tools_tpu.io.synthetic import SyntheticSnapshotSpec, write_catalogue, write_snapshot
 from astro_sph_tools_tpu_torch import render_halo_maps
 from astro_sph_tools_tpu_torch.data_structures import ParticleType
 from astro_sph_tools_tpu_torch.io.eagle import SnapshotEAGLE
 from astro_sph_tools_tpu_torch.io.subfind import CatalogueSUBFIND, _allgather_concat
+from astro_sph_tools_tpu_torch.io.synthetic import SyntheticSnapshotSpec, write_catalogue, write_snapshot
 from oracles import project_oracle_fast
 from torch_dist import RankPool
 

@@ -150,6 +150,10 @@ def test_port_imports_neither_jax_nor_h5py():
         "import astro_sph_tools_tpu_torch.parallel.reorder, astro_sph_tools_tpu_torch.parallel.rebalance\n"
         "import astro_sph_tools_tpu_torch.parallel.sharded_io\n"
         "from astro_sph_tools_tpu_torch.parallel import distributed_reorder, make_mesh, Mesh\n"
+        "import astro_sph_tools_tpu_torch.io.synthetic, astro_sph_tools_tpu_torch.parallel.dryrun\n"
+        "import astro_sph_tools_tpu_torch.io.memory\n"
+        "import astro_sph_tools_tpu_torch.examples.full_workflow, astro_sph_tools_tpu_torch.examples.render_service\n"
+        "import astro_sph_tools_tpu_torch.examples.multichip_render, astro_sph_tools_tpu_torch.scripts.fidelity_check\n"
         "print(sorted(m for m in ('jax', 'h5py', 'astro_sph_tools_tpu') if m in sys.modules))\n"
     )
     out = subprocess.run(

@@ -257,3 +257,18 @@ def comm(ctx):
     send = torch.cat([torch.full((d,), 100 * r + d, dtype=torch.int64) for d in range(s)])
     got, counts = all_to_all_v(send, [d for d in range(s)], mesh)
     return gathered, _np(got), counts
+
+
+def dryrun(ctx, n_devices):
+    """``parallel.dryrun.dryrun_multichip`` on the CPU mesh of the pool."""
+    from astro_sph_tools_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    return dryrun_multichip(n_devices, device="cpu")
+
+
+def multichip_render(ctx, kw):
+    """``examples.multichip_render.run`` on the CPU mesh of the pool; its
+    tensors come back as NumPy arrays."""
+    from astro_sph_tools_tpu_torch.examples.multichip_render import run
+
+    return {k: _np(v) for k, v in run(ctx.mesh(), **kw).items()}
