@@ -40,6 +40,7 @@ from ..kernels.splines import (
     integrated_kernel_lookup,
     integrated_kernel_table,
 )
+from ..utils.profiling import count
 
 Tensor = torch.Tensor
 
@@ -272,7 +273,9 @@ def deposit_2d(
     device : where the deposit runs; inputs are moved there.
 
     Returns the (ny, nx) map, or (ny, nx, F) for multi-field input, as a
-    tensor on ``device``.
+    tensor on ``device``. Under ``torch.profiler`` the particles each
+    stencil level, wide window (``K<side>``) and the dense pass take are
+    counted on the innermost open span (``utils.profiling.count``).
     """
     device = torch.device(device)
     x = _as_tensor(x, device)
@@ -304,9 +307,11 @@ def deposit_2d(
     h, values = h.to(dtype), values.to(dtype)
     static = dict(spec=spec, kernel_name=kernel, projection=projection)
 
+    routed = {}  # particles a level, for the innermost open span
     for K, idx in zip(STENCIL_LEVELS, per_level):
         if idx.numel() == 0:
             continue
+        routed[f"K{K}"] = idx.numel()
         level_chunk = max(256, min(chunk, chunk * 64 // (K * K)))
         _stencil_level_pass(
             image_flat, x[idx], y[idx], h[idx], values[idx], lut,
@@ -322,16 +327,19 @@ def deposit_2d(
             idx = oversize[fits]
             oversize, needed = oversize[~fits], needed[~fits]
             if idx.numel():
+                routed[f"K{K}"] = idx.numel()
                 _stencil_level_pass(
                     image_flat, x[idx], y[idx], h[idx], values[idx], lut,
                     K=K, chunk=max(1, _WIDE_BLOCK // (K * K)), **static,
                 )
 
     if oversize.numel():
+        routed["dense"] = oversize.numel()
         _dense_pass(
             image_flat, x[oversize], y[oversize], h[oversize], values[oversize], lut,
             **static,
         )
+    count(**routed)
 
     image = image_flat.reshape(ny, nx, n_fields)
     return image[..., 0] if single_field else image

@@ -48,6 +48,7 @@ import torch
 
 from .. import _build
 from ..kernels.splines import get_kernel, integrated_kernel_chebyshev
+from ..utils.profiling import span
 from .deposit import MapSpec, deposit_2d
 from .deposit_tiled import (
     PALLAS_LEVELS,
@@ -703,57 +704,59 @@ def tile_particles_coherent(
     :func:`deposit_coherent_windows`). It needs ``prep="xla"`` (``None``
     resolves to it; ``"pallas"`` raises). Exact for any value.
     """
-    device = torch.device(device)
-    prep = _resolve_prep(prep, device, window)
-    st = _setup(spec, kernel, levels, d_max)
-    values, _ = _field_matrix(values, device)
-    x, y, h, values, n_valid = _device_inputs(x, y, h, values, spec, device)
-    n_rows = x.shape[0] // _CHUNK
-    n_fields = values.shape[0]
-    packed, sk, sr, sk4, tail_eff, _, counts, *cand_win = _stage_a(prep, x, y, h, values, st, window)
-    cvec = counts.tolist()  # the ONLY host sync
-    n_wsteps = cvec[-1] if window else 0
-    n_cand, n_heavy, n_tail = cvec[:3]
-    nb = len(_TAIL_BUCKETS)
-    nbs = cvec[3:3 + nb]
-    lc = cvec[3 + nb:3 + nb + st.n_levels + 1]
+    with span("layout.coherent") as sp:
+        device = torch.device(device)
+        prep = _resolve_prep(prep, device, window)
+        st = _setup(spec, kernel, levels, d_max)
+        values, _ = _field_matrix(values, device)
+        x, y, h, values, n_valid = _device_inputs(x, y, h, values, spec, device)
+        n_rows = x.shape[0] // _CHUNK
+        n_fields = values.shape[0]
+        packed, sk, sr, sk4, tail_eff, _, counts, *cand_win = _stage_a(prep, x, y, h, values, st, window)
+        cvec = counts.tolist()  # the ONLY host sync
+        n_wsteps = cvec[-1] if window else 0
+        n_cand, n_heavy, n_tail = cvec[:3]
+        nb = len(_TAIL_BUCKETS)
+        nbs = cvec[3:3 + nb]
+        lc = cvec[3 + nb:3 + nb + st.n_levels + 1]
 
-    tail, metas = None, []
-    if n_tail:
-        flat, key = _tail_gather(packed, tail_eff, n_tail, n_fields, st)
-        tail = _tail_sort_dense(packed, flat, key, n_fields)
-        lo = 0
-        for li, g in enumerate(st.geoms):
-            if g is not None and lc[li] > 0:
-                metas.append((li, g, lo, lc[li]))
-            lo += lc[li]
-    n_coh_rows = n_rows - n_heavy
-    cand_win = tuple(a[:n_cand] for a in cand_win)
-    win_steps = window_steps(sk[:n_cand], sr[:n_cand], *cand_win[:2], window=window, n_steps=n_wsteps,
-                             n_tiles=st.geom0.n_tiles) if window else ()
-    return CoherentLayout(
-        spec=spec, kernel=kernel, geom0=st.geom0, bases=st.bases, packed=packed,
-        cand_tile=sk[:n_cand], cand_row=sr[:n_cand], cand_k4=sk4[:n_cand],
-        window=window, cand_win=cand_win, b0w=n_wsteps, win_steps=win_steps,
-        n_cand=n_cand, tail=tail, tail_metas=tuple(metas),
-        n_tail_oversize=lc[st.n_levels], n_tail_sorted=sum(lc),
-        n_fields=n_fields, n_valid=n_valid,
-        stats={
-            "n_rows": n_rows,
-            "coherent_rows": n_coh_rows,
-            "coherent_fraction": n_coh_rows / max(1, n_rows),
-            "n_candidates": n_cand,
-            "candidates_per_coherent_row": n_cand / max(1, n_coh_rows),
-            "heavy_rows": n_heavy,
-            "tail_particles": n_tail,
-            "routed_particles": sum(lc),
-            "tail_bucket_rows": dict(zip(_TAIL_BUCKETS, nbs)),
-            # per-level routed-tail particle counts (+ oversize last); the
-            # fused engine's caps_from_layout reads these
-            "level_tail_counts": list(lc),
-            "n_window_steps": n_wsteps,
-        },
-    )
+        tail, metas = None, []
+        if n_tail:
+            flat, key = _tail_gather(packed, tail_eff, n_tail, n_fields, st)
+            tail = _tail_sort_dense(packed, flat, key, n_fields)
+            lo = 0
+            for li, g in enumerate(st.geoms):
+                if g is not None and lc[li] > 0:
+                    metas.append((li, g, lo, lc[li]))
+                lo += lc[li]
+        n_coh_rows = n_rows - n_heavy
+        sp.count(particles=n_valid, n_rows=n_rows, coherent_rows=n_coh_rows, n_candidates=n_cand,
+                 routed_particles=sum(lc), n_tail_oversize=lc[st.n_levels])
+        cand_win = tuple(a[:n_cand] for a in cand_win)
+        win_steps = window_steps(sk[:n_cand], sr[:n_cand], *cand_win[:2], window=window, n_steps=n_wsteps,
+                                 n_tiles=st.geom0.n_tiles) if window else ()
+        return CoherentLayout(
+            spec=spec, kernel=kernel, geom0=st.geom0, bases=st.bases, packed=packed,
+            cand_tile=sk[:n_cand], cand_row=sr[:n_cand], cand_k4=sk4[:n_cand],
+            window=window, cand_win=cand_win, b0w=n_wsteps, win_steps=win_steps,
+            n_cand=n_cand, tail=tail, tail_metas=tuple(metas),
+            n_tail_oversize=lc[st.n_levels], n_tail_sorted=sum(lc),
+            n_fields=n_fields, n_valid=n_valid,
+            stats={
+                "n_rows": n_rows,
+                "coherent_rows": n_coh_rows,
+                "coherent_fraction": n_coh_rows / max(1, n_rows),
+                "n_candidates": n_cand,
+                "heavy_rows": n_heavy,
+                "tail_particles": n_tail,
+                "routed_particles": sum(lc),
+                "tail_bucket_rows": dict(zip(_TAIL_BUCKETS, nbs)),
+                # per-level routed-tail particle counts (+ oversize last); the
+                # fused engine's caps_from_layout reads these
+                "level_tail_counts": list(lc),
+                "n_window_steps": n_wsteps,
+            },
+        )
 
 
 def _render(packed, cand_tile, cand_row, tail, tail_levels, *, spec, kernel, projection,
@@ -767,27 +770,33 @@ def _render(packed, cand_tile, cand_row, tail, tail_levels, *, spec, kernel, pro
     kw = dict(kernel=kernel, projection=projection, psx=psx, psy=psy, offset=spec.sample_offset)
     total = torch.zeros((n_fields, ny, nx), dtype=torch.float32, device=packed.device)
     if cand_tile is not None and cand_tile.numel():
-        if win is not None:
-            W, wb0, nw, steps = win
-            tiles = deposit_coherent_windows(
-                packed, cand_tile, cand_row, wb0, nw, steps, window=W,
-                n_fields=n_fields, n_tiles=geom0.n_tiles, cfg=geom0.cfg, **kw
+        launches = deposit_coherent_windows.launches + deposit_coherent_tiles.launches
+        with span("deposit.coherent", candidates=cand_tile.shape[0]) as sp:
+            if win is not None:
+                W, wb0, nw, steps = win
+                tiles = deposit_coherent_windows(
+                    packed, cand_tile, cand_row, wb0, nw, steps, window=W,
+                    n_fields=n_fields, n_tiles=geom0.n_tiles, cfg=geom0.cfg, **kw
+                )
+            else:
+                tiles = deposit_coherent_tiles(
+                    packed, cand_tile, cand_row, n_fields=n_fields, n_tiles=geom0.n_tiles, cfg=geom0.cfg, **kw
+                )
+            total += _overlap_add(
+                tiles, geom0.cfg, geom0.tx, geom0.n_tiles_y, geom0.n_tiles_x, n_fields, ny, nx, spec.periodic_wrap
             )
-        else:
-            tiles = deposit_coherent_tiles(
-                packed, cand_tile, cand_row, n_fields=n_fields, n_tiles=geom0.n_tiles, cfg=geom0.cfg, **kw
-            )
-        total += _overlap_add(
-            tiles, geom0.cfg, geom0.tx, geom0.n_tiles_y, geom0.n_tiles_x, n_fields, ny, nx, spec.periodic_wrap
-        )
+            sp.count(launches=deposit_coherent_windows.launches + deposit_coherent_tiles.launches - launches)
     if tail is not None:
         tu, tv, th, t_values, skey = tail
-        for li, geom, cap in tail_levels:
-            pstart, pcount = _tail_level_ranges(skey, bases[li], geom, cap)
-            tiles = deposit_tiles(tu, tv, th, t_values, pstart, pcount, cfg=geom.cfg, **kw)
-            total += _overlap_add(
-                tiles, geom.cfg, geom.tx, geom.n_tiles_y, geom.n_tiles_x, n_fields, ny, nx, spec.periodic_wrap
-            )
+        launches = deposit_tiles.launches
+        with span("deposit.tail", particles=tu.shape[0]) as sp:
+            for li, geom, cap in tail_levels:
+                pstart, pcount = _tail_level_ranges(skey, bases[li], geom, cap)
+                tiles = deposit_tiles(tu, tv, th, t_values, pstart, pcount, cfg=geom.cfg, **kw)
+                total += _overlap_add(
+                    tiles, geom.cfg, geom.tx, geom.n_tiles_y, geom.n_tiles_x, n_fields, ny, nx, spec.periodic_wrap
+                )
+            sp.count(launches=deposit_tiles.launches - launches)
     return total
 
 
@@ -814,15 +823,16 @@ def deposit_coherent(
     )
     if layout.n_tail_oversize:
         # oversize particles end the sorted tail, in global pixel coordinates
-        tu, tv, th, t_values, _ = layout.tail
-        x0, _, y0, _ = spec.extent
-        psy, psx = spec.pixel_size
-        sl = slice(layout.n_tail_sorted - layout.n_tail_oversize, layout.n_tail_sorted)
-        img = deposit_2d(
-            tu[sl] * psx + x0, tv[sl] * psy + y0, th[sl], t_values[:, sl].T, spec,
-            kernel=layout.kernel, projection=projection, device=layout.packed.device,
-        )
-        total += img.permute(2, 0, 1)
+        with span("deposit.oversize", particles=layout.n_tail_oversize):
+            tu, tv, th, t_values, _ = layout.tail
+            x0, _, y0, _ = spec.extent
+            psy, psx = spec.pixel_size
+            sl = slice(layout.n_tail_sorted - layout.n_tail_oversize, layout.n_tail_sorted)
+            img = deposit_2d(
+                tu[sl] * psx + x0, tv[sl] * psy + y0, th[sl], t_values[:, sl].T, spec,
+                kernel=layout.kernel, projection=projection, device=layout.packed.device,
+            )
+            total += img.permute(2, 0, 1)
     return total
 
 

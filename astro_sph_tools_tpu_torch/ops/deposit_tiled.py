@@ -44,6 +44,7 @@ import torch
 
 from .. import _build
 from ..kernels.splines import clenshaw, get_kernel, integrated_kernel_chebyshev
+from ..utils.profiling import span
 from .deposit import MapSpec, deposit_2d
 
 Tensor = torch.Tensor
@@ -755,62 +756,64 @@ def tile_particles(
     ``n_oversize`` include (pads re-gather as 0 in :meth:`with_values`).
     f64 coordinates keep the sort whatever ``layout`` says.
     """
-    if layout not in ("auto", "sort", "shear"):
-        raise ValueError(f"unknown layout {layout!r}; expected 'auto', 'sort' or 'shear'")
-    kspec = get_kernel(kernel)
-    device = torch.device(device)
-    values, _ = _as_field_matrix(values, device)
-    geoms, bounds, geom_tuples = _assign_setup(spec, levels)
-    xs, ys = _coords(x, y, device)
-    h = torch.as_tensor(h if isinstance(h, Tensor) else np.asarray(h), dtype=torch.float32)
-    n_valid = int(h.shape[0])
-    if layout == "shear" and xs.dtype != torch.float64:
-        from .layout_shear import shear_tile_sort  # late import: it imports this module
+    with span("layout.sorted") as sp:
+        if layout not in ("auto", "sort", "shear"):
+            raise ValueError(f"unknown layout {layout!r}; expected 'auto', 'sort' or 'shear'")
+        kspec = get_kernel(kernel)
+        device = torch.device(device)
+        values, _ = _as_field_matrix(values, device)
+        geoms, bounds, geom_tuples = _assign_setup(spec, levels)
+        xs, ys = _coords(x, y, device)
+        h = torch.as_tensor(h if isinstance(h, Tensor) else np.asarray(h), dtype=torch.float32)
+        n_valid = int(h.shape[0])
+        if layout == "shear" and xs.dtype != torch.float64:
+            from .layout_shear import shear_tile_sort  # late import: it imports this module
 
-        assign, level_n_tiles = _shear_assign(spec, kspec.support_factor, geoms, bounds, geom_tuples)
-        s_tile, su, sv, sh, s_values, perm, counts = shear_tile_sort(
-            None, None, None, h.to(device), values, raw_xy=(xs, ys), assign=assign,
-            level_stride=_LEVEL_STRIDE, level_n_tiles=level_n_tiles,
-            n_fields=values.shape[0], need_perm=need_perm, n_valid=n_valid,
+            assign, level_n_tiles = _shear_assign(spec, kspec.support_factor, geoms, bounds, geom_tuples)
+            s_tile, su, sv, sh, s_values, perm, counts = shear_tile_sort(
+                None, None, None, h.to(device), values, raw_xy=(xs, ys), assign=assign,
+                level_stride=_LEVEL_STRIDE, level_n_tiles=level_n_tiles,
+                n_fields=values.shape[0], need_perm=need_perm, n_valid=n_valid,
+            )
+            # the counts include the interleaved pad slots: the data region is
+            # their total, not the input length
+            counts = counts.tolist()  # host sync: a few ints
+            perm = None if perm is None else perm.long()
+        else:
+            # host f64 coordinates (the quality path): one native pass, bit for
+            # bit the torch formulation that every other input takes
+            assign = _native_assign if _on_host_f64(xs) else _assign_keys
+            key, u_loc, v_loc = assign(xs, ys, h, spec, kspec.support_factor, bounds, geom_tuples)
+            key = key.to(device)
+
+            sorted_key, perm = torch.sort(key, stable=True)
+            del key
+            su = u_loc.to(device)[perm]
+            sv = v_loc.to(device)[perm]
+            del u_loc, v_loc
+            sh = h.to(device)[perm]
+            s_values = values[:, perm].contiguous()
+            lv = torch.arange(len(geoms) + 2, dtype=sorted_key.dtype, device=device) * _LEVEL_STRIDE
+            starts = torch.searchsorted(sorted_key, lv).tolist()  # host sync: a few ints
+            counts = [starts[i + 1] - starts[i] for i in range(len(geoms) + 1)]
+            s_tile = torch.remainder(sorted_key, _LEVEL_STRIDE).to(torch.int32)
+            perm = perm if need_perm else None
+
+        level_meta = []
+        lo = 0
+        for li, g in enumerate(geoms):
+            c = counts[li]
+            if g is not None and c > 0:
+                level_meta.append((g, lo, c))
+            lo += c
+        sp.count(particles=n_valid, n_oversize=counts[len(geoms)], **{f"K{g.cfg.K}": c for g, _, c in level_meta})
+        return TiledParticles(
+            spec=spec, kernel=kernel, geoms=tuple(level_meta),
+            sorted_u=su, sorted_v=sv, sorted_h=sh, sorted_values=s_values,
+            sorted_tile=s_tile, perm=perm,
+            n_sorted=sum(counts), n_oversize=counts[len(geoms)],
+            n_valid=n_valid,
         )
-        # the counts include the interleaved pad slots: the data region is
-        # their total, not the input length
-        counts = counts.tolist()  # host sync: a few ints
-        perm = None if perm is None else perm.long()
-    else:
-        # host f64 coordinates (the quality path): one native pass, bit for
-        # bit the torch formulation that every other input takes
-        assign = _native_assign if _on_host_f64(xs) else _assign_keys
-        key, u_loc, v_loc = assign(xs, ys, h, spec, kspec.support_factor, bounds, geom_tuples)
-        key = key.to(device)
-
-        sorted_key, perm = torch.sort(key, stable=True)
-        del key
-        su = u_loc.to(device)[perm]
-        sv = v_loc.to(device)[perm]
-        del u_loc, v_loc
-        sh = h.to(device)[perm]
-        s_values = values[:, perm].contiguous()
-        lv = torch.arange(len(geoms) + 2, dtype=sorted_key.dtype, device=device) * _LEVEL_STRIDE
-        starts = torch.searchsorted(sorted_key, lv).tolist()  # host sync: a few ints
-        counts = [starts[i + 1] - starts[i] for i in range(len(geoms) + 1)]
-        s_tile = torch.remainder(sorted_key, _LEVEL_STRIDE).to(torch.int32)
-        perm = perm if need_perm else None
-
-    level_meta = []
-    lo = 0
-    for li, g in enumerate(geoms):
-        c = counts[li]
-        if g is not None and c > 0:
-            level_meta.append((g, lo, c))
-        lo += c
-    return TiledParticles(
-        spec=spec, kernel=kernel, geoms=tuple(level_meta),
-        sorted_u=su, sorted_v=sv, sorted_h=sh, sorted_values=s_values,
-        sorted_tile=s_tile, perm=perm,
-        n_sorted=sum(counts), n_oversize=counts[len(geoms)],
-        n_valid=n_valid,
-    )
 
 
 def _shear_assign(spec: MapSpec, support_factor: float, geoms, bounds, geom_tuples):
@@ -891,27 +894,31 @@ def deposit_tiled(
     ny, nx = tp.spec.shape
     dev = tp.sorted_u.device
     total = torch.zeros((tp.n_fields, ny, nx), dtype=torch.float32, device=dev)
-    for geom, lo, count in tp.geoms:
-        sl = slice(lo, lo + count)
-        total += _render_level(
-            geom, tp.spec, tp.kernel, projection,
-            tp.sorted_u[sl], tp.sorted_v[sl], tp.sorted_h[sl],
-            tp.sorted_values[:, sl], tp.sorted_tile[sl], plain,
-        )
+    launches = deposit_tiles.launches
+    with span("deposit.levels", particles=sum(count for _, _, count in tp.geoms)) as sp:
+        for geom, lo, count in tp.geoms:
+            sl = slice(lo, lo + count)
+            total += _render_level(
+                geom, tp.spec, tp.kernel, projection,
+                tp.sorted_u[sl], tp.sorted_v[sl], tp.sorted_h[sl],
+                tp.sorted_values[:, sl], tp.sorted_tile[sl], plain,
+            )
+        sp.count(launches=deposit_tiles.launches - launches)
 
     if tp.n_oversize:
         # oversize stragglers live at the end of the sorted layout with
         # global pixel coordinates; recover world coordinates for the dense
         # path, which runs on the same device
-        x0, x1, y0, y1 = tp.spec.extent
-        sl = slice(tp.n_sorted - tp.n_oversize, tp.n_sorted)
-        xo = tp.sorted_u[sl] * ((x1 - x0) / nx) + x0
-        yo = tp.sorted_v[sl] * ((y1 - y0) / ny) + y0
-        img = deposit_2d(
-            xo, yo, tp.sorted_h[sl], tp.sorted_values[:, sl].T, tp.spec,
-            kernel=tp.kernel, projection=projection, device=dev,
-        )
-        total += img.permute(2, 0, 1)
+        with span("deposit.oversize", particles=tp.n_oversize):
+            x0, x1, y0, y1 = tp.spec.extent
+            sl = slice(tp.n_sorted - tp.n_oversize, tp.n_sorted)
+            xo = tp.sorted_u[sl] * ((x1 - x0) / nx) + x0
+            yo = tp.sorted_v[sl] * ((y1 - y0) / ny) + y0
+            img = deposit_2d(
+                xo, yo, tp.sorted_h[sl], tp.sorted_values[:, sl].T, tp.spec,
+                kernel=tp.kernel, projection=projection, device=dev,
+            )
+            total += img.permute(2, 0, 1)
     return total
 
 

@@ -26,7 +26,7 @@ from .ops.deposit_tiled import _check_precision, deposit_2d_auto
 from .ops.periodic import shift_centre
 from .parallel._comm import all_reduce_
 from .parallel.mesh import Mesh
-from .utils.profiling import PhaseTimer
+from .utils.profiling import PhaseTimer, span
 
 _KNOWN_FIELDS = ("density", "mass", "temperature", "metallicity", "velocity_los", "sfr")
 
@@ -78,101 +78,104 @@ def render_map_stack(
     """
     if engine not in ("pallas", "coherent", "xla"):
         raise ValueError(f"Unknown engine {engine!r} (pallas | coherent | xla)")
-    device = torch.device(device)
-    timer = PhaseTimer(device)
-    i, j = axis.projection_plane
-    box = float(snapshot.box_size.value[0])
-    if extent is None:
-        extent = (0.0, box, 0.0, box)
-        if periodic is None:
-            periodic = True
-    periodic = bool(periodic)
+    with span("render.map_stack") as sp:
+        device = torch.device(device)
+        timer = PhaseTimer(device)
+        i, j = axis.projection_plane
+        box = float(snapshot.box_size.value[0])
+        if extent is None:
+            extent = (0.0, box, 0.0, box)
+            if periodic is None:
+                periodic = True
+        periodic = bool(periodic)
 
-    with timer.phase("io"):
-        pos = snapshot.get_positions(particle_type).to_value("Mpc")
-        h = snapshot.get_smoothing_lengths(particle_type).to_value("Mpc")
-        if particle_type == ParticleType.black_hole:
-            mass = snapshot.get_black_hole_dynamical_masses().to_value("Msun")
-        else:
-            mass = snapshot.get_masses(particle_type).to_value("Msun")
+        with timer.phase("io"):
+            pos = snapshot.get_positions(particle_type).to_value("Mpc")
+            h = snapshot.get_smoothing_lengths(particle_type).to_value("Mpc")
+            if particle_type == ParticleType.black_hole:
+                mass = snapshot.get_black_hole_dynamical_masses().to_value("Msun")
+            else:
+                mass = snapshot.get_masses(particle_type).to_value("Msun")
 
-        payloads: list = []
-        names: list = []
-        weighted: list = []
-        for name in fields:
-            if name == "density":
-                payloads.append(mass)
-                names.append("surface_density")
-            elif name == "mass":
+            payloads: list = []
+            names: list = []
+            weighted: list = []
+            for name in fields:
+                if name == "density":
+                    payloads.append(mass)
+                    names.append("surface_density")
+                elif name == "mass":
+                    payloads.append(mass)
+                    names.append("mass")
+                elif name == "sfr":
+                    payloads.append(snapshot.get_sfr().to_value("Msun/yr"))
+                    names.append("sfr")
+                elif name == "temperature":
+                    payloads.append(mass * snapshot.get_temperatures(particle_type).to_value("K"))
+                    names.append("mass_weighted_temperature")
+                    weighted.append("mass_weighted_temperature")
+                elif name == "metallicity":
+                    payloads.append(mass * snapshot.get_metallicities(particle_type).value)
+                    names.append("mass_weighted_metallicity")
+                    weighted.append("mass_weighted_metallicity")
+                elif name == "velocity_los":
+                    v = snapshot.get_velocities(particle_type).to_value("km/s")
+                    payloads.append(mass * v[:, axis.value])
+                    names.append("mass_weighted_velocity_los")
+                    weighted.append("mass_weighted_velocity_los")
+                else:
+                    raise ValueError(f"Unknown map field {name!r}; known: {_KNOWN_FIELDS}")
+            if weighted and "surface_density" not in names and "mass" not in names:
                 payloads.append(mass)
                 names.append("mass")
-            elif name == "sfr":
-                payloads.append(snapshot.get_sfr().to_value("Msun/yr"))
-                names.append("sfr")
-            elif name == "temperature":
-                payloads.append(mass * snapshot.get_temperatures(particle_type).to_value("K"))
-                names.append("mass_weighted_temperature")
-                weighted.append("mass_weighted_temperature")
-            elif name == "metallicity":
-                payloads.append(mass * snapshot.get_metallicities(particle_type).value)
-                names.append("mass_weighted_metallicity")
-                weighted.append("mass_weighted_metallicity")
-            elif name == "velocity_los":
-                v = snapshot.get_velocities(particle_type).to_value("km/s")
-                payloads.append(mass * v[:, axis.value])
-                names.append("mass_weighted_velocity_los")
-                weighted.append("mass_weighted_velocity_los")
-            else:
-                raise ValueError(f"Unknown map field {name!r}; known: {_KNOWN_FIELDS}")
-        if weighted and "surface_density" not in names and "mass" not in names:
-            payloads.append(mass)
-            names.append("mass")
+        sp.count(particles=int(h.shape[0]), fields=len(payloads))
 
-    spec = MapSpec(
-        shape=(resolution, resolution),
-        extent=tuple(float(v) for v in extent),
-        periodic_wrap=periodic,
-    )
-    # a snapshot may serve tensors already on the device (fields_to_device)
-    values = (
-        torch.stack(payloads, dim=0) if isinstance(payloads[0], torch.Tensor)
-        else np.stack(payloads, axis=0)
-    )
-
-    with timer.phase("deposit"):
-        if engine in ("pallas", "coherent"):
-            render = deposit_2d_auto if engine == "pallas" else deposit_2d_coherent
-            maps = render(
-                pos[:, i], pos[:, j], h, values, spec, kernel=kernel,
-                projection=projection, device=device,
-            )
-        else:
-            maps = deposit_2d(
-                pos[:, i], pos[:, j], h, values.T, spec, kernel=kernel,
-                projection=projection, device=device,
-            ).permute(2, 0, 1)
-        maps = maps.cpu().numpy()
-        if maps.ndim == 2:
-            maps = maps[None]
-
-    result = {name: m for name, m in zip(names, maps)}
-    with timer.phase("derive"):
-        denom_name = "mass" if "mass" in result else (
-            "surface_density" if "surface_density" in result else None
+        spec = MapSpec(
+            shape=(resolution, resolution),
+            extent=tuple(float(v) for v in extent),
+            periodic_wrap=periodic,
         )
-        if denom_name:
-            denom = result[denom_name]
-            for name in weighted:
-                mean = np.where(denom > 0, result[name] / np.maximum(denom, 1e-30), 0.0)
-                result[name.replace("mass_weighted", "mean")] = mean
+        # a snapshot may serve tensors already on the device (fields_to_device)
+        values = (
+            torch.stack(payloads, dim=0) if isinstance(payloads[0], torch.Tensor)
+            else np.stack(payloads, axis=0)
+        )
 
-    return MapStack(
-        maps=result,
-        spec=spec,
-        axis=axis,
-        particle_type=particle_type,
-        timings=timer.report(),
-    )
+        with timer.phase("deposit"):
+            if engine in ("pallas", "coherent"):
+                render = deposit_2d_auto if engine == "pallas" else deposit_2d_coherent
+                maps = render(
+                    pos[:, i], pos[:, j], h, values, spec, kernel=kernel,
+                    projection=projection, device=device,
+                )
+            else:
+                maps = deposit_2d(
+                    pos[:, i], pos[:, j], h, values.T, spec, kernel=kernel,
+                    projection=projection, device=device,
+                ).permute(2, 0, 1)
+            with span("render.to_host", bytes=maps.numel() * maps.element_size()):
+                maps = maps.cpu().numpy()
+            if maps.ndim == 2:
+                maps = maps[None]
+
+        result = {name: m for name, m in zip(names, maps)}
+        with timer.phase("derive"):
+            denom_name = "mass" if "mass" in result else (
+                "surface_density" if "surface_density" in result else None
+            )
+            if denom_name:
+                denom = result[denom_name]
+                for name in weighted:
+                    mean = np.where(denom > 0, result[name] / np.maximum(denom, 1e-30), 0.0)
+                    result[name.replace("mass_weighted", "mean")] = mean
+
+        return MapStack(
+            maps=result,
+            spec=spec,
+            axis=axis,
+            particle_type=particle_type,
+            timings=timer.report(),
+        )
 
 
 def _host_f64(a) -> np.ndarray:
@@ -244,41 +247,43 @@ def render_halo_maps(
     if radius_definition is None:
         radius_definition = BasicHaloDefinitions.SO_200_CRIT.value
     device = mesh.device if mesh is not None else torch.device(device)
-    io_timer = PhaseTimer(device)
+    with span("render.halo_maps", haloes=int(np.size(halo_indexes))) as sp:
+        io_timer = PhaseTimer(device)
 
-    with io_timer.phase("io"):
-        box = float(snapshot.box_size.value[0])
-        centres = catalogue.get_halo_centres_of_potential().to_value("Mpc")
-        radii = catalogue.get_halo_radii(radius_definition).to_value("Mpc")
-        pos = snapshot.get_positions(particle_type).to_value("Mpc")
-        h = snapshot.get_smoothing_lengths(particle_type).to_value("Mpc")
-        mass = snapshot.get_masses(particle_type).to_value("Msun")
+        with io_timer.phase("io"):
+            box = float(snapshot.box_size.value[0])
+            centres = catalogue.get_halo_centres_of_potential().to_value("Mpc")
+            radii = catalogue.get_halo_radii(radius_definition).to_value("Mpc")
+            pos = snapshot.get_positions(particle_type).to_value("Mpc")
+            h = snapshot.get_smoothing_lengths(particle_type).to_value("Mpc")
+            mass = snapshot.get_masses(particle_type).to_value("Msun")
 
-        # the payload stack, once (same semantics as the JAX package)
-        payloads = [mass]
-        names = ["surface_density"]
-        weighted = []
-        for name in fields:
-            if name == "density":
-                continue
-            if name == "temperature":
-                payloads.append(mass * snapshot.get_temperatures(particle_type).to_value("K"))
-                names.append("mass_weighted_temperature")
-                weighted.append("mass_weighted_temperature")
-            elif name == "metallicity":
-                payloads.append(mass * snapshot.get_metallicities(particle_type).value)
-                names.append("mass_weighted_metallicity")
-                weighted.append("mass_weighted_metallicity")
-            else:
-                raise ValueError(f"Unknown halo-map field {name!r}")
-        particles = _halo_particles(pos, h, payloads, axis, device)
-        del pos, payloads
+            # the payload stack, once (same semantics as the JAX package)
+            payloads = [mass]
+            names = ["surface_density"]
+            weighted = []
+            for name in fields:
+                if name == "density":
+                    continue
+                if name == "temperature":
+                    payloads.append(mass * snapshot.get_temperatures(particle_type).to_value("K"))
+                    names.append("mass_weighted_temperature")
+                    weighted.append("mass_weighted_temperature")
+                elif name == "metallicity":
+                    payloads.append(mass * snapshot.get_metallicities(particle_type).value)
+                    names.append("mass_weighted_metallicity")
+                    weighted.append("mass_weighted_metallicity")
+                else:
+                    raise ValueError(f"Unknown halo-map field {name!r}")
+            particles = _halo_particles(pos, h, payloads, axis, device)
+            del pos, payloads
+        sp.count(particles=int(particles[1].shape[0]))
 
-    return _halo_stacks(
-        particles, names, weighted, centres, radii, halo_indexes, box=box, radius_multiple=radius_multiple,
-        axis=axis, resolution=resolution, kernel=kernel, engine=engine, particle_type=particle_type,
-        device=device, mesh=mesh, io_timings=io_timer.report(),
-    )
+        return _halo_stacks(
+            particles, names, weighted, centres, radii, halo_indexes, box=box, radius_multiple=radius_multiple,
+            axis=axis, resolution=resolution, kernel=kernel, engine=engine, particle_type=particle_type,
+            device=device, mesh=mesh, io_timings=io_timer.report(),
+        )
 
 
 def _halo_particles(pos, h, payloads, axis: CoordinateAxes, device) -> tuple:
@@ -306,46 +311,49 @@ def _halo_stacks(
     support_factor = get_kernel(kernel).support_factor
     stacks = []
     for halo_index in np.atleast_1d(halo_indexes):
-        timer = PhaseTimer(device)
-        half_width = radius_multiple * float(radii[halo_index])
-        lo, hi = box / 2 - half_width, box / 2 + half_width
-        spec = MapSpec(shape=(resolution, resolution), extent=(lo, hi, lo, hi), periodic_wrap=False)
-        # the same grid about the cutout's centre, in which the engines deposit
-        local_spec = MapSpec(shape=spec.shape, extent=(-half_width, half_width) * 2, periodic_wrap=False)
-        with timer.phase("recentre"):
-            # f64 offsets from the cutout's centre (box/2 after the shift)
-            local = shift_centre(xy, centres[halo_index][[i, j]], box) - box / 2
-        with timer.phase("select"):
-            # the cutout plus each particle's kernel support S_f * h (not a
-            # literal 2h: quintic/Wendland kernels reach 3h)
-            reach = half_width + support_factor * h64
-            sel = torch.nonzero((local[:, 0].abs() < reach) & (local[:, 1].abs() < reach)).squeeze(1)
-            lx, ly = local[sel, 0], local[sel, 1]
-            hs = h64[sel].to(torch.float32)
-            vs = values[:, sel]
-            del local, reach, sel
-        with timer.phase("deposit"):
-            if engine == "pallas":
-                maps = deposit_2d_auto(lx, ly, hs, vs, local_spec, kernel=kernel, device=device)
-            else:
-                maps = deposit_2d(lx, ly, hs, vs.T, local_spec, kernel=kernel, device=device).permute(2, 0, 1)
-            if maps.ndim == 2:
-                maps = maps[None]
-            if mesh is not None:
-                maps = all_reduce_(maps.contiguous(), mesh)
-            maps = maps.cpu().numpy()
-            del lx, ly, hs, vs
-        with timer.phase("derive"):
-            result = {name: m for name, m in zip(names, maps)}
-            denom = result["surface_density"]
-            for name in weighted:
-                result[name.replace("mass_weighted", "mean")] = np.where(
-                    denom > 0, result[name] / np.maximum(denom, 1e-30), 0.0
-                )
-        timings = timer.report()
-        if not stacks:
-            timings = {**io_timings, **timings}
-        stacks.append(MapStack(maps=result, spec=spec, axis=axis, particle_type=particle_type, timings=timings))
+        with span("render.halo", halo=int(halo_index)) as sp:
+            timer = PhaseTimer(device)
+            half_width = radius_multiple * float(radii[halo_index])
+            lo, hi = box / 2 - half_width, box / 2 + half_width
+            spec = MapSpec(shape=(resolution, resolution), extent=(lo, hi, lo, hi), periodic_wrap=False)
+            # the same grid about the cutout's centre, in which the engines deposit
+            local_spec = MapSpec(shape=spec.shape, extent=(-half_width, half_width) * 2, periodic_wrap=False)
+            with timer.phase("recentre"):
+                # f64 offsets from the cutout's centre (box/2 after the shift)
+                local = shift_centre(xy, centres[halo_index][[i, j]], box) - box / 2
+            with timer.phase("select"):
+                # the cutout plus each particle's kernel support S_f * h (not a
+                # literal 2h: quintic/Wendland kernels reach 3h)
+                reach = half_width + support_factor * h64
+                sel = torch.nonzero((local[:, 0].abs() < reach) & (local[:, 1].abs() < reach)).squeeze(1)
+                lx, ly = local[sel, 0], local[sel, 1]
+                hs = h64[sel].to(torch.float32)
+                vs = values[:, sel]
+                sp.count(selected=int(sel.shape[0]))
+                del local, reach, sel
+            with timer.phase("deposit"):
+                if engine == "pallas":
+                    maps = deposit_2d_auto(lx, ly, hs, vs, local_spec, kernel=kernel, device=device)
+                else:
+                    maps = deposit_2d(lx, ly, hs, vs.T, local_spec, kernel=kernel, device=device).permute(2, 0, 1)
+                if maps.ndim == 2:
+                    maps = maps[None]
+                if mesh is not None:
+                    maps = all_reduce_(maps.contiguous(), mesh)
+                with span("render.to_host", bytes=maps.numel() * maps.element_size()):
+                    maps = maps.cpu().numpy()
+                del lx, ly, hs, vs
+            with timer.phase("derive"):
+                result = {name: m for name, m in zip(names, maps)}
+                denom = result["surface_density"]
+                for name in weighted:
+                    result[name.replace("mass_weighted", "mean")] = np.where(
+                        denom > 0, result[name] / np.maximum(denom, 1e-30), 0.0
+                    )
+            timings = timer.report()
+            if not stacks:
+                timings = {**io_timings, **timings}
+            stacks.append(MapStack(maps=result, spec=spec, axis=axis, particle_type=particle_type, timings=timings))
     return stacks
 
 

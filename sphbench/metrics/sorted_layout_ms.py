@@ -1,0 +1,11 @@
+"""sorted_layout_ms: the sorted layout's self device time, span
+``layout.sorted`` (``ops/deposit_tiled.py::tile_particles``: the level and
+tile keys, the sort, the gathers, the per-level counts), summed over the
+traced window, a product's mean (ms); none where the program records no
+such span or no device time."""
+
+from sphbench.spanread import self_ms
+
+
+def read(run):
+    return self_ms(run, "layout.sorted")

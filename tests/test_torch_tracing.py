@@ -1,0 +1,328 @@
+"""The port's spans and counters (``utils/profiling.py``) on the CPU, and
+the benchmark's readers of them (``sphbench/metrics/``).
+
+- Off: with no profiler running, ``span`` hands back one shared object and
+  a render records nothing.
+- Under ``torch.profiler``: each render records its tree of spans, one
+  ``product`` a call; the counters equal what the layouts report when built
+  directly; every span lies on its ``record_function`` event in the raw
+  kineto events, the clock ``sphbench/devtrace.py`` reads; the maps are bit
+  for bit those rendered without the profiler.
+- Each span metric's ``read`` on a fabricated span list.
+"""
+
+import gc
+import importlib.util
+import os
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from astro_sph_tools_tpu_torch import render_halo_maps, render_map_stack
+from astro_sph_tools_tpu_torch.data_structures import ParticleType
+from astro_sph_tools_tpu_torch.io.catalogue import BasicHaloDefinitions
+from astro_sph_tools_tpu_torch.io.memory import MemoryCatalogue, MemorySnapshot
+from astro_sph_tools_tpu_torch.ops.deposit import MapSpec
+from astro_sph_tools_tpu_torch.ops.deposit_coherent import tile_particles_coherent
+from astro_sph_tools_tpu_torch.ops.deposit_tiled import tile_particles
+from astro_sph_tools_tpu_torch.utils import profiling
+from astro_sph_tools_tpu_torch.utils.profiling import count, device_trace, span, spans
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BOX = 10.0
+N = 4096
+FIELDS = ("density", "temperature")
+RES = 64
+HALO_RES = 128  # a 2 Mpc cutout in 128^2: h past 0.24 Mpc is oversize, past 0.49 takes the dense pass
+
+
+def _fields(seed: int, h_range: tuple) -> dict:
+    rng = np.random.default_rng(seed)
+    mass = rng.uniform(1.0, 2.0, N)
+    return {
+        "positions": torch.tensor(rng.uniform(0.0, BOX, (N, 3)), dtype=torch.float32),
+        "smoothing_lengths": torch.tensor(rng.uniform(*h_range, N), dtype=torch.float32),
+        "masses": torch.tensor(mass, dtype=torch.float32),
+        "temperatures": torch.tensor(rng.uniform(1e4, 1e6, N), dtype=torch.float32),
+        "metallicities": torch.tensor(rng.uniform(0.0, 0.04, N), dtype=torch.float32),
+    }
+
+
+@pytest.fixture(scope="module")
+def box_snap():
+    return MemorySnapshot(_fields(3, (0.02, 0.3)), BOX)
+
+
+@pytest.fixture(scope="module")
+def halo_inputs():
+    snap = MemorySnapshot(_fields(5, (0.02, 0.8)), BOX)
+    centres = np.array([[5.0, 5.0, 5.0], [2.0, 7.0, 5.0]])
+    catalogue = MemoryCatalogue(snap, centres, {BasicHaloDefinitions.SO_200_CRIT.value: np.array([0.5, 0.4])})
+    return snap, catalogue
+
+
+def box_render(snap, engine):
+    return render_map_stack(snap, FIELDS, resolution=RES, engine=engine, device="cpu")
+
+
+def halo_render(inputs):
+    snap, catalogue = inputs
+    return render_halo_maps(snap, catalogue, [0, 1], fields=FIELDS, resolution=HALO_RES, device="cpu")
+
+
+def profiled(fn):
+    """(fn's result, the spans it recorded, the profiler)."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    return out, spans(), prof
+
+
+def tree(records) -> list:
+    """(name, parent's name) of each span, in the order they opened."""
+    by_id = {s["id"]: s["name"] for s in records}
+    return [(s["name"], by_id.get(s["parent"])) for s in records]
+
+
+# ---------------------------------------------------------------------------
+# (a) off
+# ---------------------------------------------------------------------------
+
+
+def test_off_span_is_one_shared_object_that_records_nothing(box_snap):
+    with device_trace():  # opens a new, empty window
+        pass
+    assert spans() == []
+    a, b = span("render.io"), span("layout.sorted", particles=3)
+    assert a is b is profiling._OFF
+    with a as sp:
+        sp.count(launches=1)
+        count(particles=2)
+    box_render(box_snap, "pallas")
+    box_render(box_snap, "coherent")
+    assert spans() == []
+
+
+# ---------------------------------------------------------------------------
+# (b) the span tree
+# ---------------------------------------------------------------------------
+
+MAP_TOP = [("render.map_stack", None), ("render.io", "render.map_stack"), ("render.deposit", "render.map_stack")]
+MAP_END = [("render.to_host", "render.deposit"), ("render.derive", "render.map_stack")]
+TREES = {
+    "coherent": MAP_TOP + [("layout.coherent", "render.deposit"), ("deposit.coherent", "render.deposit"),
+                           ("deposit.tail", "render.deposit")] + MAP_END,
+    "pallas": MAP_TOP + [("layout.sorted", "render.deposit"), ("deposit.levels", "render.deposit")] + MAP_END,
+}
+HALO = [("render.halo", "render.halo_maps"), ("render.recentre", "render.halo"), ("render.select", "render.halo"),
+        ("render.deposit", "render.halo"), ("layout.sorted", "render.deposit"),
+        ("deposit.levels", "render.deposit"), ("deposit.oversize", "render.deposit"),
+        ("render.to_host", "render.deposit"), ("render.derive", "render.halo")]
+HALO_TREE = [("render.halo_maps", None), ("render.io", "render.halo_maps")] + HALO + HALO
+
+
+@pytest.mark.parametrize("engine", ["coherent", "pallas"])
+def test_map_stack_records_its_span_tree(box_snap, engine):
+    _, records, _ = profiled(lambda: box_render(box_snap, engine))
+    assert tree(records) == TREES[engine]
+    assert {s["product"] for s in records} == {records[0]["id"]}
+    assert records[0]["counts"] == {"particles": N, "fields": 2}
+    assert all(s["device_ms"] is None and s["self_device_ms"] is None for s in records)  # no CUDA here
+
+
+def test_halo_maps_records_its_span_tree(halo_inputs):
+    _, records, _ = profiled(lambda: halo_render(halo_inputs))
+    assert tree(records) == HALO_TREE
+    assert {s["product"] for s in records} == {records[0]["id"]}
+    assert records[0]["counts"] == {"haloes": 2, "particles": N}
+    assert [s["counts"]["halo"] for s in records if s["name"] == "render.halo"] == [0, 1]
+
+
+def test_each_call_is_one_product(box_snap):
+    def two():
+        box_render(box_snap, "pallas")
+        box_render(box_snap, "coherent")
+
+    _, records, _ = profiled(two)
+    roots = [s for s in records if s["parent"] is None]
+    assert [s["name"] for s in roots] == ["render.map_stack"] * 2
+    for root in roots:
+        mine = [s for s in records if s["product"] == root["id"]]
+        assert len(mine) == len(TREES["pallas" if root is roots[0] else "coherent"])
+
+
+def test_a_new_profiled_window_replaces_the_last_read_one(box_snap):
+    profiled(lambda: box_render(box_snap, "pallas"))
+    _, records, _ = profiled(lambda: box_render(box_snap, "coherent"))
+    assert tree(records) == TREES["coherent"]
+
+
+# ---------------------------------------------------------------------------
+# (c) counters
+# ---------------------------------------------------------------------------
+
+
+def _box_layout_inputs(snap):
+    """The engines' inputs as ``render_map_stack`` builds them from ``snap``."""
+    pos = snap.get_positions(ParticleType.gas).to_value("Mpc")
+    mass = snap.get_masses(ParticleType.gas).to_value("Msun")
+    values = torch.stack([mass, mass * snap.get_temperatures(ParticleType.gas).to_value("K")])
+    h = snap.get_smoothing_lengths(ParticleType.gas).to_value("Mpc")
+    spec = MapSpec(shape=(RES, RES), extent=(0.0, BOX, 0.0, BOX), periodic_wrap=True)
+    return pos[:, 0], pos[:, 1], h, values, spec
+
+
+def one(records, name) -> dict:
+    found = [s for s in records if s["name"] == name]
+    assert len(found) == 1, name
+    return found[0]["counts"]
+
+
+def test_coherent_layout_counters_equal_its_stats(box_snap):
+    _, records, _ = profiled(lambda: box_render(box_snap, "coherent"))
+    layout = tile_particles_coherent(*_box_layout_inputs(box_snap), device="cpu")
+    got = one(records, "layout.coherent")
+    want = {k: layout.stats[k] for k in ("n_rows", "coherent_rows", "n_candidates", "routed_particles")}
+    assert got == {"particles": N, "n_tail_oversize": layout.n_tail_oversize, **want}
+    assert want["routed_particles"] > 0 and one(records, "deposit.coherent")["candidates"] == layout.n_cand
+    assert one(records, "deposit.tail")["particles"] == layout.tail[0].shape[0]
+    assert one(records, "render.to_host") == {"bytes": 2 * RES * RES * 4}
+
+
+def test_sorted_layout_counters_equal_its_levels(box_snap):
+    _, records, _ = profiled(lambda: box_render(box_snap, "pallas"))
+    tp = tile_particles(*_box_layout_inputs(box_snap), device="cpu")
+    levels = {f"K{g.cfg.K}": c for g, _, c in tp.geoms}
+    assert len(levels) >= 2
+    assert one(records, "layout.sorted") == {"particles": N, "n_oversize": tp.n_oversize, **levels}
+    assert one(records, "deposit.levels")["particles"] == sum(levels.values())
+
+
+def test_halo_counters_add_up_over_the_oversize_route(halo_inputs):
+    _, records, _ = profiled(lambda: halo_render(halo_inputs))
+    halos = [s for s in records if s["name"] == "render.halo"]
+    deposits = [s for s in records if s["name"] == "render.deposit"]
+    layouts = [s["counts"] for s in records if s["name"] == "layout.sorted"]
+    oversize = [s["counts"] for s in records if s["name"] == "deposit.oversize"]
+    assert len(halos) == len(deposits) == len(layouts) == len(oversize) == 2
+    for h, lay, over in zip(halos, layouts, oversize):
+        selected = h["counts"]["selected"]
+        assert lay["particles"] == selected
+        assert sum(v for k, v in lay.items() if k.startswith("K")) + lay["n_oversize"] == selected
+        assert over["particles"] == lay["n_oversize"] > 0
+        routed = {k: v for k, v in over.items() if k != "particles"}
+        assert sum(routed.values()) == over["particles"]
+        assert routed.get("K128", 0) > 0 and routed.get("dense", 0) > 0
+
+
+# ---------------------------------------------------------------------------
+# (d) the profiler's clock
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("which", ["coherent", "pallas", "halo"])
+def test_spans_lie_on_their_record_function_events(box_snap, halo_inputs, which):
+    fn = (lambda: halo_render(halo_inputs)) if which == "halo" else (lambda: box_render(box_snap, which))
+    profiled(fn)  # the first record_function of a name pays a one-off set-up after its event's stamp
+    gc.disable()  # as would a collection between the two stamps: a pause, not a second clock
+    try:
+        _, records, prof = profiled(fn)
+    finally:
+        gc.enable()
+    names = {s["name"] for s in records}
+    events: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.name() in names and e.device_type() != torch.autograd.DeviceType.CUDA:
+            events.setdefault(e.name(), []).append((e.start_ns(), e.start_ns() + e.duration_ns()))
+    for name in names:
+        mine = [(s["start_ns"], s["end_ns"]) for s in records if s["name"] == name]
+        theirs = sorted(events[name])
+        assert len(mine) == len(theirs), name
+        for (a, b), (ea, eb) in zip(mine, theirs):
+            assert abs(a - ea) < 500_000 and abs(b - eb) < 500_000, (name, a - ea, b - eb)
+
+
+# ---------------------------------------------------------------------------
+# (e) results unchanged
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("which", ["coherent", "pallas", "halo"])
+def test_maps_are_bit_for_bit_those_rendered_without_the_profiler(box_snap, halo_inputs, which):
+    fn = (lambda: halo_render(halo_inputs)) if which == "halo" else (lambda: [box_render(box_snap, which)])
+    plain = fn()
+    traced, records, _ = profiled(fn)
+    assert records
+    for a, b in zip(plain, traced):
+        assert set(a.keys()) == set(b.keys())
+        for k in a.keys():
+            assert np.array_equal(a[k], b[k]), k
+
+
+# ---------------------------------------------------------------------------
+# (f) the benchmark's readers
+# ---------------------------------------------------------------------------
+
+
+def _metric(name):
+    path = os.path.join(ROOT, "sphbench", "metrics", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"tracing_metric_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+class _Run:
+    walls = [0.1, 0.1]  # two products in the window
+
+
+def _rec(name, ms, **counts):
+    return {"name": name, "self_device_ms": ms, "counts": counts}
+
+
+FABRICATED = [
+    _rec("render.map_stack", 1.0), _rec("render.deposit", 0.5),
+    _rec("layout.coherent", 7.0, particles=1000, routed_particles=250),
+    _rec("deposit.coherent", 8.0), _rec("deposit.tail", 100.0), _rec("render.to_host", 1.5),
+    _rec("layout.coherent", 9.0, particles=1000, routed_particles=350),
+    _rec("deposit.coherent", 6.0), _rec("deposit.tail", 104.0), _rec("render.to_host", 1.3),
+    _rec("layout.sorted", 15.0, particles=400, n_oversize=100), _rec("deposit.levels", 20.0),
+    _rec("deposit.oversize", 3000.0, particles=100), _rec("layout.sorted", 17.0, particles=600, n_oversize=20),
+]
+EXPECTED = {
+    "coherent_layout_ms": (7.0 + 9.0) / 2,
+    "sorted_layout_ms": (15.0 + 17.0) / 2,
+    "level_deposit_ms": (100.0 + 104.0 + 20.0) / 2,
+    "coherent_deposit_ms": (8.0 + 6.0) / 2,
+    "oversize_ms": 3000.0 / 2,
+    "to_host_ms": (1.5 + 1.3) / 2,
+    "routed_pct": 100.0 * 600 / 2000,
+    "oversize_pct": 100.0 * 120 / 1000,
+}
+SPAN_OF = {"coherent_layout_ms": "layout.coherent", "sorted_layout_ms": "layout.sorted",
+           "level_deposit_ms": "deposit.", "coherent_deposit_ms": "deposit.coherent",
+           "oversize_ms": "deposit.oversize", "to_host_ms": "render.to_host", "routed_pct": "layout.coherent",
+           "oversize_pct": "layout.sorted"}
+
+
+@pytest.mark.parametrize("name", sorted(EXPECTED))
+def test_span_metric_reads_the_hand_computed_value(monkeypatch, name):
+    monkeypatch.setattr(profiling, "spans", lambda: FABRICATED)
+    assert _metric(name).read(_Run()) == pytest.approx(EXPECTED[name], rel=1e-12)
+
+
+@pytest.mark.parametrize("name", sorted(EXPECTED))
+def test_span_metric_is_none_without_its_span(monkeypatch, name):
+    rest = [s for s in FABRICATED if not s["name"].startswith(SPAN_OF[name])]
+    monkeypatch.setattr(profiling, "spans", lambda: rest)
+    assert _metric(name).read(_Run()) is None
+    monkeypatch.delattr(profiling, "spans")  # a program without spans
+    assert _metric(name).read(_Run()) is None
+
+
+@pytest.mark.parametrize("name", [n for n in sorted(EXPECTED) if n.endswith("_ms")])
+def test_time_metric_is_none_off_the_card(monkeypatch, name):
+    cpu = [dict(s, self_device_ms=None) for s in FABRICATED]
+    monkeypatch.setattr(profiling, "spans", lambda: cpu)
+    assert _metric(name).read(_Run()) is None
