@@ -2,10 +2,11 @@
 
 Every ``csrc/<name>.cu`` holds kernels with a plain C interface (today
 ``deposit2d.cu``, the sorted engine's deposit; ``coherent.cu``, the
-coherent engine's row prep and deposit; ``sightlines.cu``, the sightline
-columns and spectra; ``deposit3d.cu``, the 3D voxel deposit, these four
-including ``csrc/deposit_common.cuh``; ``layout_shear.cu``, the gang append
-of the random-order grouping). At first
+coherent engine's row prep and deposit; ``deposit_wide.cu``, the oversize
+route's binning and deposit; ``sightlines.cu``, the sightline columns and
+spectra; ``deposit3d.cu``, the 3D voxel deposit, these five including
+``csrc/deposit_common.cuh``; ``layout_shear.cu``, the gang append of the
+random-order grouping). At first
 use each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into its
 own shared library under
 ``_build/``, named by a hash of the source, of every ``csrc/*.cuh`` it
@@ -85,6 +86,23 @@ _SIGNATURES = {
             _P,  # cudaStream_t
         ],
         "coherent_prep_param_counts":[ctypes.POINTER(_I), ctypes.POINTER(_I)],
+    },
+    "deposit_wide": {
+        "wide_bin_launch": [
+            _P, _I, _I, _I,  # geometry (n, 4): u, v, sx, sy; n; nx, ny
+            _F, _I, _F,  # offset, periodic, lim2
+            _P, _P, _P,  # counts (count pass) or NULL; starts, lists (fill pass)
+            _P,  # cudaStream_t
+        ],
+        "wide_deposit_launch": [
+            _P, _P, _P, _LL, _I,  # geometry, value scales, values, values row stride, n_fields
+            _P, _P, _I, _I,  # starts (n_tiles + 1), lists, nx, ny
+            _F, _I, _F,  # offset, periodic, lim2
+            _P,  # out (F, ny, nx), added into
+            _I, _I, _P, _I,  # kernel id, integrated, chebyshev coefficients, count
+            _I,  # blocks a tile (cluster size)
+            _P,  # cudaStream_t
+        ],
     },
     "sightlines": {
         "sightline_columns_launch": [

@@ -29,7 +29,7 @@ consecutive particles instead:
    all C for a heavy row) are pulled into one compact array, sorted by key,
    and rendered per level through the sorted engine's kernel
    (``deposit_tiles``, ``csrc/deposit2d.cu``); oversize particles go through
-   the plain torch stencil engine.
+   the oversize route (:func:`.deposit_wide.deposit_wide`).
 
 The TPU engine's bucketed row windows, slack padding, 4096-step schedule
 granularity and size-class padding exist for DMA and compiled-program reuse
@@ -49,7 +49,7 @@ import torch
 from .. import _build
 from ..kernels.splines import get_kernel, integrated_kernel_chebyshev
 from ..utils.profiling import span
-from .deposit import MapSpec, deposit_2d
+from .deposit import MapSpec
 from .deposit_tiled import (
     PALLAS_LEVELS,
     PallasDepositConfig,
@@ -66,6 +66,7 @@ from .deposit_tiled import (
     deposit_tiles_plain,
     device_const,
 )
+from .deposit_wide import deposit_wide
 
 Tensor = torch.Tensor
 
@@ -810,7 +811,8 @@ def deposit_coherent(
     the layout's device: the coherent pass (kernel ``csrc/coherent.cu``, its
     window branch for a window-mode layout),
     each routed tail level (kernel ``csrc/deposit2d.cu``), and oversize
-    particles through the plain torch stencil engine on the same device.
+    particles through the oversize route (:func:`.deposit_wide.deposit_wide`)
+    on the same device.
     Returns (F, ny, nx). ``precision`` is validated; the sums are f32."""
     _check_precision(precision)
     spec = layout.spec
@@ -825,14 +827,9 @@ def deposit_coherent(
         # oversize particles end the sorted tail, in global pixel coordinates
         with span("deposit.oversize", particles=layout.n_tail_oversize):
             tu, tv, th, t_values, _ = layout.tail
-            x0, _, y0, _ = spec.extent
-            psy, psx = spec.pixel_size
             sl = slice(layout.n_tail_sorted - layout.n_tail_oversize, layout.n_tail_sorted)
-            img = deposit_2d(
-                tu[sl] * psx + x0, tv[sl] * psy + y0, th[sl], t_values[:, sl].T, spec,
-                kernel=layout.kernel, projection=projection, device=layout.packed.device,
-            )
-            total += img.permute(2, 0, 1)
+            deposit_wide(tu[sl], tv[sl], th[sl], t_values[:, sl], spec, kernel=layout.kernel,
+                         projection=projection, out=total)
     return total
 
 

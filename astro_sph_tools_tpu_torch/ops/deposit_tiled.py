@@ -26,8 +26,10 @@ its values are the JAX engine's; its TPU workarounds are gone:
 4. **Overlap-add**: extended tiles are summed into the (F, ny, nx) image
    with nine band adds (:func:`_overlap_add`).
 5. **Oversize** stragglers (footprint beyond the largest window) go through
-   the plain torch stencil engine (``ops/deposit.py::deposit_2d``) on the
-   same device.
+   the oversize route (:mod:`.deposit_wide`: the CUDA kernel
+   ``csrc/deposit_wide.cu`` on a CUDA tensor, the plain torch stencil
+   engine ``ops/deposit.py::deposit_2d`` on a CPU tensor) on the same
+   device.
 
 The schedule word, the channel packing and the chunk geometry of the TPU
 kernel exist only for its sequential grid and DMA blocks, and are not ported.
@@ -45,7 +47,8 @@ import torch
 from .. import _build
 from ..kernels.splines import clenshaw, get_kernel, integrated_kernel_chebyshev
 from ..utils.profiling import span
-from .deposit import MapSpec, deposit_2d
+from .deposit import MapSpec
+from .deposit_wide import deposit_wide, deposit_wide_plain
 
 Tensor = torch.Tensor
 
@@ -665,7 +668,7 @@ class TiledParticles:
     perm: Optional[Tensor]  # (N,) original index of each sorted slot; None
     # when built with need_perm=False (with_values is then unavailable)
     n_sorted: int  # sorted length N
-    n_oversize: int  # trailing segment routed to the dense fallback
+    n_oversize: int  # trailing segment routed to the oversize route
     n_valid: int  # real particle count
 
     @property
@@ -697,7 +700,7 @@ class TiledParticles:
 
 def _level_geometries(spec: MapSpec, levels) -> list[Optional[_LevelGeometry]]:
     """Geometry per level; a level that cannot tile this (small/periodic)
-    map is None and routes its particles to the oversize fallback."""
+    map is None and routes its particles to the oversize route."""
     geoms: list[Optional[_LevelGeometry]] = []
     for cfg in levels:
         try:
@@ -884,11 +887,13 @@ def deposit_tiled(
     """Render the full adaptive-h map stack from a :class:`TiledParticles`
     layout, on the layout's device. Every populated level goes through
     :func:`deposit_tiles`; oversize-footprint stragglers (footprint > the
-    largest K-window) go through the plain torch dense path. Returns
-    (F, ny, nx). ``precision`` is validated; the sums are f32 throughout
-    (see :func:`deposit_tiles`). ``plain=True`` runs every level through
-    :func:`deposit_tiles_plain` on any device: the reference the kernel is
-    checked against on the card.
+    largest K-window) go through the oversize route
+    (:func:`.deposit_wide.deposit_wide`). Returns (F, ny, nx). ``precision``
+    is validated; the sums are f32 throughout (see :func:`deposit_tiles`).
+    ``plain=True`` runs every level through :func:`deposit_tiles_plain` and
+    the oversize stragglers through :func:`.deposit_wide.deposit_wide_plain`
+    on any device: the reference the kernels are checked against on the
+    card.
     """
     _check_precision(precision)
     ny, nx = tp.spec.shape
@@ -907,18 +912,12 @@ def deposit_tiled(
 
     if tp.n_oversize:
         # oversize stragglers live at the end of the sorted layout with
-        # global pixel coordinates; recover world coordinates for the dense
-        # path, which runs on the same device
+        # global pixel coordinates: the oversize route on the same device
         with span("deposit.oversize", particles=tp.n_oversize):
-            x0, x1, y0, y1 = tp.spec.extent
             sl = slice(tp.n_sorted - tp.n_oversize, tp.n_sorted)
-            xo = tp.sorted_u[sl] * ((x1 - x0) / nx) + x0
-            yo = tp.sorted_v[sl] * ((y1 - y0) / ny) + y0
-            img = deposit_2d(
-                xo, yo, tp.sorted_h[sl], tp.sorted_values[:, sl].T, tp.spec,
-                kernel=tp.kernel, projection=projection, device=dev,
-            )
-            total += img.permute(2, 0, 1)
+            route = deposit_wide_plain if plain else deposit_wide
+            route(tp.sorted_u[sl], tp.sorted_v[sl], tp.sorted_h[sl], tp.sorted_values[:, sl], tp.spec,
+                  kernel=tp.kernel, projection=projection, out=total)
     return total
 
 
@@ -932,8 +931,8 @@ def deposit_2d_auto(
     plain: bool = False,
 ) -> Tensor:
     """Adaptive-h deposit: level/tile partition (one sort), one kernel pass
-    per populated footprint level, oversize stragglers routed to the dense
-    path.
+    per populated footprint level, oversize stragglers routed to the
+    oversize route.
 
     ``projection``: 'kernel3d' reproduces the reference convention (3D kernel
     at the projected radius); 'integrated' uses the analytically

@@ -228,8 +228,8 @@ def render_halo_maps(
     and one engine call on the selected particles' f64 offsets from the
     cutout's centre: both engines take f64 positions in f64 for the pixel
     assignment (f32 ones cost ~5e-5 px at 1024², over the 1e-5 budget), and
-    the sorted engine's f32 pixel coordinates, from which its oversize
-    route recovers positions, stay at the cutout's own scale. ``timings``
+    the sorted engine's f32 pixel coordinates, which its oversize route
+    (``ops/deposit_wide.py``) deposits from, stay at the cutout's own scale. ``timings``
     holds each halo's recentre, select, deposit and derive seconds; the
     first stack's also holds ``io``, the call's one read and upload.
 

@@ -25,10 +25,11 @@ fails (non-zero exit) if any phase fails (phases 19 and 23 run after phase
    and 8 of the package's plain deposit: how many went wrong on this host
    (the package's must not);
 1. build: compile every CUDA kernel library (``csrc/deposit2d.cu``,
-   ``csrc/coherent.cu``, ``csrc/sightlines.cu``, ``csrc/deposit3d.cu``,
-   ``csrc/layout_shear.cu``), one nvcc per source, all started together,
-   and the host C library ``native/hostops.c``; the row-prep and column
-   kernels' registers and spill bytes (``ptxas_summary``);
+   ``csrc/coherent.cu``, ``csrc/deposit_wide.cu``, ``csrc/sightlines.cu``,
+   ``csrc/deposit3d.cu``, ``csrc/layout_shear.cu``), one nvcc per source,
+   all started together, and the host C library ``native/hostops.c``; the
+   row-prep, column and oversize-route kernels' registers and spill bytes
+   (``ptxas_summary``);
 2. sorted-engine deposit kernel (#1) vs its plain torch version on the
    card, for every level K in {8, 16, 32, 64} x F in {2, 5} x projection,
    on a 1024^2 map: 2^18 uniform particles whose h lies inside the level,
@@ -153,7 +154,20 @@ fails (non-zero exit) if any phase fails (phases 19 and 23 run after phase
     path on the same particles, each edge halo against the render of the
     particles translated by half a box (f64, on the card); per halo the
     particles in the cutout and the timing split; for the 16 haloes the
-    warm wall, the device's busy share and peak memory;
+    warm wall, the device's busy share and peak memory; the oversize
+    route's launches (``deposit_wide``); then the oversize-route kernels
+    (``csrc/deposit_wide.cu``) at the benchmark cell ``l0025_haloes``'s
+    shapes (``wide_route_cases``: ``sphbench``'s EAGLE Ref-L0025N0376
+    generator, haloes 0, 14 and 15, each cutout's oversize segment of the
+    sorted layout, 1024^2 x 3 fields): the route's, the binning's and the
+    deposit kernel's time beside the bound (the pairs inside the supports
+    clipped to the map, ``sphbench/counting.py``), the plain route's time,
+    the launches, the list entries (``tile_pairs``) and the pixels they
+    evaluate over the pairs inside; the route and the plain route against
+    the plain route in f64 on the same placed particles (the route within
+    1e-5 * max; the plain f32 route, one running sum a pixel over up to
+    ~1e5 footprints, reads up to ~1e-4 there), two runs bit for bit, the
+    lists against their plain version bit for bit;
 20. the streamed snapshot-to-map path (the JAX package's
     ``benchmarks/e2e_1e8.py``): 2^27 gas particles of its
     ``write_big_snapshot`` distribution in 8 Morton-sorted "files" held on
@@ -615,7 +629,9 @@ def phase_build():
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3), "libraries": sorted(libs) + ["hostops"]})
     logs = "\n".join(info.log for _, info in libs.values())
     emit({"phase": "build", "ptxas_by_kernel": {
-        name: ptxas_summary(logs, name) for name in ("coherent_prep_kernel", "columns_kernel", "column_sums_kernel")
+        name: ptxas_summary(logs, name)
+        for name in ("coherent_prep_kernel", "columns_kernel", "column_sums_kernel", "wide_bin_kernel",
+                     "wide_deposit_kernel")
     }})
 
 
@@ -1545,6 +1561,7 @@ def phase_halo(torch, device, particles):
     from astro_sph_tools_tpu_torch.data_structures import ParticleType
     from astro_sph_tools_tpu_torch.ops import MapSpec, deposit_2d_auto, tile_particles
     from astro_sph_tools_tpu_torch.ops.deposit_tiled import deposit_tiles
+    from astro_sph_tools_tpu_torch.ops.deposit_wide import deposit_wide
 
     x, y, h, m, t, box = particles
     snap = memory_snapshot(*particles)
@@ -1562,11 +1579,13 @@ def phase_halo(torch, device, particles):
         steps[name] = time.perf_counter() - t0
         t0 = time.perf_counter()
 
-    # the main path, once, with the launch count reset just before it
+    # the main path, once, with the launch counts reset just before it
     deposit_tiles.launches = 0
+    deposit_wide.launches = 0
     stacks = render_halo_maps(snap, cat, haloes, engine="pallas", **kw)
     torch.cuda.synchronize()
     launches = deposit_tiles.launches
+    wide_launches = deposit_wide.launches
     check(launches > 0, "render_halo_maps launched no deposit kernel")
     lap("main_path")
 
@@ -1665,7 +1684,7 @@ def phase_halo(torch, device, particles):
     lap("profiled")
     out = {
         "phase": "halo_maps", "n": x.shape[0], "haloes": len(radii), "map": [HALO_RES, HALO_RES], "fields": 3,
-        "launches": launches, "per_halo": rows,
+        "launches": launches, "wide_launches": wide_launches, "per_halo": rows,
         "xla_rel_err": xla_errs, "f64_halo": k0, "f64_rel_err": f64_errs, "edge_rel_err": edge_errs,
         "wall_s": wall, "haloes_per_s": len(radii) / wall,
         "profiled_wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
@@ -1673,7 +1692,112 @@ def phase_halo(torch, device, particles):
         "device_ms_by_kernel": top_ms, "peak_mem_gb": peak, "steps_s": steps,
     }
     emit(out)
+    out["wide_cases"] = wide_route_cases(torch, device)
     return out
+
+
+WIDE_CELL_CONFIG = "sphbench/configs/eagle_l0025_halomaps.json"  # the benchmark's halo cell ...
+WIDE_CELL_HALOES = (0, 14, 15)  # ... and the haloes it asks for
+WIDE_CELL_SEED = 3_000_000_019
+
+
+def wide_route_cases(torch, device) -> list:
+    """The oversize route's kernels at the halo cell's shapes (phase 19; see
+    the module docstring): per halo, the cutout's oversize segment of the
+    sorted layout, timed through ``deposit_wide`` (binning and deposit), its
+    parts, and ``deposit_wide_plain`` once; checked against the plain route
+    and for repeatability."""
+    from astro_sph_tools_tpu_torch.ops import MapSpec, deposit_2d, tile_particles
+    from astro_sph_tools_tpu_torch.ops import deposit_wide as W
+    from sphbench.counting import clipped_support_points, pair_ops
+    from sphbench.generators import clustered
+
+    with open(os.path.join(ROOT, WIDE_CELL_CONFIG)) as f:
+        cfg = json.load(f)
+    snap = cfg["snapshot"]
+    inputs = clustered.generate(snap, WIDE_CELL_SEED, device)
+    centres, r200 = clustered.haloes(snap, cfg["haloes"])
+    box = inputs["box"]
+    res = int(cfg["product"]["resolution"])
+    xy = inputs["positions"][:, :2].double()
+    h64 = inputs["smoothing_lengths"].double()
+    m = inputs["masses"]
+    values = torch.stack([m, m * inputs["temperatures"], m * inputs["metallicities"]])
+    del inputs
+    kernel = cfg["kernel"]
+    rows = []
+    for k in WIDE_CELL_HALOES:
+        hw = float(cfg["product"]["radius_multiple"]) * float(r200[k])
+        local, sel = cutout_selection(torch, xy, h64, centres[k], hw, box)
+        spec = MapSpec(shape=(res, res), extent=(-hw, hw, -hw, hw))
+        tp = tile_particles(local[:, 0], local[:, 1], h64[sel].float(), values[:, sel], spec, kernel=kernel,
+                            device=device)
+        del local
+        sl = slice(tp.n_sorted - tp.n_oversize, tp.n_sorted)
+        u, v, hh, vals = tp.sorted_u[sl], tp.sorted_v[sl], tp.sorted_h[sl], tp.sorted_values[:, sl]
+        kw = dict(kernel=kernel, projection="kernel3d")
+        F = vals.shape[0]
+
+        def route(out=None):
+            out = torch.zeros((F, res, res), device=device) if out is None else out
+            return W.deposit_wide(u, v, hh, vals, spec, out=out, **kw)
+
+        before = W.deposit_wide.launches
+        got = route()
+        again = route()
+        torch.cuda.synchronize()
+        launches = W.deposit_wide.launches - before
+        ref = W.deposit_wide_plain(u, v, hh, vals, spec, out=torch.zeros_like(got), **kw)
+        # the yardstick: the plain route in f64 on the same placed particles
+        # (up to ~1e5 footprints a pixel: the plain f32 route's one running
+        # sum a pixel drifts by ~1e-4 of the max there)
+        psy, psx = spec.pixel_size
+        x0, _, y0, _ = spec.extent
+        f64 = deposit_2d(u.double() * psx + x0, v.double() * psy + y0, hh.double(), vals.T.double(), spec,
+                         dtype=torch.float64, device=device, **kw).permute(2, 0, 1)
+        err = max(rel_err(got[f], f64[f])[1] for f in range(F))
+        plain_err = max(rel_err(ref[f], f64[f])[1] for f in range(F))
+        vs_plain = max(rel_err(got[f], ref[f])[1] for f in range(F))
+        del f64
+        repeat = bool(torch.equal(got, again))
+        # the parts: the binning's two passes and the deposit on its lists
+        geo, scale, lim2 = W.particle_geometry(u, v, hh, psx=psx, psy=psy, **kw)
+        counts = W._bin_counts(geo, lim2, spec, plain=False)
+        starts = torch.nn.functional.pad(torch.cumsum(counts, 0, dtype=torch.int64), (1, 0))
+        pairs = int(starts[-1])
+        lists = W._bin_lists(geo, lim2, spec, starts, pairs, plain=False)
+        lists_equal = bool(torch.equal(counts, W.tile_counts_plain(geo, lim2, spec))
+                           and torch.equal(lists, W.tile_lists_plain(geo, lim2, spec)))
+        out = torch.zeros_like(got)
+        route_ms = cuda_ms(lambda: route(out), 5)
+        bin_ms = cuda_ms(lambda: (W._bin_counts(geo, lim2, spec, plain=False),
+                                  W._bin_lists(geo, lim2, spec, starts, pairs, plain=False)), 5)
+        deposit_ms = cuda_ms(lambda: W._deposit(geo, scale, vals, starts, lists, spec, lim2=lim2, out=out,
+                                                plain=False, **kw), 5)
+        plain_ms = cuda_ms(lambda: W.deposit_wide_plain(u, v, hh, vals, spec, out=out, **kw), 1)
+        # the least time: the pairs inside the supports, clipped to the map
+        s_pix = 2.0 * hh.double() / psx
+        inside = clipped_support_points(u, v, s_pix, res, res)
+        moved = 4.0 * (3 + F) * u.shape[0] + 2 * 4.0 * F * res * res
+        b = bound(moved, inside * pair_ops(F, kernel))
+        row = {
+            "halo": k, "cutout_cMpc": 2 * hw, "particles": int(sel.shape[0]), "oversize": tp.n_oversize,
+            "launches": launches, "tile_pairs": pairs, "pairs_inside": inside,
+            "evaluated_over_inside": pairs * W.TILE * W.TILE / inside if inside else None,
+            "route_ms": route_ms, "bin_ms": bin_ms, "deposit_ms": deposit_ms, "plain_ms": plain_ms, **b,
+            "rel_err_vs_f64": err, "plain_rel_err_vs_f64": plain_err, "rel_err_vs_plain": vs_plain,
+            "repeatable": repeat, "lists_equal_plain": lists_equal,
+        }
+        del tp, sel, u, v, hh, vals, got, again, ref, geo, scale, counts, starts, lists, out
+        emit({"phase": "halo_maps_wide", **row})
+        rows.append(row)
+        check(err <= REL_TOL, f"halo {k}: oversize route off the f64 plain route: {err}")
+        check(repeat, f"halo {k}: two runs of the oversize route differ")
+        check(lists_equal, f"halo {k}: the tile lists differ from their plain version")
+        check(deposit_ms >= b["bound_ms"], f"halo {k}: the oversize deposit under its bound")
+    del xy, h64, values
+    torch.cuda.empty_cache()
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -4668,6 +4792,8 @@ def main() -> None:
     spec_case = pick(spec_cases, input="config4", profile="gaussian", periodic=True)
     vox_case = pick(vox_cases, K=8, F=4, periodic=True)
     app_case = pick(app_cases, case="coarse")
+    wide_all = halo_out["wide_cases"] if halo_out else []
+    wide0 = pick(wide_all, halo=0)
     win = rest_out["window"] if rest_out else None
     win_case = pick(win["cases"], case="main", window=512, F=2, projection="kernel3d") if win else None
     sight_launches = sight_out["launches"] if sight_out else {}
@@ -4746,6 +4872,22 @@ def main() -> None:
                                         "n_window_steps": c["n_window_steps"]}
                           for c in (win["cases"] if win else []) if c["case"] == "main" and c["F"] == 2
                           and c["projection"] == "kernel3d"},
+        },
+        {
+            "name": "deposit_wide",
+            "route": "cuda",
+            "source": "astro_sph_tools_tpu_torch/csrc/deposit_wide.cu",
+            "replaces": None,  # the JAX package sends these footprints to XLA
+            # phase 19: the 16-halo render's launches; the halo cell's halo 0
+            "launches": halo_out["wide_launches"] if halo_out else None,
+            "max_abs_err": None,
+            "ms": wide0["deposit_ms"] if wide0 else None,
+            "bin_ms": wide0["bin_ms"] if wide0 else None,
+            "route_ms": wide0["route_ms"] if wide0 else None,
+            "plain_ms": wide0["plain_ms"] if wide0 else None,
+            **bound_keys(wide0),
+            "rel_err_vs_f64": max((c["rel_err_vs_f64"] for c in wide_all), default=None),
+            "plain_rel_err_vs_f64": max((c["plain_rel_err_vs_f64"] for c in wide_all), default=None),
         },
         {
             "name": "sightline_columns",
