@@ -18,7 +18,7 @@ from ._cpu_math import warm_cpu_math
 warm_cpu_math()
 
 from .data_structures import Cosmology, CoordinateAxes, ParticleType
-from .render import MapStack, render_halo_maps, render_map_stack
+from .render import MapStack, render_grid_stack, render_halo_maps, render_map_stack
 from .units import UnitArray, unit_array, unit_quantity
 
 __all__ = [
@@ -30,6 +30,7 @@ __all__ = [
     "unit_array",
     "unit_quantity",
     "MapStack",
+    "render_grid_stack",
     "render_halo_maps",
     "render_map_stack",
 ]

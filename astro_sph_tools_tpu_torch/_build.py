@@ -4,8 +4,8 @@ Every ``csrc/<name>.cu`` holds kernels with a plain C interface (today
 ``deposit2d.cu``, the sorted engine's deposit; ``coherent.cu``, the
 coherent engine's row prep and deposit; ``deposit_wide.cu``, the oversize
 route's binning and deposit; ``sightlines.cu``, the sightline columns and
-spectra; ``deposit3d.cu``, the 3D voxel deposit, these five including
-``csrc/deposit_common.cuh``; ``layout_shear.cu``, the gang append of the
+spectra; ``deposit3d.cu``, the 3D voxel deposit; ``deposit3d_wide.cu``, its
+oversize route; these six including ``csrc/deposit_common.cuh``; ``layout_shear.cu``, the gang append of the
 random-order grouping). At first
 use each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into its
 own shared library under
@@ -137,6 +137,17 @@ _SIGNATURES = {
             _I, _I, _I,  # nz, ny, nx
             _F, _F, _F, _F,  # offset, psx, psy, psz
             _I, _F, _F,  # kernel id, norm_3d, support_factor
+            _P,  # cudaStream_t
+        ],
+    },
+    "deposit3d_wide": {
+        "wide3d_deposit_launch": [
+            _P, _P, _P, _P, _P, _LL, _I,  # u, v, w, h, values, values row stride, n_fields
+            _P, _P, _P,  # starts (n_tiles + 1), lists, tile order
+            _I, _I, _I, _I, _I, _I,  # nx, ny, nz, periodic x, y, z
+            _F, _F, _F, _F,  # offset, psx, psy, psz
+            _I, _F, _F,  # kernel id, norm_3d, support_factor
+            _P,  # out (F, nz, ny, nx), added into
             _P,  # cudaStream_t
         ],
     },

@@ -81,9 +81,9 @@ def run(workdir: Optional[str] = None, *, n_gas: int = 30_000, device="cuda", so
     from ..io.ionisation import IonisationTable_HM01, SupportedIons, synthetic_hm01_arrays
     from ..data_structures import IonisationTableBase
     from ..ops import (
-        ArrayReorder, GridSpec, absorption_spectra_pallas, column_integrate_pallas, deposit_3d_auto, nearest_points,
+        ArrayReorder, absorption_spectra_pallas, column_integrate_pallas, nearest_points,
     )
-    from ..render import render_halo_maps, render_map_stack
+    from ..render import render_grid_stack, render_halo_maps, render_map_stack
 
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -125,19 +125,16 @@ def run(workdir: Optional[str] = None, *, n_gas: int = 30_000, device="cuda", so
     out["cutout_sums"] = [float(np.asarray(c["surface_density"], np.float64).sum()) for c in cutouts]
     print(f"[4] {len(cutouts)} halo cutouts, extents {cutouts[0].spec.extent}")
 
-    # --- 5. 3D voxel cube (kernel #6) ---
-    pos = snap.get_positions(ParticleType.gas).to_value("Mpc")
-    h = snap.get_smoothing_lengths(ParticleType.gas).to_value("Mpc")
+    # --- 5. 3D voxel cube (kernel #6 and the oversize route) ---
     m = snap.get_masses(ParticleType.gas).to_value("Msun")
     box = float(snap.box_size.value[0])
-    cube = deposit_3d_auto(
-        pos, np.minimum(h, 0.4), m, GridSpec(shape=(64, 64, 64), extent=(0.0, box) * 3, periodic_wrap=True),
-        device=device,
-    )
-    out["cube_mass_recon"] = float(cube.double().sum()) * (box / 64) ** 3 / float(np.sum(m, dtype=np.float64))
+    cube = render_grid_stack(snap, fields=("density",), resolution=64, device=device)["density"]
+    out["cube_mass_recon"] = float(cube.astype(np.float64).sum()) * (box / 64) ** 3 / float(np.sum(m, dtype=np.float64))
     print(f"[5] 64^3 density cube: mass recon {out['cube_mass_recon']:.3f}")
 
     # --- 6. sightline columns (kernel #4) and spectra (kernel #5) ---
+    pos = snap.get_positions(ParticleType.gas).to_value("Mpc")
+    h = snap.get_smoothing_lengths(ParticleType.gas).to_value("Mpc")
     rng = np.random.default_rng(1)
     rx, ry = rng.uniform(0, box, 64), rng.uniform(0, box, 64)
     cols = column_integrate_pallas(pos[:, 0], pos[:, 1], h, m, rx, ry, periodic_box=box, device=device)

@@ -25,8 +25,14 @@ are gone:
    halo'd tile stack and its 27-band overlap-add, so peak memory stays near
    the cube itself.
 4. **Oversize** stragglers (footprint beyond the K = 16 level) go through
-   the plain stencil engine (``ops/grid3d.py::deposit_3d``) on the same
-   device.
+   the oversize route (``ops/grid3d_wide.py``): on a CUDA tensor its binning
+   and the hand-written kernel ``csrc/deposit3d_wide.cu``, on a CPU tensor
+   the plain stencil engine (``ops/grid3d.py::deposit_3d``).
+
+Spans (``utils/profiling.py``): ``layout.grid3d`` (particles, K4/K8/K16 per
+populated level, n_oversize), ``deposit3d.levels`` (#6 over the levels;
+launches, particles) and ``deposit3d.oversize`` (the route, binning
+included; particles, and on the card launches and tile_pairs).
 
 Not ported (TPU-only): the SMEM/HBM budget adaptation of the tile heights,
 the packed schedule words and 8-channel packing, and the compile caches.
@@ -43,8 +49,10 @@ import torch
 
 from .. import _build
 from ..kernels.splines import get_kernel
+from ..utils.profiling import span
 from .deposit_tiled import _LEVEL_STRIDE, _tile_ranges, device_const
-from .grid3d import GridSpec, _per_axis, deposit_3d
+from .grid3d import GridSpec, _per_axis
+from .grid3d_wide import deposit_3d_wide
 
 Tensor = torch.Tensor
 
@@ -543,7 +551,7 @@ class Tiled3DParticles:
     sorted_values: Tensor  # (F, N)
     sorted_tile: Tensor  # (N,) int32 tile id within the particle's own level
     n_sorted: int
-    n_oversize: int  # trailing segment routed to the plain stencil engine
+    n_oversize: int  # trailing segment routed to the oversize route
     n_valid: int
 
     @property
@@ -559,39 +567,42 @@ def tile_particles_3d(
     device="cuda",
 ) -> Tiled3DParticles:
     """Build the multi-level 3D layout on ``device`` with one sort of the
-    composite key ``level * 2^22 + tile``. The only host sync is the
-    handful of per-level counts. ``values`` is (F, N) or (N,), F <= 4."""
-    kspec = get_kernel(kernel)
-    device = torch.device(device)
-    values, _ = _as_field_matrix_3d(values, device)
-    geoms = [_geometry_3d(cfg, spec.shape) for cfg in levels]
-    bounds = tuple(g.cfg.max_s_vox for g in geoms)
-    pos = _placement_coords(pos, device)
-    h = _f32(h, device)
-    n_valid = int(h.shape[0])
-    u, v, w = _voxel_coords(pos, spec)
-    s_vox = kspec.support_factor * h / min(spec.voxel_size)
-    level, tile, u_loc, v_loc, w_loc = _multi_level_assign_3d(u, v, w, s_vox, bounds, geoms)
-    key = level * _LEVEL_STRIDE + tile
-    del u, v, w, s_vox, level, tile
+    composite key ``level * 2^22 + tile``, in the span ``layout.grid3d``.
+    The only host sync is the handful of per-level counts. ``values`` is
+    (F, N) or (N,), F <= 4."""
+    with span("layout.grid3d") as sp:
+        kspec = get_kernel(kernel)
+        device = torch.device(device)
+        values, _ = _as_field_matrix_3d(values, device)
+        geoms = [_geometry_3d(cfg, spec.shape) for cfg in levels]
+        bounds = tuple(g.cfg.max_s_vox for g in geoms)
+        pos = _placement_coords(pos, device)
+        h = _f32(h, device)
+        n_valid = int(h.shape[0])
+        u, v, w = _voxel_coords(pos, spec)
+        s_vox = kspec.support_factor * h / min(spec.voxel_size)
+        level, tile, u_loc, v_loc, w_loc = _multi_level_assign_3d(u, v, w, s_vox, bounds, geoms)
+        key = level * _LEVEL_STRIDE + tile
+        del u, v, w, s_vox, level, tile
 
-    sorted_key, perm = torch.sort(key, stable=True)
-    del key
-    su, sv, sw = (a[perm].to(torch.float32) for a in (u_loc, v_loc, w_loc))
-    del u_loc, v_loc, w_loc
-    sh = h[perm]
-    s_values = values[:, perm].contiguous()
-    lv = torch.arange(len(geoms) + 2, dtype=sorted_key.dtype, device=device) * _LEVEL_STRIDE
-    starts = torch.searchsorted(sorted_key, lv).tolist()  # host sync: a few ints
-    counts = [starts[i + 1] - starts[i] for i in range(len(geoms) + 1)]
-    s_tile = torch.remainder(sorted_key, _LEVEL_STRIDE).to(torch.int32)
+        sorted_key, perm = torch.sort(key, stable=True)
+        del key
+        su, sv, sw = (a[perm].to(torch.float32) for a in (u_loc, v_loc, w_loc))
+        del u_loc, v_loc, w_loc
+        sh = h[perm]
+        s_values = values[:, perm].contiguous()
+        lv = torch.arange(len(geoms) + 2, dtype=sorted_key.dtype, device=device) * _LEVEL_STRIDE
+        starts = torch.searchsorted(sorted_key, lv).tolist()  # host sync: a few ints
+        counts = [starts[i + 1] - starts[i] for i in range(len(geoms) + 1)]
+        s_tile = torch.remainder(sorted_key, _LEVEL_STRIDE).to(torch.int32)
 
-    level_meta = []
-    lo = 0
-    for li, g in enumerate(geoms):
-        if counts[li] > 0:
-            level_meta.append((g, lo, counts[li]))
-        lo += counts[li]
+        level_meta = []
+        lo = 0
+        for li, g in enumerate(geoms):
+            if counts[li] > 0:
+                level_meta.append((g, lo, counts[li]))
+            lo += counts[li]
+        sp.count(particles=n_valid, n_oversize=counts[len(geoms)], **{f"K{g.cfg.K}": c for g, _, c in level_meta})
     return Tiled3DParticles(
         spec=spec, kernel=kernel, geoms=tuple(level_meta),
         sorted_u=su, sorted_v=sv, sorted_w=sw, sorted_h=sh, sorted_values=s_values,
@@ -607,34 +618,34 @@ def deposit_3d_tiled(
 ) -> Tensor:
     """Render the adaptive-h voxel cube from a :class:`Tiled3DParticles`
     layout, on the layout's device: (F, nz, ny, nx). Every populated level
-    goes through :func:`deposit_3d_tiles`; oversize stragglers through the
-    plain stencil engine on the same device. ``precision`` is validated; the
-    sums are f32 throughout."""
+    goes through :func:`deposit_3d_tiles` (span ``deposit3d.levels``);
+    oversize stragglers through the oversize route
+    (:func:`.grid3d_wide.deposit_3d_wide`, span ``deposit3d.oversize``) on
+    the same device. ``precision`` is validated; the sums are f32
+    throughout."""
     _check_precision_3d(precision)
     nz, ny, nx = tp.spec.shape
     dev = tp.sorted_u.device
     grid = torch.zeros((tp.n_fields, nz, ny, nx), dtype=torch.float32, device=dev)
-    for geom, lo, count in tp.geoms:
-        sl = slice(lo, lo + count)
-        pstart, pcount = _tile_ranges(tp.sorted_tile[sl], geom.n_tiles)
-        deposit_3d_tiles(
-            tp.sorted_u[sl], tp.sorted_v[sl], tp.sorted_w[sl], tp.sorted_h[sl],
-            tp.sorted_values[:, sl], pstart, pcount, grid,
-            **_level_args(geom, tp.spec, tp.kernel),
-        )
+    launches = deposit_3d_tiles.launches
+    with span("deposit3d.levels", particles=sum(count for _, _, count in tp.geoms)) as sp:
+        for geom, lo, count in tp.geoms:
+            sl = slice(lo, lo + count)
+            pstart, pcount = _tile_ranges(tp.sorted_tile[sl], geom.n_tiles)
+            deposit_3d_tiles(
+                tp.sorted_u[sl], tp.sorted_v[sl], tp.sorted_w[sl], tp.sorted_h[sl],
+                tp.sorted_values[:, sl], pstart, pcount, grid,
+                **_level_args(geom, tp.spec, tp.kernel),
+            )
+        sp.count(launches=deposit_3d_tiles.launches - launches)
 
     if tp.n_oversize:
         # oversize stragglers live at the end of the sorted layout with
-        # global voxel coordinates; recover world coordinates
-        x0, x1, y0, y1, z0, z1 = tp.spec.extent
-        sl = slice(tp.n_sorted - tp.n_oversize, tp.n_sorted)
-        pos = torch.stack([
-            tp.sorted_u[sl] * ((x1 - x0) / nx) + x0,
-            tp.sorted_v[sl] * ((y1 - y0) / ny) + y0,
-            tp.sorted_w[sl] * ((z1 - z0) / nz) + z0,
-        ], dim=1)
-        cube = deposit_3d(pos, tp.sorted_h[sl], tp.sorted_values[:, sl].T, tp.spec, kernel=tp.kernel, device=dev)
-        grid += cube.permute(3, 0, 1, 2)
+        # global voxel coordinates
+        with span("deposit3d.oversize", particles=tp.n_oversize):
+            sl = slice(tp.n_sorted - tp.n_oversize, tp.n_sorted)
+            deposit_3d_wide(tp.sorted_u[sl], tp.sorted_v[sl], tp.sorted_w[sl], tp.sorted_h[sl],
+                            tp.sorted_values[:, sl], tp.spec, kernel=tp.kernel, out=grid)
     return grid
 
 
@@ -647,7 +658,7 @@ def deposit_3d_auto(
 ) -> Tensor:
     """Adaptive-h 3D deposit: level/tile partition (one sort), one kernel
     launch per populated footprint level, oversize stragglers routed to the
-    plain stencil engine. ``values`` is (N,) or (F, N), F <= 4. Returns
+    oversize route. ``values`` is (N,) or (F, N), F <= 4. Returns
     (nz, ny, nx) or (F, nz, ny, nx) on ``device``."""
     _check_precision_3d(precision)
     values, single = _as_field_matrix_3d(values, device)

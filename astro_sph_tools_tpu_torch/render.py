@@ -1,7 +1,8 @@
 """High-level rendering API: snapshot -> multi-field map stacks.
 
 Counterpart: ``astro_sph_tools_tpu/render.py`` (``render_map_stack``,
-``render_halo_maps``, ``render_halo_maps_sharded`` and ``MapStack``). One
+``render_halo_maps``, ``render_halo_maps_sharded`` and ``MapStack``), and
+``render_grid_stack``, the same path for 3D voxel cubes. One
 call reads the needed
 fields, stacks the deposit payloads (weighted quantities ride the same pass
 as the weights), renders on the chosen engine on ``device``, and derives
@@ -23,21 +24,23 @@ from .kernels.splines import get_kernel
 from .ops.deposit import MapSpec, deposit_2d
 from .ops.deposit_coherent import deposit_2d_coherent
 from .ops.deposit_tiled import _check_precision, deposit_2d_auto
+from .ops.grid3d import GridSpec
+from .ops.grid3d_tiled import deposit_3d_auto
 from .ops.periodic import shift_centre
 from .parallel._comm import all_reduce_
 from .parallel.mesh import Mesh
-from .utils.profiling import PhaseTimer, span
+from .utils.profiling import PhaseTimer, count, span
 
 _KNOWN_FIELDS = ("density", "mass", "temperature", "metallicity", "velocity_los", "sfr")
 
 
 @dataclass
 class MapStack:
-    """Result of a render: named maps + derived weighted means."""
+    """Result of a render: named maps (or cubes) + derived weighted means."""
 
     maps: dict
-    spec: MapSpec
-    axis: CoordinateAxes
+    spec: MapSpec  # a GridSpec for cubes
+    axis: Optional[CoordinateAxes]  # None for cubes
     particle_type: ParticleType
     timings: dict = field(default_factory=dict)
 
@@ -90,44 +93,8 @@ def render_map_stack(
         periodic = bool(periodic)
 
         with timer.phase("io"):
-            pos = snapshot.get_positions(particle_type).to_value("Mpc")
-            h = snapshot.get_smoothing_lengths(particle_type).to_value("Mpc")
-            if particle_type == ParticleType.black_hole:
-                mass = snapshot.get_black_hole_dynamical_masses().to_value("Msun")
-            else:
-                mass = snapshot.get_masses(particle_type).to_value("Msun")
-
-            payloads: list = []
-            names: list = []
-            weighted: list = []
-            for name in fields:
-                if name == "density":
-                    payloads.append(mass)
-                    names.append("surface_density")
-                elif name == "mass":
-                    payloads.append(mass)
-                    names.append("mass")
-                elif name == "sfr":
-                    payloads.append(snapshot.get_sfr().to_value("Msun/yr"))
-                    names.append("sfr")
-                elif name == "temperature":
-                    payloads.append(mass * snapshot.get_temperatures(particle_type).to_value("K"))
-                    names.append("mass_weighted_temperature")
-                    weighted.append("mass_weighted_temperature")
-                elif name == "metallicity":
-                    payloads.append(mass * snapshot.get_metallicities(particle_type).value)
-                    names.append("mass_weighted_metallicity")
-                    weighted.append("mass_weighted_metallicity")
-                elif name == "velocity_los":
-                    v = snapshot.get_velocities(particle_type).to_value("km/s")
-                    payloads.append(mass * v[:, axis.value])
-                    names.append("mass_weighted_velocity_los")
-                    weighted.append("mass_weighted_velocity_los")
-                else:
-                    raise ValueError(f"Unknown map field {name!r}; known: {_KNOWN_FIELDS}")
-            if weighted and "surface_density" not in names and "mass" not in names:
-                payloads.append(mass)
-                names.append("mass")
+            pos, h, payloads, names, weighted = _read_payloads(snapshot, fields, particle_type, "surface_density",
+                                                               axis)
         sp.count(particles=int(h.shape[0]), fields=len(payloads))
 
         spec = MapSpec(
@@ -135,11 +102,7 @@ def render_map_stack(
             extent=tuple(float(v) for v in extent),
             periodic_wrap=periodic,
         )
-        # a snapshot may serve tensors already on the device (fields_to_device)
-        values = (
-            torch.stack(payloads, dim=0) if isinstance(payloads[0], torch.Tensor)
-            else np.stack(payloads, axis=0)
-        )
+        values = _stack(payloads)
 
         with timer.phase("deposit"):
             if engine in ("pallas", "coherent"):
@@ -176,6 +139,156 @@ def render_map_stack(
             particle_type=particle_type,
             timings=timer.report(),
         )
+
+
+def _read_payloads(snapshot: SnapshotBase, fields: Sequence[str], particle_type: ParticleType, density_name: str,
+                   axis: Optional[CoordinateAxes]) -> tuple:
+    """Read what ``fields`` need and build their deposit payloads: (positions
+    (Mpc), smoothing lengths (Mpc), payloads, their names, the names of the
+    mass-weighted ones). "density" deposits the mass under ``density_name``;
+    a weighted field without "density" or "mass" adds a "mass" payload, the
+    denominator of its mean; "velocity_los" needs the line of sight
+    ``axis``."""
+    pos = snapshot.get_positions(particle_type).to_value("Mpc")
+    h = snapshot.get_smoothing_lengths(particle_type).to_value("Mpc")
+    if particle_type == ParticleType.black_hole:
+        mass = snapshot.get_black_hole_dynamical_masses().to_value("Msun")
+    else:
+        mass = snapshot.get_masses(particle_type).to_value("Msun")
+
+    payloads: list = []
+    names: list = []
+    weighted: list = []
+    for name in fields:
+        if name == "density":
+            payloads.append(mass)
+            names.append(density_name)
+        elif name == "mass":
+            payloads.append(mass)
+            names.append("mass")
+        elif name == "sfr":
+            payloads.append(snapshot.get_sfr().to_value("Msun/yr"))
+            names.append("sfr")
+        elif name == "temperature":
+            payloads.append(mass * snapshot.get_temperatures(particle_type).to_value("K"))
+            names.append("mass_weighted_temperature")
+            weighted.append("mass_weighted_temperature")
+        elif name == "metallicity":
+            payloads.append(mass * snapshot.get_metallicities(particle_type).value)
+            names.append("mass_weighted_metallicity")
+            weighted.append("mass_weighted_metallicity")
+        elif name == "velocity_los" and axis is not None:
+            v = snapshot.get_velocities(particle_type).to_value("km/s")
+            payloads.append(mass * v[:, axis.value])
+            names.append("mass_weighted_velocity_los")
+            weighted.append("mass_weighted_velocity_los")
+        else:
+            known = _KNOWN_FIELDS if axis is not None else tuple(f for f in _KNOWN_FIELDS if f != "velocity_los")
+            raise ValueError(f"Unknown map field {name!r}; known: {known}")
+    if weighted and density_name not in names and "mass" not in names:
+        payloads.append(mass)
+        names.append("mass")
+    return pos, h, payloads, names, weighted
+
+
+def _stack(payloads: list):
+    """The payloads as one (F, N) array: a tensor where the snapshot serves
+    tensors (``fields_to_device``), else NumPy."""
+    return torch.stack(payloads, dim=0) if isinstance(payloads[0], torch.Tensor) else np.stack(payloads, axis=0)
+
+
+def render_grid_stack(
+    snapshot: SnapshotBase,
+    fields: Sequence[str] = ("density",),
+    *,
+    particle_type: ParticleType = ParticleType.gas,
+    resolution: int = 512,
+    extent: Optional[tuple] = None,
+    kernel: str = "cubic_spline",
+    periodic: Optional[bool] = None,
+    device="cuda",
+) -> MapStack:
+    """Grid a snapshot into a stack of 3D voxel cubes (BASELINE config 3).
+
+    fields: any of "density" (the cube ``density``, sum_i m_i W at voxel
+    centres, in Msun cMpc^-3 for h-full comoving input), "mass", "sfr" and
+    the mass-weighted "temperature" and "metallicity", whose
+    ``mass_weighted_*`` cubes ride the same deposit pass and whose
+    ``mean_*`` cubes (the weighted cube over the density where that is
+    positive, else 0) are derived on ``device`` before the copy back.
+
+    The cubes are ``resolution``^3 over ``extent`` = (x0, x1, y0, y1, z0,
+    z1), by default the whole box, periodic unless ``periodic`` says
+    otherwise. They render through ``deposit_3d_auto``'s layout: kernel #6
+    (``csrc/deposit3d.cu``) on its footprint levels and the oversize route
+    (``ops/grid3d_wide.py``) past them, on a CUDA ``device``; their plain
+    versions on the CPU. Returns (nz, ny, nx) float32 NumPy cubes in a
+    :class:`MapStack` whose ``spec`` is the :class:`GridSpec` and whose
+    ``axis`` is None; ``timings`` holds the io, deposit, derive and to_host
+    seconds.
+
+    From a CUDA ``device`` the cubes are page-locked: NumPy views of host
+    memory from torch's caching pinned allocator (see :func:`_to_host`).
+    Each cube pins its bytes while the caller holds it (three 512^3 cubes,
+    1.5 GB); a dropped cube's memory goes back to torch's pool for the next
+    copy, not to the system, until the process ends or the pool is emptied
+    (``torch.accelerator.empty_host_cache()`` where torch has it, else
+    ``torch._C._host_emptyCache()``). Copy a cube (``np.array(cube)``) to
+    keep it in pageable memory. Maps stay pageable (``render_map_stack``,
+    ``render_halo_maps``): a stack of 1024^2 maps is tens of MB, where
+    fresh pageable pages cost little.
+    """
+    with span("render.grid_stack") as sp:
+        device = torch.device(device)
+        timer = PhaseTimer(device)
+        box = float(snapshot.box_size.value[0])
+        if extent is None:
+            extent = (0.0, box) * 3
+            if periodic is None:
+                periodic = True
+        spec = GridSpec(shape=(resolution,) * 3, extent=tuple(float(v) for v in extent),
+                        periodic_wrap=bool(periodic))
+
+        with timer.phase("io"):
+            pos, h, payloads, names, weighted = _read_payloads(snapshot, fields, particle_type, "density", None)
+        sp.count(particles=int(h.shape[0]), fields=len(payloads), voxels=resolution ** 3)
+
+        with timer.phase("deposit"):
+            cubes = deposit_3d_auto(pos, h, _stack(payloads), spec, kernel=kernel, device=device)
+            if cubes.ndim == 3:
+                cubes = cubes[None]
+
+        result = dict(zip(names, cubes))
+        with timer.phase("derive"):
+            denom = result.get("mass", result.get("density"))
+            if denom is not None:
+                positive = denom > 0
+                safe = torch.where(positive, denom, 1.0)
+                for name in weighted:
+                    result[name.replace("mass_weighted", "mean")] = torch.where(positive, result[name] / safe, 0.0)
+                del positive, safe
+        del cubes
+
+        with timer.phase("to_host"):
+            count(bytes=sum(c.numel() * c.element_size() for c in result.values()))
+            result = {name: _to_host(c) for name, c in result.items()}
+
+        return MapStack(maps=result, spec=spec, axis=None, particle_type=particle_type, timings=timer.report())
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """``t`` as a NumPy array of its own. From a CUDA device the array lives
+    in page-locked host memory from torch's pinned allocator, which keeps a
+    dropped array's memory for the next copy: three 512 MB cubes then copy
+    in ~30 ms at the link's rate, where a pageable ``.cpu()`` faults in 1.5
+    GB of fresh pages (670-870 ms, varying with the host's load). Growing
+    the pool, while the caller holds more arrays than it has, costs about
+    what the pageable copy does."""
+    if t.device.type != "cuda":
+        return t.cpu().numpy()
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t)
+    return out.numpy()
 
 
 def _host_f64(a) -> np.ndarray:

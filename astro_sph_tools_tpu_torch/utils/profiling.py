@@ -16,7 +16,10 @@ returns a shared object that does nothing. While one runs, the span opens a
 the profiler's clock and names the device's idle gaps, and keeps a record:
 its name, id, parent, ``product`` (the id of its root span: every span of
 one top-level render call shares it), host start and end
-(``time.time_ns()``, the clock kineto stamps its events with), its counters
+(``time.time_ns()``, the clock kineto stamps its events with, read just
+before the ``record_function`` opens and just after it closes, so that the
+span's interval holds its event's however long the thread is held up
+between the two stamps), its counters
 and, once CUDA is initialised, two timing events on the current stream,
 whose interval is the span's time on the device's timeline. Counters are
 numbers the caller already holds on the host; ``sp.count(...)`` adds some
@@ -107,8 +110,8 @@ class _Span:
         self.parent = parent.id if parent is not None else None
         self.product = parent.product if parent is not None else self.id
         self._rf = torch.profiler.record_function(self.name)
+        self.start_ns = time.time_ns()  # just before the event's own stamp
         self._rf.__enter__()
-        self.start_ns = time.time_ns()  # next to the event's own stamp
         if torch.cuda.is_initialized():
             self._events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
             self._events[0].record()
@@ -121,8 +124,8 @@ class _Span:
         if self._events is not None:
             self._events[1].record()
         _window.open_spans().pop()
-        self.end_ns = time.time_ns()
         self._rf.__exit__(*exc)
+        self.end_ns = time.time_ns()  # just after the event's own stamp
         return None
 
     def count(self, **counts) -> None:
@@ -283,10 +286,12 @@ def kernel_counters() -> dict:
     from ..ops.deposit_coherent import deposit_coherent_tiles, deposit_coherent_windows
     from ..ops.deposit_tiled import deposit_tiles
     from ..ops.grid3d_tiled import deposit_3d_tiles
+    from ..ops.grid3d_wide import deposit_3d_wide
     from ..ops.layout_shear import append_gangs
     from ..ops.sightlines_fused import columns_tiles
     from ..ops.spectra_fused import spectra_tiles
 
     return {"deposit2d": deposit_tiles, "coherent_prep": prep_rows, "coherent_deposit": deposit_coherent_tiles,
             "coherent_window": deposit_coherent_windows, "sightline_columns": columns_tiles,
-            "sightline_spectra": spectra_tiles, "deposit3d": deposit_3d_tiles, "append_gangs": append_gangs}
+            "sightline_spectra": spectra_tiles, "deposit3d": deposit_3d_tiles, "deposit3d_wide": deposit_3d_wide,
+            "append_gangs": append_gangs}

@@ -3,7 +3,7 @@
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
-    python3 chip_smoke.py                # phases 0-14, 16, 17 and 19-24
+    python3 chip_smoke.py                # phases 0-14, 16, 17 and 19-25
     python3 chip_smoke.py --phases 0,1,2 # a subset, for debugging
 
 It drives the port's main paths — the adaptive-h sorted tile engine behind
@@ -26,7 +26,8 @@ fails (non-zero exit) if any phase fails (phases 19 and 23 run after phase
    (the package's must not);
 1. build: compile every CUDA kernel library (``csrc/deposit2d.cu``,
    ``csrc/coherent.cu``, ``csrc/deposit_wide.cu``, ``csrc/sightlines.cu``,
-   ``csrc/deposit3d.cu``, ``csrc/layout_shear.cu``), one nvcc per source,
+   ``csrc/deposit3d.cu``, ``csrc/deposit3d_wide.cu``,
+   ``csrc/layout_shear.cu``), one nvcc per source,
    all started together, and the host C library ``native/hostops.c``; the
    row-prep, column and oversize-route kernels' registers and spill bytes
    (``ptxas_summary``);
@@ -261,7 +262,23 @@ fails (non-zero exit) if any phase fails (phases 19 and 23 run after phase
     on the card (served from memory: no h5py on the card's machine), then
     REST_RANKS gloo ranks on the card (``--rest-rank``) running
     ``parallel.dryrun.dryrun_multichip(4)`` and
-    ``examples.multichip_render`` under one deadline.
+    ``examples.multichip_render`` under one deadline;
+25. the 3D oversize route (``ops/grid3d_wide.py``, ``csrc/deposit3d_wide.cu``)
+    at the benchmark cell ``l0025_cube512``'s shapes (``grid_route_cases``:
+    ``sphbench``'s EAGLE Ref-L0025N0376 generator, all 53M gas particles
+    through ``tile_particles_3d`` into a periodic 512^3 x 2-field cube, the
+    layout's oversize segment, support radii 7-15.4 voxels): the launches
+    with the counter zeroed just before (one a batch of the binning), the
+    route's, the binning's and the deposit kernel's time beside the bound
+    (the voxels inside the supports, 14 + 2F operations each), the list
+    entries; the route against ``sphbench/reference/box_cube.py``'s float64
+    scatter of the same placed particles (1e-5 * max), two runs bit for
+    bit, the stencil engine never called; the plain route
+    (``deposit_3d_wide_plain``) and the route on a strided subset of the
+    segment (``CUBE_PLAIN_N`` particles), each against the f64 scatter of
+    the subset (the route within 1e-5 * max; the plain route, which places
+    the particles again from f32 world coordinates, reads ~1e-5 there), and
+    the plain route's time scaled to the whole segment.
 
 Every phase prints one JSON line; the kernels' summary line and the card's
 ``nvidia-smi`` line come before the last line, which is
@@ -1699,6 +1716,9 @@ def phase_halo(torch, device, particles):
 WIDE_CELL_CONFIG = "sphbench/configs/eagle_l0025_halomaps.json"  # the benchmark's halo cell ...
 WIDE_CELL_HALOES = (0, 14, 15)  # ... and the haloes it asks for
 WIDE_CELL_SEED = 3_000_000_019
+CUBE_CELL_CONFIG = "sphbench/configs/eagle_l0025_cube512.json"  # phase 25: the benchmark's cube cell
+CUBE_CELL_SEED = 3_000_000_025
+CUBE_PLAIN_N = 4096  # oversize particles the plain route takes in phase 25 (~0.5 ms each)
 
 
 def wide_route_cases(torch, device) -> list:
@@ -1798,6 +1818,108 @@ def wide_route_cases(torch, device) -> list:
     del xy, h64, values
     torch.cuda.empty_cache()
     return rows
+
+
+def grid_route_cases(torch, device) -> dict:
+    """The 3D oversize route at the cube cell's shapes (phase 25; see the
+    module docstring): the layout's oversize segment of the cell's
+    particles, timed through ``deposit_3d_wide`` (binning and deposit) and
+    its parts, held to the float64 reference scatter and, on a subset, to
+    the plain route."""
+    from astro_sph_tools_tpu_torch.ops import GridSpec, tile_particles_3d
+    from astro_sph_tools_tpu_torch.ops import grid3d_wide as W
+    from sphbench.counting import pair_ops
+    from sphbench.generators import clustered
+    from sphbench.reference import box_cube
+
+    with open(os.path.join(ROOT, CUBE_CELL_CONFIG)) as f:
+        cfg = json.load(f)
+    res, kernel = int(cfg["product"]["resolution"]), cfg["kernel"]
+    inputs = clustered.generate(cfg["snapshot"], CUBE_CELL_SEED, device)
+    box = inputs["box"]
+    m = inputs["masses"]
+    spec = GridSpec(shape=(res,) * 3, extent=(0.0, box) * 3, periodic_wrap=True)
+    tp = tile_particles_3d(inputs["positions"], inputs["smoothing_lengths"],
+                           torch.stack([m, m * inputs["temperatures"]]), spec, kernel=kernel, device=device)
+    del inputs, m
+    n, n_over = tp.n_valid, tp.n_oversize
+    sl = slice(tp.n_sorted - n_over, tp.n_sorted)
+    u, v, w, hh = (a[sl].contiguous() for a in (tp.sorted_u, tp.sorted_v, tp.sorted_w, tp.sorted_h))
+    vals = tp.sorted_values[:, sl].contiguous()
+    del tp
+    torch.cuda.empty_cache()
+    F = vals.shape[0]
+    vox = box / res
+
+    def refuse(*a, **k):
+        raise AssertionError("the stencil engine ran on the card")
+
+    plain_engine, W.deposit_3d = W.deposit_3d, refuse  # no plain fallback on the card
+    try:
+        W.deposit_3d_wide.launches = 0
+        got = W.deposit_3d_wide(u, v, w, hh, vals, spec, kernel=kernel, out=torch.zeros((F, res, res, res),
+                                                                                         device=device))
+        torch.cuda.synchronize()
+        launches = W.deposit_3d_wide.launches
+        again = W.deposit_3d_wide(u, v, w, hh, vals, spec, kernel=kernel, out=torch.zeros_like(got))
+        repeat = bool(torch.equal(got, again))
+        del again
+        # the parts: the binning (every batch's lists), the deposit on them
+        batches = list(W.tile_lists(u, v, w, hh, spec, kernel=kernel))
+        entries = sum(int(b[3].shape[0]) for b in batches)
+        out = torch.zeros_like(got)
+        route_ms = cuda_ms(lambda: W.deposit_3d_wide(u, v, w, hh, vals, spec, kernel=kernel, out=out), 3)
+        bin_ms = cuda_ms(lambda: list(W.tile_lists(u, v, w, hh, spec, kernel=kernel)), 3)
+
+        def deposit():
+            for p0, p1, starts, lists in batches:
+                W._deposit(u[p0:p1], v[p0:p1], w[p0:p1], hh[p0:p1], vals[:, p0:p1], starts, lists, spec,
+                           kernel=kernel, out=out)
+
+        deposit_ms = cuda_ms(deposit, 3)
+        del batches, out
+    finally:
+        W.deposit_3d = plain_engine
+    # the yardstick: the f64 scatter of the same placed particles (world
+    # coordinates from the global voxel coordinates, as the plain route takes them)
+    ref = box_cube.scatter(torch.stack([u, v, w], dim=1).double() * vox, hh.double(), vals.double(), (res,) * 3,
+                           box, kernel=kernel)
+    errs = [rel_err(got[f], ref[f]) for f in range(F)]
+    del ref
+    # the plain route on a strided subset, beside the route on it, both
+    # held to the f64 scatter there (the plain route places its particles
+    # again from f32 world coordinates, ~1e-5 of a lone support's peak off)
+    idx = torch.arange(0, n_over, max(1, n_over // CUBE_PLAIN_N), device=device)[:CUBE_PLAIN_N]
+    sub = [a[idx].contiguous() for a in (u, v, w, hh)] + [vals[:, idx].contiguous()]
+    plain = torch.zeros_like(got)
+    plain_ms = cuda_ms(lambda: W.deposit_3d_wide_plain(*sub, spec, kernel=kernel, out=plain), 1)
+    small = W.deposit_3d_wide(*sub, spec, kernel=kernel, out=torch.zeros_like(got))
+    ref = box_cube.scatter(torch.stack(sub[:3], dim=1).double() * vox, sub[3].double(), sub[4].double(),
+                           (res,) * 3, box, kernel=kernel)
+    sub_err = max(rel_err(small[f], ref[f])[1] for f in range(F))
+    plain_err = max(rel_err(plain[f], ref[f])[1] for f in range(F))
+    del plain, small, got, ref
+    inside = support_points(hh, 2.0, vox, 3)
+    b = bound(4.0 * (4 + F) * n_over + 2 * 4.0 * F * res ** 3, inside * pair_ops(F, kernel))
+    row = {
+        "phase": "grid_route", "n": n, "grid": [res] * 3, "fields": F, "oversize": n_over,
+        "oversize_share": n_over / n, "s_vox": [2.0 * float(hh.min()) / vox, 2.0 * float(hh.max()) / vox],
+        "launches": launches, "tile_pairs": entries, "pairs_inside": inside,
+        "route_ms": route_ms, "bin_ms": bin_ms, "deposit_ms": deposit_ms, **b,
+        "max_abs_err": max(e[0] for e in errs), "rel_err_vs_f64": max(e[1] for e in errs),
+        "repeatable": repeat, "plain_subset_n": int(idx.shape[0]), "plain_ms": plain_ms,
+        "plain_ms_whole_segment": plain_ms * n_over / int(idx.shape[0]), "subset_rel_err_vs_f64": sub_err,
+        "subset_plain_rel_err_vs_f64": plain_err,
+    }
+    emit(row)
+    del u, v, w, hh, vals, sub
+    torch.cuda.empty_cache()
+    check(launches >= 1 and entries > 0, f"the route made {launches} launches over {entries} list entries")
+    check(row["rel_err_vs_f64"] <= REL_TOL, f"the 3D oversize route off the f64 reference: {row['rel_err_vs_f64']}")
+    check(sub_err <= REL_TOL, f"the 3D oversize route off the f64 reference on the subset: {sub_err}")
+    check(repeat, "two runs of the 3D oversize route differ")
+    check(deposit_ms >= b["bound_ms"], "the 3D oversize deposit under its bound")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -4674,7 +4796,7 @@ def phase_rest(torch, device, particles, fidelity_out: str) -> dict:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,19,23,10,11,12,13,14,16,17,20,21,22,24",
+    parser.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,19,23,10,11,12,13,14,25,16,17,20,21,22,24",
                         help="comma-separated phases to run (15 and 18 only when named)")
     parser.add_argument("--log2n", type=int, default=MAIN_LOG2N, help="log2 of the main path's particle count")
     parser.add_argument("--sight-n", type=int, default=SIGHT_N, help="gas particles of phases 10-12")
@@ -4747,6 +4869,7 @@ def main() -> None:
     if 18 in phases:
         phase_voxel_split(torch, device, args.vox_log2n)
     torch.cuda.empty_cache()
+    grid_out = grid_route_cases(torch, device) if 25 in phases else None
     rp, rand_gen_s = random_particles(torch, device, args.rand_log2n) if phases & {16, 17} else (None, 0.0)
     app_cases = phase_append_kernel(torch, device, rp) if 16 in phases else []
     rand_out = phase_random(torch, device, rp, rand_gen_s) if 17 in phases else None
@@ -4928,6 +5051,23 @@ def main() -> None:
             "plain_ms": vox_case["plain_ms"] if vox_case else None,
             **bound_keys(vox_case),
             **par_launches("deposit3d"),
+        },
+        {
+            "name": "deposit3d_wide",
+            "route": "cuda",
+            "source": "astro_sph_tools_tpu_torch/csrc/deposit3d_wide.cu",
+            "replaces": None,  # the JAX package sends these footprints to XLA
+            # phase 25: the cube cell's oversize segment, one product's launches
+            "launches": grid_out["launches"] if grid_out else None,
+            "max_abs_err": grid_out["max_abs_err"] if grid_out else None,
+            "ms": grid_out["deposit_ms"] if grid_out else None,
+            "bin_ms": grid_out["bin_ms"] if grid_out else None,
+            "route_ms": grid_out["route_ms"] if grid_out else None,
+            "plain_ms": grid_out["plain_ms"] if grid_out else None,
+            "plain_subset_n": grid_out["plain_subset_n"] if grid_out else None,
+            "plain_ms_whole_segment": grid_out["plain_ms_whole_segment"] if grid_out else None,
+            **bound_keys(grid_out),
+            "rel_err_vs_f64": grid_out["rel_err_vs_f64"] if grid_out else None,
         },
         {
             "name": "append_gangs",
