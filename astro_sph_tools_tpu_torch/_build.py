@@ -65,6 +65,7 @@ _SIGNATURES = {
             _I, _I, _F, _F,  # kernel id, integrated, norm_3d, support_factor
             _P, _I,  # chebyshev coefficients, count
             _I,  # blocks a tile (cluster size)
+            _P,  # tile order, heaviest first (K >= 32), or NULL
             _P,  # cudaStream_t
         ],
     },

@@ -23,18 +23,18 @@
 // exactly 0 and are skipped, as the plain version skips them. Adds go to a
 // shared-memory accumulator with float atomics.
 //
-// Two mappings, chosen per level at compile time. The K = 8 and 16
-// levels' footprints of a few to ~200 pixels: a warp holds 32 particles,
-// one a lane, and takes the (particle, box pixel) pairs of all 32 as one
-// list, 32 a step (deposit_balanced), so that no lane idles while another
-// walks a larger footprint; the sorted engine hands the lanes their
-// particles spread over the block's share, loaded coalesced through shared
-// memory (for_staged_spread). The K >= 32 levels: a warp per particle
-// (deposit_warp), whose lanes take 32 consecutive box pixels. A tile's work
-// is split over a cluster of C blocks (cluster_groups), each summing into
-// its own shared accumulator; cluster_reduce_store then adds the C
+// The K = 8 and 16 levels' footprints of a few to ~200 pixels: a warp
+// holds 32 particles, one a lane, and takes the (particle, box pixel) pairs
+// of all 32 as one list, 32 a step (deposit_balanced), so that no lane
+// idles while another walks a larger footprint; the sorted engine hands
+// the lanes their particles spread over the block's share, loaded
+// coalesced through shared memory (for_staged_spread). A tile's work is
+// split over a cluster of C blocks (cluster_groups), each summing into its
+// own shared accumulator; cluster_reduce_store then adds the C
 // accumulators slice by slice through distributed shared memory and writes
-// each slice once.
+// each slice once. The sorted engine's K >= 32 levels take particle_setup
+// and footprint_weight from here and nothing of the accumulation: they sum
+// output-stationary in registers (deposit2d.cu::deposit2d_register).
 
 #pragma once
 
@@ -195,6 +195,22 @@ __device__ __forceinline__ float footprint_weight(float q2, const float* s_cheb,
   }
 }
 
+// footprint_weight with the 3D kernel's root taken as q2 / sqrt(q2) by the
+// reciprocal root: two instructions against the correctly rounded root's
+// sequence and its branch, within 2 ulp of it. The output-stationary
+// kernels take it (deposit2d.cu's register path, deposit_wide.cu). The
+// argument is at least 1e-30, so the root needs no denormal scaling.
+template <int KID, bool INTEG>
+__device__ __forceinline__ float footprint_weight_rsqrt(float q2, const float* s_cheb, int n_cheb) {
+  if constexpr (INTEG) {
+    return footprint_weight<KID, INTEG>(q2, s_cheb, n_cheb);
+  } else {
+    float r;
+    asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(fmaxf(q2, 1e-30f)));
+    return shape_q<KID>(q2 * r);
+  }
+}
+
 // acc[f * plane + r * kLanes + c] += w * ve[f] where pixel (r, c) passes the
 // exact test. The normalised offsets are computed as the plain torch
 // version computes them ((r + offset - v) * sy), so the test picks the
@@ -266,32 +282,6 @@ __device__ __forceinline__ void deposit_balanced(float* acc, int plane, int f_n,
       const int off = k - o_start;
       const int rr = (int)(((float)off + 0.5f) * o_inv_nc);
       add_pixel<KID, INTEG>(acc, plane, f_n, p, s_cheb, n_cheb, o, o_rlo + rr, o_clo + (off - rr * o_nc));
-    }
-  }
-}
-
-// A warp deposits one particle (the K >= 32 levels, up to ~4,200 box
-// pixels): its 32 lanes take consecutive pixels of the box in row-major
-// order, so one step's adds go to 32 distinct addresses. Every lane of the
-// warp calls this with the same particle.
-template <int KID, bool INTEG>
-__device__ __forceinline__ void deposit_warp(float* acc, int plane, int f_n, const Footprint& p,
-                                             const float* s_cheb, int n_cheb, float ul, float vl,
-                                             float hi, const float* val, long long val_stride,
-                                             int lane) {
-  Particle q;
-  if (!particle_setup<INTEG>(p, f_n, ul, vl, hi, val, val_stride, q)) return;
-  const int nc = q.c_hi - q.c_lo + 1;
-  const int n_box = (q.r_hi - q.r_lo + 1) * nc;
-  const int dr = 32 / nc, dc = 32 % nc;
-  int r = lane / nc, c = lane - (lane / nc) * nc;
-  for (int i = lane; i < n_box; i += 32) {
-    add_pixel<KID, INTEG>(acc, plane, f_n, p, s_cheb, n_cheb, q, q.r_lo + r, q.c_lo + c);
-    r += dr;
-    c += dc;
-    if (c >= nc) {
-      c -= nc;
-      ++r;
     }
   }
 }

@@ -18,8 +18,8 @@
 //     q2 = ((x + offset - u) sx)^2 + ((y + offset - v) sy)^2  (< lim2),
 // with the minimum image per axis on a periodic map (as the dense pass
 // has it, discs wider than the map included); w is deposit_common.cuh's
-// shape_q(sqrt(q2)) (kernel3d, the root by the reciprocal root) or its
-// footprint_weight's Chebyshev table (integrated), as kernel #1 has them.
+// footprint_weight_rsqrt: shape_q(sqrt(q2)) (kernel3d, the root by the
+// reciprocal root) or footprint_weight's Chebyshev table (integrated).
 //
 // Bound on the card: FP32 operations. At halo-cutout footprints (60-2000 px
 // across) a particle covers thousands of pixels, so the pairs inside the
@@ -158,19 +158,6 @@ __device__ __forceinline__ float min_image(float d, float L, float inv_L) {
   return d - L * rintf(d * inv_L);
 }
 
-// The kernel's weight at squared normalised distance q2: the 3D kernel's
-// shape at sqrt(q2), the square root taken as q2 / sqrt(q2) by the
-// reciprocal root (two instructions against the correctly rounded root's
-// sequence, within 2 ulp), or the line-integrated kernel's Chebyshev table.
-template <int KID, bool INTEG>
-__device__ __forceinline__ float wide_weight(float q2, const float* s_cheb, int n_cheb) {
-  if constexpr (INTEG) {
-    return ast::footprint_weight<KID, INTEG>(q2, s_cheb, n_cheb);
-  } else {
-    return ast::shape_q<KID>(q2 * rsqrtf(fmaxf(q2, 1e-30f)));
-  }
-}
-
 // The deposit of each tile's list into out (F fields of ny x nx, plane
 // floats apart), a cluster of C blocks a tile: rank r sums the r-th of C
 // contiguous parts of the list in registers (see the file's head), the
@@ -240,7 +227,7 @@ wide_deposit_kernel(const float4* __restrict__ geo, const float* __restrict__ sc
         const float dy2 = dyn * dyn;
         if (dy2 < g.lim2) {  // the same on every lane of the warp
           const float q2 = dx2 + dy2;
-          float w = wide_weight<KID, INTEG>(q2, s_cheb, n_cheb);
+          float w = ast::footprint_weight_rsqrt<KID, INTEG>(q2, s_cheb, n_cheb);
           w = q2 < g.lim2 ? w : 0.0f;
 #pragma unroll
           for (int f = 0; f < FN; ++f) part[r][f] = fmaf(w, ve[f], part[r][f]);

@@ -789,7 +789,7 @@ def _render(packed, cand_tile, cand_row, tail, tail_levels, *, spec, kernel, pro
             sp.count(launches=deposit_coherent_windows.launches + deposit_coherent_tiles.launches - launches)
     if tail is not None:
         tu, tv, th, t_values, skey = tail
-        launches = deposit_tiles.launches
+        launches, register_launches = deposit_tiles.launches, deposit_tiles.register_launches
         with span("deposit.tail", particles=tu.shape[0]) as sp:
             for li, geom, cap in tail_levels:
                 pstart, pcount = _tail_level_ranges(skey, bases[li], geom, cap)
@@ -797,7 +797,8 @@ def _render(packed, cand_tile, cand_row, tail, tail_levels, *, spec, kernel, pro
                 total += _overlap_add(
                     tiles, geom.cfg, geom.tx, geom.n_tiles_y, geom.n_tiles_x, n_fields, ny, nx, spec.periodic_wrap
                 )
-            sp.count(launches=deposit_tiles.launches - launches)
+            sp.count(launches=deposit_tiles.launches - launches,
+                     register_launches=deposit_tiles.register_launches - register_launches)
     return total
 
 

@@ -19,9 +19,10 @@ its values are the JAX engine's; its TPU workarounds are gone:
    layout of :mod:`.layout_shear` instead, pad slots included.
 3. **Deposit**: per populated level, :func:`deposit_tiles` fills the
    (n_tiles, F*R, 128) extended tile accumulators — the CUDA kernel
-   ``csrc/deposit2d.cu`` on a CUDA tensor (each tile's particles split
-   over a cluster of ``_CLUSTER`` thread blocks in groups of 8,
-   :func:`cluster_rank`), the plain torch version
+   ``csrc/deposit2d.cu`` on a CUDA tensor (``_CLUSTER`` thread blocks a
+   tile: at K = 8 and 16 a cluster splitting the tile's particles in groups
+   of 8, :func:`cluster_rank`; from :data:`REGISTER_MIN_K` blocks owning
+   the tile's rows, :func:`register_pixels`), the plain torch version
    :func:`deposit_tiles_plain` on a CPU tensor.
 4. **Overlap-add**: extended tiles are summed into the (F, ny, nx) image
    with nine band adds (:func:`_overlap_add`).
@@ -244,13 +245,14 @@ def deposit_tiles_plain(
     return out.view(n_tiles, n_fields * R, S)
 
 
-# thread blocks a tile's work is split over on the card (a thread-block
-# cluster), in both 2D deposit kernels (csrc/deposit2d.cu, csrc/coherent.cu)
-# and at every level: fixed, never taken from particle counts, so that a
-# render sized from capacities needs no count on the host. Two blocks halve
-# the densest tile's walk; more blocks walk it faster but cost every light
-# tile their zeroing and their share of the cluster's sum (PERF.md
-# section 6)
+# thread blocks a tile's work is split over on the card, in both 2D deposit
+# kernels (csrc/deposit2d.cu, csrc/coherent.cu) and at every level: fixed,
+# never taken from particle counts, so that a render sized from capacities
+# needs no count on the host. A thread-block cluster sharing the tile's
+# particles at K = 8 and 16 and in #2, blocks sharing its rows from
+# REGISTER_MIN_K. Two blocks halve the densest tile's walk; more blocks walk
+# it faster but cost every light tile their zeroing and their share of the
+# cluster's sum (PERF.md section 6)
 _CLUSTER = 2
 
 
@@ -280,6 +282,50 @@ def cluster_share_sizes(count: Tensor, C: int, group: int = CLUSTER_GROUP) -> Te
     last = n_groups - 1
     short = torch.where((mine > 0) & (last % C == r), (last + 1) * group - count, 0)
     return mine * group - short
+
+
+#: levels from this K sum output-stationary in registers on the card
+#: (``csrc/deposit2d.cu::deposit2d_register``): each thread owns fixed
+#: pixels of its tile's accumulator; the narrower levels split the tile's
+#: particles over the cluster (:func:`cluster_rank`) and add with shared
+#: float atomics
+REGISTER_MIN_K = 32
+_REGISTER_WARPS = 12  # the most warps a block of the register path
+_REGISTER_COL_GROUP = 16  # columns a half-warp takes in one step
+
+
+def register_walks(R: int, C: int) -> int:
+    """Walks over a tile's particles each block of the register path makes:
+    the fewest that its C blocks of at most 12 warps need for the R / 2 row
+    pairs, one pair a warp a walk (``deposit2d_launch``'s ``walks``)."""
+    n_pairs = (R + 1) // 2
+    return -(-n_pairs // (C * _REGISTER_WARPS))
+
+
+def register_warps(R: int, C: int) -> int:
+    """Warps a block of the register path: the fewest that take the row
+    pairs in :func:`register_walks` walks (``deposit2d_launch``'s
+    ``threads`` / 32)."""
+    return -(-((R + 1) // 2) // (C * register_walks(R, C)))
+
+
+def register_pixels(R: int, C: int, rank: int, warp: int, lane: int) -> list:
+    """The (walk, row, column) pixels of a tile's R x 128 accumulator that
+    lane ``lane`` of warp ``warp`` of block ``rank`` (of C) owns on the
+    register path, step for step as ``csrc/deposit2d.cu::deposit2d_register``
+    deals them: the R rows form row pairs, pair p belongs to rank p mod C
+    and to its warp (p / C) mod W (W = :func:`register_warps`), a warp's
+    k-th pair to its k-th walk; lane l takes row 2p + l // 16 of its pairs
+    and the columns l mod 16 + 16 j."""
+    n_pairs = (R + 1) // 2
+    stride = register_warps(R, C) * C
+    pixels = []
+    for walk, pair in enumerate(range(warp * C + rank, n_pairs, stride)):
+        row = 2 * pair + lane // _REGISTER_COL_GROUP
+        if row < R:
+            pixels += [(walk, row, lane % _REGISTER_COL_GROUP + _REGISTER_COL_GROUP * j)
+                       for j in range(_LANES // _REGISTER_COL_GROUP)]
+    return pixels
 
 
 _CONSTS: dict = {}
@@ -336,9 +382,10 @@ def deposit_tiles(
     ``u, v, h`` (n,) and ``values`` (F, n) are the level's tile-sorted,
     tile-local particles; tile t owns ``[pstart[t], pstart[t] + pcount[t])``.
     On a CUDA tensor this launches the hand-written kernel
-    ``csrc/deposit2d.cu`` (built at first use) over clusters of
-    ``_CLUSTER`` thread blocks a tile and raises if the build or the launch
-    fails, naming the cluster size; on a CPU tensor it runs
+    ``csrc/deposit2d.cu`` (built at first use) with ``_CLUSTER`` thread
+    blocks a tile (from :data:`REGISTER_MIN_K` the register path, counted
+    in ``deposit_tiles.register_launches`` too) and raises if the build or
+    the launch fails, naming the cluster size; on a CPU tensor it runs
     :func:`deposit_tiles_plain`.
 
     Precision: the kernel sums in f32 FMA arithmetic whatever ``precision=``
@@ -362,6 +409,9 @@ def deposit_tiles(
     integrated = projection == "integrated"
     cheb = device_const(integrated_kernel_chebyshev(kernel), torch.float32, u.device) if integrated else None
     C = _CLUSTER
+    # the register path takes the tiles heaviest first, so that a dense
+    # tile's blocks do not start last
+    order = torch.argsort(pcount, descending=True).to(torch.int32) if cfg.K >= REGISTER_MIN_K else None
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
         code = lib.deposit2d_launch(
@@ -372,7 +422,7 @@ def deposit_tiles(
             float(offset), float(psx), float(psy),
             kspec.kernel_id, int(integrated), float(kspec.norm_3d), float(kspec.support_factor),
             cheb.data_ptr() if integrated else None, cheb.numel() if integrated else 0,
-            C, stream,
+            C, None if order is None else order.data_ptr(), stream,
         )
     if code != 0:
         raise RuntimeError(
@@ -380,11 +430,16 @@ def deposit_tiles(
             f"F={values.shape[0]}): {lib.cuda_error_string(code).decode()} ({code})"
         )
     deposit_tiles.launches += 1
+    if cfg.K >= REGISTER_MIN_K:
+        deposit_tiles.register_launches += 1
     return out
 
 
 #: kernel launches made by :func:`deposit_tiles` in this process (CUDA only)
 deposit_tiles.launches = 0
+#: those of them that took the register path (levels from
+#: :data:`REGISTER_MIN_K`)
+deposit_tiles.register_launches = 0
 
 
 def _overlap_add(
@@ -899,7 +954,7 @@ def deposit_tiled(
     ny, nx = tp.spec.shape
     dev = tp.sorted_u.device
     total = torch.zeros((tp.n_fields, ny, nx), dtype=torch.float32, device=dev)
-    launches = deposit_tiles.launches
+    launches, register_launches = deposit_tiles.launches, deposit_tiles.register_launches
     with span("deposit.levels", particles=sum(count for _, _, count in tp.geoms)) as sp:
         for geom, lo, count in tp.geoms:
             sl = slice(lo, lo + count)
@@ -908,7 +963,8 @@ def deposit_tiled(
                 tp.sorted_u[sl], tp.sorted_v[sl], tp.sorted_h[sl],
                 tp.sorted_values[:, sl], tp.sorted_tile[sl], plain,
             )
-        sp.count(launches=deposit_tiles.launches - launches)
+        sp.count(launches=deposit_tiles.launches - launches,
+                 register_launches=deposit_tiles.register_launches - register_launches)
 
     if tp.n_oversize:
         # oversize stragglers live at the end of the sorted layout with

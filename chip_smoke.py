@@ -3,7 +3,7 @@
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
-    python3 chip_smoke.py                # phases 0-14, 16, 17 and 19-25
+    python3 chip_smoke.py                # phases 0-14, 16, 17 and 19-26
     python3 chip_smoke.py --phases 0,1,2 # a subset, for debugging
 
 It drives the port's main paths — the adaptive-h sorted tile engine behind
@@ -278,7 +278,23 @@ fails (non-zero exit) if any phase fails (phases 19 and 23 run after phase
     segment (``CUBE_PLAIN_N`` particles), each against the f64 scatter of
     the subset (the route within 1e-5 * max; the plain route, which places
     the particles again from f32 world coordinates, reads ~1e-5 there), and
-    the plain route's time scaled to the whole segment.
+    the plain route's time scaled to the whole segment;
+26. kernel #1's register path (K >= 32, ``deposit2d_register``) at the box
+    cells' own level populations (``box_level_cases``: ``sphbench``'s
+    EAGLE Ref-L0025N0376 generator, all 53M gas particles at EAGLE's h,
+    through ``tile_particles`` onto a periodic 1024^2 map, Wendland C2,
+    kernel3d, F = 2: mass and mass times temperature): per K = 32 and 64
+    level the particles, tiles and fullest tile, the kernel's time beside
+    its bound (the pixels inside the supports, ``sphbench.counting``'s
+    14 + 2F operations each), the lane efficiency (lane evaluations, from
+    each particle's loop box, the 2-row x 16-column steps its rows and
+    columns meet, over the pixels inside its support; the warp-a-particle
+    design it replaced beside it), two launches bit for bit, and the
+    densest tile and ``BOX_CHECK_TILES`` tiles drawn from the seed against
+    ``plain_f64_sum`` (1e-5 * max); and the spans ``deposit.levels`` (the
+    sorted engine) and ``deposit.tail`` (the coherent engine on the same
+    particles) count, in a traced render, the launches and register-path
+    launches the wrapper made.
 
 Every phase prints one JSON line; the kernels' summary line and the card's
 ``nvidia-smi`` line come before the last line, which is
@@ -647,8 +663,8 @@ def phase_build():
     logs = "\n".join(info.log for _, info in libs.values())
     emit({"phase": "build", "ptxas_by_kernel": {
         name: ptxas_summary(logs, name)
-        for name in ("coherent_prep_kernel", "columns_kernel", "column_sums_kernel", "wide_bin_kernel",
-                     "wide_deposit_kernel")
+        for name in ("deposit2d_register", "coherent_prep_kernel", "columns_kernel", "column_sums_kernel",
+                     "wide_bin_kernel", "wide_deposit_kernel")
     }})
 
 
@@ -789,12 +805,16 @@ def plain_f64_sum(torch, deposit_tiles_plain, args, kw, run: int = 8):
     return out
 
 
-def split_stats(torch, C: int, pcount, group: int) -> dict:
+def split_stats(torch, C: int, pcount, group: int, K: int = 0) -> dict:
     """The cluster split of one launch: its blocks a tile (C), and the
     largest share a block takes (particles for #1, split in groups of 8;
-    candidate rows for #2, one by one)."""
-    from astro_sph_tools_tpu_torch.ops.deposit_tiled import cluster_share_sizes
+    candidate rows for #2, one by one). #1's register path (from
+    ``REGISTER_MIN_K``) splits rows, not particles: each block walks its
+    whole tile."""
+    from astro_sph_tools_tpu_torch.ops.deposit_tiled import REGISTER_MIN_K, cluster_share_sizes
 
+    if K >= REGISTER_MIN_K:
+        return {"cluster": C, "max_share": int(pcount.max()) if pcount.numel() else 0}
     share = cluster_share_sizes(pcount, C, group)
     return {"cluster": C, "max_share": int(share.max()) if share.numel() else 0}
 
@@ -833,7 +853,7 @@ def _deposit_case(torch, deposit_tiles, deposit_tiles_plain, geom, args, kw, n_f
     case = {
         **tags, "K": geom.cfg.K, "F": n_fields, "projection": projection,
         "n": int(args[0].shape[0]), "n_tiles": geom.n_tiles,
-        "max_pcount": int(pcount.max()), **split_stats(torch, _deposit_module()._CLUSTER, pcount, 8),
+        "max_pcount": int(pcount.max()), **split_stats(torch, _deposit_module()._CLUSTER, pcount, 8, geom.cfg.K),
         "max_abs_err": err, "rel_err": rel, **extra,
         "ms": cuda_ms(lambda: deposit_tiles(*args, **kw), 5),
         "densest_tile_ms": cuda_ms(lambda: deposit_tiles(*dense, **kw), 5),
@@ -960,7 +980,7 @@ def phase_main(torch, device, particles, gen_s):
                          support_points(args[2], 2.0, box / 1024, 2) * pair_ops(2, "kernel3d")))
         lev["excess_ms"] = lev["kernel_ms"] - lev["bound_ms"]
         # the launch's split, and its densest tile alone
-        lev.update(split_stats(torch, _deposit_module()._CLUSTER, pcount, 8))
+        lev.update(split_stats(torch, _deposit_module()._CLUSTER, pcount, 8, geom.cfg.K))
         t = int(torch.argmax(pcount))
         dense = args[:4] + (pstart[t:t + 1], pcount[t:t + 1])
         lev["densest_tile_ms"] = cuda_ms(lambda: deposit_tiles(*dense, **kw), 3)
@@ -1329,7 +1349,7 @@ def _level_vs_plain(torch, geom, args, sl, spec, what: str, f64_run: int = 0, pl
     case = {
         "phase": "kernel_vs_plain", **tags, "K": geom.cfg.K, "F": n_fields, "projection": "kernel3d",
         "n": int(h[sl].shape[0]), "n_tiles": geom.n_tiles, "max_pcount": int(pcount.max()),
-        **split_stats(torch, _deposit_module()._CLUSTER, pcount, 8),
+        **split_stats(torch, _deposit_module()._CLUSTER, pcount, 8, geom.cfg.K),
         "max_abs_err": err, "rel_err": rel,
         "ms": cuda_ms(lambda: deposit_tiles(*args, **kw), 5),
         "plain_ms": cuda_ms(lambda: deposit_tiles_plain(*args, **kw), plain_reps) if plain_reps else None,
@@ -1816,6 +1836,136 @@ def wide_route_cases(torch, device) -> list:
         check(lists_equal, f"halo {k}: the tile lists differ from their plain version")
         check(deposit_ms >= b["bound_ms"], f"halo {k}: the oversize deposit under its bound")
     del xy, h64, values
+    torch.cuda.empty_cache()
+    return rows
+
+
+BOX_CELL_CONFIG = "sphbench/configs/eagle_l0025_boxmap.json"  # phase 26: the benchmark's box cells
+BOX_CELL_SEED = 3_000_000_026
+BOX_CHECK_TILES = 8  # tiles of each level held to the f64 sum besides the densest
+
+
+def register_lane_work(torch, u, v, h, cfg, psx: float, psy: float, offset: float,
+                       support_factor: float = 2.0) -> dict:
+    """Lane evaluations of one K >= 32 level's launch, from each particle's
+    loop box as ``particle_setup`` draws it (kernel3d: support radius
+    ``support_factor`` h, slack 0.01 px + 1e-4 radius, clamped to the
+    accumulator and to the K-column window): the register path evaluates
+    32 lanes for every (row pair, 16-column group) the box meets; the
+    warp-a-particle design it replaced, the box's pixels in steps of 32."""
+    from astro_sph_tools_tpu_torch.ops.deposit_tiled import _LANES
+
+    K, R = cfg.K, cfg.R
+    ry = support_factor * h / psy
+    rx = support_factor * h / psx
+    cy, cx = v - offset, u - offset
+    col0 = torch.floor(u - offset + 0.5) - K // 2
+    r_lo = torch.ceil(torch.clamp(cy - ry - (0.01 + 1e-4 * ry), min=-1.0)).clamp(min=0)
+    r_hi = torch.floor(torch.clamp(cy + ry + (0.01 + 1e-4 * ry), max=float(R))).clamp(max=R - 1)
+    c_lo = torch.maximum(torch.ceil(torch.clamp(cx - rx - (0.01 + 1e-4 * rx), min=-1.0)), col0).clamp(min=0)
+    c_hi = torch.minimum(torch.floor(torch.clamp(cx + rx + (0.01 + 1e-4 * rx), max=float(_LANES))),
+                         col0 + K - 1).clamp(max=_LANES - 1)
+    live = (h > 0) & (r_lo <= r_hi) & (c_lo <= c_hi)
+    r_lo, r_hi, c_lo, c_hi = (a[live].long() for a in (r_lo, r_hi, c_lo, c_hi))
+    steps = (r_hi // 2 - r_lo // 2 + 1) * (c_hi // 16 - c_lo // 16 + 1)
+    box = (r_hi - r_lo + 1) * (c_hi - c_lo + 1)
+    return {"register_lane_evals": 32.0 * float(steps.double().sum()),
+            "warp_lane_evals": 32.0 * float(((box + 31) // 32).double().sum()),
+            "box_pixels": float(box.double().sum())}
+
+
+def box_level_cases(torch, device) -> list:
+    """Kernel #1's K >= 32 levels at the box cells' shapes (phase 26; see
+    the module docstring)."""
+    from astro_sph_tools_tpu_torch.ops import MapSpec, deposit_coherent, deposit_tiled, tile_particles
+    from astro_sph_tools_tpu_torch.ops.deposit_coherent import tile_particles_coherent
+    from astro_sph_tools_tpu_torch.ops.deposit_tiled import (
+        REGISTER_MIN_K, _tile_ranges, deposit_tiles, deposit_tiles_plain)
+    from astro_sph_tools_tpu_torch.utils.profiling import device_trace, spans
+    from sphbench.counting import pair_ops
+    from sphbench.generators import clustered
+
+    with open(os.path.join(ROOT, BOX_CELL_CONFIG)) as f:
+        cfg = json.load(f)
+    snap = cfg["snapshot"]
+    inputs = clustered.generate(snap, BOX_CELL_SEED, device)
+    box = inputs["box"]
+    res = int(cfg["product"]["resolution"])
+    kernel = cfg["kernel"]
+    m = inputs["masses"]
+    values = torch.stack([m, m * inputs["temperatures"]])
+    spec = MapSpec(shape=(res, res), extent=(0.0, box, 0.0, box), periodic_wrap=True)
+    xyh = (inputs["positions"][:, 0], inputs["positions"][:, 1], inputs["smoothing_lengths"])
+    tp = tile_particles(*xyh, values, spec, kernel=kernel, device=device)
+    n_all = int(inputs["positions"].shape[0])
+
+    def traced_counts(render, name):
+        """The counters of the span ``name`` in a traced ``render()``, and
+        the launches and register-path launches of #1 it made."""
+        before = (deposit_tiles.launches, deposit_tiles.register_launches)
+        with device_trace(device=device):
+            render()
+        made = {"launches": deposit_tiles.launches - before[0],
+                "register_launches": deposit_tiles.register_launches - before[1]}
+        return next(sp["counts"] for sp in spans() if sp["name"] == name), made
+
+    # the spans' counters: the sorted engine's levels, the coherent engine's
+    # tail (the cells' particles are in curve order)
+    levels_counts, levels_made = traced_counts(lambda: deposit_tiled(tp), "deposit.levels")
+    layout = tile_particles_coherent(*xyh, values, spec, kernel=kernel, device=device)
+    tail_counts, tail_made = traced_counts(lambda: deposit_coherent(layout), "deposit.tail")
+    del layout, inputs, values, m, xyh
+    wide_levels = sum(g.cfg.K >= REGISTER_MIN_K for g, _, _ in tp.geoms)
+    emit({"phase": "box_levels", "deposit.levels": levels_counts, "deposit.tail": tail_counts,
+          "wide_levels": wide_levels, "tail_launches_made": tail_made})
+    check(levels_counts["register_launches"] == levels_made["register_launches"] == wide_levels > 0,
+          f"deposit.levels counts {levels_counts}, {wide_levels} levels from K = {REGISTER_MIN_K}")
+    check(tail_counts["register_launches"] == tail_made["register_launches"] > 0
+          and tail_counts["launches"] == tail_made["launches"], f"deposit.tail counts {tail_counts}: {tail_made}")
+    psy, psx = spec.pixel_size
+    kw = dict(kernel=kernel, projection="kernel3d", psx=psx, psy=psy, offset=spec.sample_offset)
+    g = torch.Generator(device="cpu")
+    g.manual_seed(BOX_CELL_SEED)
+    rows = []
+    for geom, lo, count in tp.geoms:
+        if geom.cfg.K < REGISTER_MIN_K:
+            continue
+        sl = slice(lo, lo + count)
+        pstart, pcount = _tile_ranges(tp.sorted_tile[sl], geom.n_tiles)
+        args = (tp.sorted_u[sl], tp.sorted_v[sl], tp.sorted_h[sl], tp.sorted_values[:, sl], pstart, pcount)
+        lkw = dict(cfg=geom.cfg, **kw)
+        got = deposit_tiles(*args, **lkw)
+        repeat = bool(torch.equal(got, deposit_tiles(*args, **lkw)))
+        ms = cuda_ms(lambda: deposit_tiles(*args, **lkw), 5)
+        inside = support_points(args[2], 2.0, psx, 2)
+        b = bound(nbytes(*args, got), inside * pair_ops(2, kernel))
+        work = register_lane_work(torch, args[0], args[1], args[2], geom.cfg, psx, psy, spec.sample_offset)
+        # the densest tile and tiles drawn from the seed against the f64 sum
+        filled = torch.nonzero(pcount > 0).squeeze(1).cpu()
+        pick = filled[torch.randperm(filled.shape[0], generator=g)[:BOX_CHECK_TILES]].tolist()
+        errs = []
+        for t in [int(torch.argmax(pcount))] + pick:
+            one = args[:4] + (pstart[t:t + 1], pcount[t:t + 1])
+            ref64 = plain_f64_sum(torch, deposit_tiles_plain, one, lkw)
+            errs.append(rel_err(got[t:t + 1], ref64)[1])
+            del ref64
+        row = {
+            "K": geom.cfg.K, "F": 2, "particles": count, "share_of_particles": count / n_all,
+            "n_tiles": geom.n_tiles, "tx": geom.tx, "max_pcount": int(pcount.max()),
+            "ms": ms, **b, "pairs_inside": inside,
+            "lane_efficiency": work["register_lane_evals"] / inside,
+            "warp_lane_efficiency": work["warp_lane_evals"] / inside,
+            "box_over_inside": work["box_pixels"] / inside,
+            "repeatable": repeat, "f64_checked_tiles": len(errs),
+            "densest_tile_f64_rel_err": errs[0], "f64_rel_err": max(errs),
+        }
+        emit({"phase": "box_levels", **row})
+        rows.append(row)
+        del got, args
+        check(repeat, f"K={geom.cfg.K}: two launches of the register path differ")
+        check(row["f64_rel_err"] <= REL_TOL, f"K={geom.cfg.K}: register path off the f64 sum: {row}")
+        check(ms >= b["bound_ms"], f"K={geom.cfg.K}: kernel #1 under its bound: {row}")
+    del tp
     torch.cuda.empty_cache()
     return rows
 
@@ -4796,7 +4946,7 @@ def phase_rest(torch, device, particles, fidelity_out: str) -> dict:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,19,23,10,11,12,13,14,25,16,17,20,21,22,24",
+    parser.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,19,23,10,11,12,13,14,25,26,16,17,20,21,22,24",
                         help="comma-separated phases to run (15 and 18 only when named)")
     parser.add_argument("--log2n", type=int, default=MAIN_LOG2N, help="log2 of the main path's particle count")
     parser.add_argument("--sight-n", type=int, default=SIGHT_N, help="gas particles of phases 10-12")
@@ -4870,6 +5020,7 @@ def main() -> None:
         phase_voxel_split(torch, device, args.vox_log2n)
     torch.cuda.empty_cache()
     grid_out = grid_route_cases(torch, device) if 25 in phases else None
+    box_rows = box_level_cases(torch, device) if 26 in phases else []
     rp, rand_gen_s = random_particles(torch, device, args.rand_log2n) if phases & {16, 17} else (None, 0.0)
     app_cases = phase_append_kernel(torch, device, rp) if 16 in phases else []
     rand_out = phase_random(torch, device, rp, rand_gen_s) if 17 in phases else None
@@ -4939,6 +5090,9 @@ def main() -> None:
             # the main path's K = 8 level at 2^26 (phase 3)
             "main_path_k8_ms": main_k8["kernel_ms"] if main_k8 else None,
             "main_path_k8_bound_ms": main_k8["bound_ms"] if main_k8 else None,
+            # the box cells' K = 32 and 64 levels, the register path (phase 26)
+            "box_levels": {r["K"]: {"ms": r["ms"], "bound_ms": r["bound_ms"], "f64_rel_err": r["f64_rel_err"],
+                                    "lane_efficiency": r["lane_efficiency"]} for r in box_rows},
             # the halo path's launches: 16 cutouts of phase 3's particles (phase 19)
             "halo_path_launches": halo_out["launches"] if halo_out else None,
             # the streamed and the ion-weighted paths' launches (phases 20, 21)

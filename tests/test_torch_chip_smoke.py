@@ -161,6 +161,57 @@ def test_plain_f64_sum_is_the_f64_sum_of_the_plain_terms(side, radii):
     assert cs.rel_err(plain, exact)[1] <= 1e-5
 
 
+@pytest.mark.parametrize("li", [2, 3])
+def test_register_lane_work_counts_the_kernels_steps(li):
+    """Phase 26's lane count of #1's register path, brute-forced: every
+    pixel the exact test passes lies in the loop box it is counted from;
+    the register path's 32-lane steps are the (row pair, 16-column group)
+    cells of the tile's owners (``register_pixels``) that the box meets;
+    the warp-a-particle design's, the box's pixels 32 a step."""
+    from astro_sph_tools_tpu_torch.ops import MapSpec
+    from astro_sph_tools_tpu_torch.ops.deposit_tiled import PALLAS_LEVELS, register_pixels
+
+    spec = MapSpec(shape=(1024, 1024), extent=(0.0, 25.0, 0.0, 25.0), periodic_wrap=True)
+    cfg = PALLAS_LEVELS[li]
+    px = 25.0 / 1024
+    geom, args = cs._level_inputs(torch, cfg, PALLAS_LEVELS[li - 1].max_s_pix, cfg.max_s_pix, 1, 300, spec, 47 + li,
+                                  "cpu")
+    u, v, h = args[:3]
+    work = cs.register_lane_work(torch, u, v, h, cfg, px, px, spec.sample_offset)
+    # each (row pair, column group) cell: the pixels of one 32-lane step, by the owners' map
+    cells = {}
+    for rank in range(2):
+        for warp in range(12):
+            for lane in range(32):
+                for _, r, c in register_pixels(cfg.R, 2, rank, warp, lane):
+                    cells.setdefault((r // 2, c // 16), set()).add((r, c))
+    assert all(len(px_set) == 32 for px_set in cells.values())
+    steps = warp_steps = box_pixels = 0
+    rows = torch.arange(cfg.R, dtype=torch.float32)
+    cols = torch.arange(128, dtype=torch.float32)
+    for i in range(u.shape[0]):
+        s_n = 2.0 * float(h[i]) / px  # support radius in pixels
+        col0 = int(np.floor(float(u[i]) - 0.5 + 0.5)) - cfg.K // 2
+        dy = (rows + 0.5 - v[i]) * (px / h[i])
+        dx = (cols + 0.5 - u[i]) * (px / h[i])
+        inside = (dy[:, None] ** 2 + dx[None, :] ** 2 < 4.0) & (cols >= col0) & (cols < col0 + cfg.K)
+        r_in, c_in = torch.nonzero(inside, as_tuple=True)
+        cy, cx = float(v[i]) - 0.5, float(u[i]) - 0.5
+        slack = 0.01 + 1e-4 * s_n
+        r_lo, r_hi = max(int(np.ceil(cy - s_n - slack)), 0), min(int(np.floor(cy + s_n + slack)), cfg.R - 1)
+        c_lo = max(int(np.ceil(cx - s_n - slack)), col0, 0)
+        c_hi = min(int(np.floor(cx + s_n + slack)), col0 + cfg.K - 1, 127)
+        assert r_in.numel() and int(r_in.min()) >= r_lo and int(r_in.max()) <= r_hi
+        assert int(c_in.min()) >= c_lo and int(c_in.max()) <= c_hi
+        box = {(r, c) for r in range(r_lo, r_hi + 1) for c in range(c_lo, c_hi + 1)}
+        steps += sum(1 for px_set in cells.values() if px_set & box)
+        warp_steps += -(-len(box) // 32)
+        box_pixels += len(box)
+    assert work["register_lane_evals"] == 32.0 * steps
+    assert work["warp_lane_evals"] == 32.0 * warp_steps
+    assert work["box_pixels"] == box_pixels
+
+
 def test_ptxas_summary_reads_registers_and_spills():
     """Phase 1's per-kernel summary of ``nvcc -Xptxas -v``: every
     instantiation of the named kernel, the most registers and spill bytes

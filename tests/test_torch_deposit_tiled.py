@@ -13,20 +13,28 @@ arrays made from a seed and handed to both. Bounds:
   coordinates with different rounding (XLA on the CPU does not round f32
   division and sqrt as IEEE does; see ``test_torch_deposit.py``).
 
-The CUDA tests need a card and skip here.
+The CUDA tests need a card and skip here. The card's machine has no JAX:
+there they run alone, ``python -m pytest --noconftest -m cuda
+tests/test_torch_deposit_tiled.py``.
 """
 
 import importlib
+from collections import Counter
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from astro_sph_tools_tpu.ops import deposit_pallas as J
-from astro_sph_tools_tpu.ops.deposit import MapSpec as JMapSpec
 from astro_sph_tools_tpu_torch.ops import MapSpec
 from oracles import project_oracle
+
+try:
+    import jax.numpy as jnp
+
+    from astro_sph_tools_tpu.ops import deposit_pallas as J
+    from astro_sph_tools_tpu.ops.deposit import MapSpec as JMapSpec
+except ImportError:  # only the CUDA tests, which need no JAX, can run
+    jnp = J = JMapSpec = None
 
 T = importlib.import_module("astro_sph_tools_tpu_torch.ops.deposit_tiled")
 
@@ -295,6 +303,39 @@ def test_cluster_split_covers_each_item_once(C, group):
         assert int(sizes[t].max() - sizes[t].min()) <= group
 
 
+@pytest.mark.parametrize("C", range(1, 9))
+@pytest.mark.parametrize("li", [2, 3])
+def test_register_pixels_cover_each_pixel_once(li, C):
+    """register_pixels, register_walks and register_warps (mirrored by
+    csrc/deposit2d.cu::deposit2d_register's row pairs, warps, lanes and
+    walks, and deposit2d_launch's block size): at a K >= 32 level every
+    pixel of the R x 128 accumulator, so every pixel of the R x (tx + K)
+    region at the periodic 1024^2 map's and the open map's tile width, is
+    owned by exactly one thread of the tile's C blocks, and each thread's
+    pixels fall in the walks counted, the last walk used; also at an odd
+    row count."""
+    cfg = T.PALLAS_LEVELS[li]
+    for R in (cfg.R, cfg.R + 1):
+        owned = Counter()
+        walks, warps = T.register_walks(R, C), T.register_warps(R, C)
+        assert warps <= 12 and (walks - 1) * warps * C < (R + 1) // 2 <= walks * warps * C
+        used = set()
+        for rank in range(C):
+            for warp in range(warps):
+                for lane in range(32):
+                    for walk, r, c in T.register_pixels(R, C, rank, warp, lane):
+                        assert 0 <= walk < walks
+                        used.add(walk)
+                        owned[r, c] += 1
+        assert set(owned.values()) == {1}
+        assert set(owned) == {(r, c) for r in range(R) for c in range(cfg.S)}
+        for tx in (T._choose_tx(cfg, 1024, True), cfg.default_tx):
+            assert all(owned[r, c] == 1 for r in range(R) for c in range(tx + cfg.K))
+        assert max(used) == walks - 1
+    # the box maps' levels at two blocks a tile: 12 warps, one walk at K = 32, two at K = 64
+    assert (T.register_warps(cfg.R, 2), T.register_walks(cfg.R, 2)) == (12, 1 if cfg.K == 32 else 2)
+
+
 def dense_level_inputs(rng, li, n, n_fields, spec, n_tiles_used=3):
     """Tile-sorted tile-local inputs of level ``li``: ``n`` particles in
     Morton order clustered on a few tiles, tens a pixel, h inside the level."""
@@ -394,22 +435,33 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# the register path's cases on the card: fields, and blocks a tile
+WIDE_FIELDS = (2, 3, 5)
+WIDE_CLUSTERS = (1, 2, 8)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("projection", ["kernel3d", "integrated"])
-def test_cuda_kernel_matches_plain(cuda_device, projection):
-    """(f) the CUDA kernel against its plain version on the card."""
+def test_cuda_kernel_matches_plain(cuda_device, monkeypatch, projection):
+    """(f) the CUDA kernel against its plain version on the card, every
+    level, supports drawn across each level's range; the K >= 32 levels
+    (the register path) at F = 2, 3, 5 and C = 1, 2, 8."""
     rng = np.random.default_rng(71)
     spec = MapSpec(shape=(256, 256), extent=(0.0, BOX, 0.0, BOX), periodic_wrap=True)
-    for li in range(len(T.PALLAS_LEVELS)):
-        geom, tile, u, v, h, vals = level_inputs(rng, li, 20000, 5, spec)
-        args = [a.to(cuda_device) for a in (u, v, h, vals)]
-        pstart, pcount = T._tile_ranges(tile.to(cuda_device), geom.n_tiles)
-        kw = dict(cfg=geom.cfg, kernel="cubic_spline", projection=projection,
-                  psx=BOX / 256, psy=BOX / 256, offset=0.5)
-        got = T.deposit_tiles(*args, pstart, pcount, **kw)
-        ref = T.deposit_tiles_plain(*args, pstart, pcount, **kw)
-        torch.cuda.synchronize()
-        assert rel_err(got.cpu(), ref.cpu()) <= TOL
+    for li, cfg in enumerate(T.PALLAS_LEVELS):
+        wide = cfg.K >= T.REGISTER_MIN_K
+        for n_fields in WIDE_FIELDS if wide else (5,):
+            geom, tile, u, v, h, vals = level_inputs(rng, li, 20000, n_fields, spec)
+            args = [a.to(cuda_device) for a in (u, v, h, vals)]
+            pstart, pcount = T._tile_ranges(tile.to(cuda_device), geom.n_tiles)
+            kw = dict(cfg=geom.cfg, kernel="cubic_spline", projection=projection,
+                      psx=BOX / 256, psy=BOX / 256, offset=0.5)
+            ref = T.deposit_tiles_plain(*args, pstart, pcount, **kw)
+            for C in WIDE_CLUSTERS if wide else (T._CLUSTER,):
+                monkeypatch.setattr(T, "_CLUSTER", C)
+                got = T.deposit_tiles(*args, pstart, pcount, **kw)
+                torch.cuda.synchronize()
+                assert rel_err(got.cpu(), ref.cpu()) <= TOL, (cfg.K, n_fields, C)
 
 
 @pytest.mark.cuda
@@ -418,33 +470,61 @@ def test_cuda_call_moves_launch_counter(cuda_device):
     x, y, h, m = mixed_particles(rng, 5000, 128, h_hi=1.0)
     spec = MapSpec(shape=(128, 128), extent=(0.0, BOX, 0.0, BOX))
     before = T.deposit_tiles.launches
+    register_before = T.deposit_tiles.register_launches
     got = T.deposit_2d_auto(x, y, h, m, spec, device=cuda_device)
     torch.cuda.synchronize()
     tp = T.tile_particles(x, y, h, m, spec, device=cuda_device)
     assert T.deposit_tiles.launches - before == len(tp.geoms) > 0
+    wide = sum(g.cfg.K >= T.REGISTER_MIN_K for g, _, _ in tp.geoms)
+    assert T.deposit_tiles.register_launches - register_before == wide > 0
     ref = T.deposit_2d_auto(x, y, h, m, spec, device=cuda_device, plain=True)
     assert rel_err(got.cpu(), ref.cpu()) <= TOL
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("C", [1, 8])
-@pytest.mark.parametrize("li", [0, 2])
+@pytest.mark.parametrize("C", [1, 2, 8])
+@pytest.mark.parametrize("li", [0, 2, 3])
 def test_cuda_dense_tile_split_matches_plain(cuda_device, monkeypatch, li, C):
-    """(g) a dense tile split over C blocks (and not split) against the
-    plain version on the card, both projections, F = 5 (at K = 32 in two
-    field groups of shared memory at most)."""
+    """(g) a dense tile split over C blocks (and not split) on the card,
+    both projections: at K = 8 the cluster's particle split at F = 5 (in
+    field groups of shared memory) against the plain version; at K >= 32
+    the register path's row split at F = 2, 3 and 5 against the f64 sum of
+    the plain version's terms (``chip_smoke.plain_f64_sum``: a pixel sums
+    thousands of terms there, and the plain version's own f32 sum, with
+    atomics, strays near 1e-5 of the max)."""
+    import chip_smoke
+
     monkeypatch.setattr(T, "_CLUSTER", C)
-    rng = np.random.default_rng(73 + li)
+    wide = T.PALLAS_LEVELS[li].K >= T.REGISTER_MIN_K
     spec = MapSpec(shape=(256, 256), extent=(0.0, BOX, 0.0, BOX), periodic_wrap=True)
-    geom, tile, u, v, h, vals = dense_level_inputs(rng, li, 60000, 5, spec, n_tiles_used=2)
+    rng = np.random.default_rng(73 + li)
+    for n_fields in WIDE_FIELDS if wide else (5,):
+        geom, tile, u, v, h, vals = dense_level_inputs(rng, li, 60000, n_fields, spec, n_tiles_used=2)
+        args = [a.to(cuda_device) for a in (u, v, h, vals)]
+        pstart, pcount = T._tile_ranges(tile.to(cuda_device), geom.n_tiles)
+        for projection in ("kernel3d", "integrated"):
+            kw = dict(cfg=geom.cfg, kernel="cubic_spline", projection=projection,
+                      psx=BOX / 256, psy=BOX / 256, offset=0.5)
+            before = T.deposit_tiles.launches
+            got = T.deposit_tiles(*args, pstart, pcount, **kw)
+            if wide:
+                ref = chip_smoke.plain_f64_sum(torch, T.deposit_tiles_plain, (*args, pstart, pcount), kw)
+            else:
+                ref = T.deposit_tiles_plain(*args, pstart, pcount, **kw)
+            torch.cuda.synchronize()
+            assert T.deposit_tiles.launches == before + 1
+            assert rel_err(got.cpu(), ref.cpu()) <= TOL, (n_fields, projection)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("li", [2, 3])
+def test_cuda_register_path_is_repeatable(cuda_device, li):
+    """A K >= 32 level sums each pixel's terms in the tile's particle order,
+    with no atomics: two launches give the same bits."""
+    rng = np.random.default_rng(77 + li)
+    spec = MapSpec(shape=(256, 256), extent=(0.0, BOX, 0.0, BOX), periodic_wrap=True)
+    geom, tile, u, v, h, vals = dense_level_inputs(rng, li, 60000, 2, spec, n_tiles_used=2)
     args = [a.to(cuda_device) for a in (u, v, h, vals)]
     pstart, pcount = T._tile_ranges(tile.to(cuda_device), geom.n_tiles)
-    for projection in ("kernel3d", "integrated"):
-        kw = dict(cfg=geom.cfg, kernel="cubic_spline", projection=projection,
-                  psx=BOX / 256, psy=BOX / 256, offset=0.5)
-        before = T.deposit_tiles.launches
-        got = T.deposit_tiles(*args, pstart, pcount, **kw)
-        ref = T.deposit_tiles_plain(*args, pstart, pcount, **kw)
-        torch.cuda.synchronize()
-        assert T.deposit_tiles.launches == before + 1
-        assert rel_err(got.cpu(), ref.cpu()) <= TOL
+    kw = dict(cfg=geom.cfg, kernel="wendland_c2", projection="kernel3d", psx=BOX / 256, psy=BOX / 256, offset=0.5)
+    assert torch.equal(T.deposit_tiles(*args, pstart, pcount, **kw), T.deposit_tiles(*args, pstart, pcount, **kw))
