@@ -250,6 +250,13 @@ def _open(name: str, info: BuildInfo) -> ctypes.CDLL:
     return lib
 
 
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise a ``RuntimeError`` naming ``what`` and the CUDA error when a
+    launch through ``lib`` returned a non-zero ``code``."""
+    if code != 0:
+        raise RuntimeError(f"{what} launch failed: {lib.cuda_error_string(code).decode()} ({code})")
+
+
 def load(name: str = "deposit2d") -> tuple[ctypes.CDLL, BuildInfo]:
     """Build ``csrc/<name>.cu`` if needed, load it, and declare its C
     signatures. Cached per process."""

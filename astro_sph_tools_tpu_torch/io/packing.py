@@ -53,7 +53,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
-from ..ops.deposit_tiled import device_const
+from ..ops._device import device_const
 
 __all__ = [
     "PackedParticles",

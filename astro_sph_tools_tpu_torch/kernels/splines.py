@@ -261,3 +261,14 @@ def clenshaw(x: Tensor, coeffs: tuple[float, ...]) -> Tensor:
     for k in range(len(coeffs) - 1, 0, -1):
         b1, b2 = 2.0 * x * b1 - b2 + coeffs[k], b1
     return x * b1 - b2 + coeffs[0]
+
+
+def kernel_weight_q2(q2: Tensor, kernel: str, projection: str) -> Tensor:
+    """Normalised kernel weight at squared normalised distance ``q2``: the
+    kernel's shape at sqrt(q2) for ``"kernel3d"``, its line-integrated
+    Chebyshev fit (0 from q2 = 1) for ``"integrated"``. The plain versions
+    of the tiled 2D deposit kernels evaluate it."""
+    if projection == "integrated":
+        yv = clenshaw(2.0 * torch.clamp(q2, 0.0, 1.0) - 1.0, integrated_kernel_chebyshev(kernel))
+        return torch.where(q2 < 1.0, yv, 0.0)
+    return get_kernel(kernel).shape_q(torch.sqrt(q2))

@@ -7,9 +7,12 @@ periodic-box geometry, cell lists and neighbour queries, ID-matched
 reordering and regular-grid interpolation). As in
 the JAX package, the exported function ``deposit_coherent`` shadows the
 module of the same name: import the module with
-``importlib.import_module("astro_sph_tools_tpu_torch.ops.deposit_coherent")``."""
+``importlib.import_module("astro_sph_tools_tpu_torch.ops.deposit_coherent")``.
+:func:`kernel_counters` is the registry of the CUDA kernel wrappers."""
 
+from . import deposit_wide as _wide
 from .cells import CellList, build_cell_list, linear_cell_id, morton_encode_3d
+from .coherent_prep import prep_rows
 from .deposit import MapSpec, deposit_2d, deposit_2d_fixed_h, deposit_weighted_mean
 from .deposit_coherent import (
     CoherentCaps,
@@ -19,6 +22,8 @@ from .deposit_coherent import (
     deposit_2d_coherent,
     deposit_2d_coherent_fused,
     deposit_coherent,
+    deposit_coherent_tiles,
+    deposit_coherent_windows,
     tile_particles_coherent,
 )
 from .deposit_tiled import (
@@ -41,9 +46,12 @@ from .grid3d_tiled import (
     deposit_3d_auto,
     deposit_3d_pallas,
     deposit_3d_tiled,
+    deposit_3d_tiles,
     tile_particles_3d,
 )
+from .grid3d_wide import deposit_3d_wide
 from .interp import cubic_spline_1d, regular_grid_interpolate
+from .layout_shear import append_gangs
 from .neighbors import (
     knn_distances,
     knn_distances_grid,
@@ -61,7 +69,7 @@ from .periodic import (
 )
 from .reorder import ArrayMapping, ArrayReorder, MatchPlan, match_ids
 from .sightlines import column_integrate, column_integrate_binned, los_profiles
-from .sightlines_fused import column_integrate_pallas
+from .sightlines_fused import column_integrate_pallas, columns_tiles
 from .spectra import (
     absorption_spectra,
     absorption_spectra_binned,
@@ -69,7 +77,18 @@ from .spectra import (
     voigt_damping_kms,
     voigt_hjerting,
 )
-from .spectra_fused import absorption_spectra_pallas
+from .spectra_fused import absorption_spectra_pallas, spectra_tiles
+
+
+def kernel_counters() -> dict:
+    """Every CUDA kernel wrapper of the package by kernel name; each
+    carries ``launches``, the launches it made in this process (the CPU
+    plain versions count none)."""
+    return {"deposit2d": deposit_tiles, "deposit_wide": _wide.deposit_wide, "coherent_prep": prep_rows,
+            "coherent_deposit": deposit_coherent_tiles, "coherent_window": deposit_coherent_windows,
+            "sightline_columns": columns_tiles, "sightline_spectra": spectra_tiles, "deposit3d": deposit_3d_tiles,
+            "deposit3d_wide": deposit_3d_wide, "append_gangs": append_gangs}
+
 
 __all__ = [
     "ArrayMapping",
@@ -126,6 +145,7 @@ __all__ = [
     "deposit_tiles_plain",
     "deposit_weighted_mean",
     "doppler_parameter_kms",
+    "kernel_counters",
     "los_profiles",
     "regular_grid_interpolate",
     "tile_particles",

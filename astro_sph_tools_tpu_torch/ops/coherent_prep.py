@@ -211,8 +211,7 @@ def _prep_rows(x: Tensor, y: Tensor, h: Tensor, values: Tensor, st: _Setup) -> t
             values.stride(0), n_fields, n_rows, packed.data_ptr(), aux.data_ptr(),
             fparams, iparams, torch.cuda.current_stream(dev).cuda_stream,
         )
-    if code != 0:
-        raise RuntimeError(f"row-prep kernel launch failed: {lib.cuda_error_string(code).decode()} ({code})")
+    _build.check(lib, code, "row-prep kernel")
     prep_rows.launches += 1
     return packed, aux
 

@@ -49,22 +49,19 @@ import torch
 from .. import _build
 from ..kernels.splines import get_kernel, integrated_kernel_chebyshev
 from ..utils.profiling import span
+from ._device import as_field_matrix, check_precision, device_const, tile_ranges
 from .deposit import MapSpec
 from .deposit_tiled import (
     PALLAS_LEVELS,
     PallasDepositConfig,
     _CLUSTER,
-    _as_field_matrix,
-    _check_precision,
     _level_geometry,
     _LevelGeometry,
     _multi_level_assign,
     _overlap_add,
     _pixel_coords,
-    _tile_ranges,
     deposit_tiles,
     deposit_tiles_plain,
-    device_const,
 )
 from .deposit_wide import deposit_wide
 
@@ -339,16 +336,6 @@ def _device_inputs(x, y, h, values: Tensor, spec: MapSpec, device):
     return x.contiguous(), y.contiguous(), h.contiguous(), values.contiguous(), n
 
 
-def _field_matrix(values, device) -> tuple[Tensor, bool]:
-    values, single = _as_field_matrix(values, device)
-    if values.shape[0] > _MAX_FIELDS:
-        raise ValueError(
-            "coherent deposit carries at most 4 fields (the key channel uses "
-            "the 8th slot); use the sorted engine for more"
-        )
-    return values, single
-
-
 # ---------------------------------------------------------------------------
 # Tail: gather, sort
 # ---------------------------------------------------------------------------
@@ -445,7 +432,7 @@ def _plain_deposit(packed, cand_tile, cand_row, lane_ok, *, n_fields, n_tiles, c
     pv = packed.reshape(-1)
     u, v, h = (pv[src + c * C] for c in range(3))
     values = torch.stack([pv[src + (3 + f) * C] for f in range(n_fields)])
-    pstart, pcount = _tile_ranges(cand_tile[ci], n_tiles)
+    pstart, pcount = tile_ranges(cand_tile[ci], n_tiles)
     return deposit_tiles_plain(
         u, v, h, values, pstart, pcount, cfg=cfg, kernel=kernel,
         projection=projection, psx=psx, psy=psy, offset=offset,
@@ -503,12 +490,8 @@ def _launch(packed, rows, lane0, start, end, *, window, n_fields, n_tiles, cfg, 
             cheb.data_ptr() if integrated else None, cheb.numel() if integrated else 0,
             C, torch.cuda.current_stream(dev).cuda_stream,
         )
-    if code != 0:
-        branch = f"window kernel at window {window}" if lane0 is not None else "deposit kernel"
-        raise RuntimeError(
-            f"coherent {branch} launch failed with clusters of {C} blocks (F={n_fields}): "
-            f"{lib.cuda_error_string(code).decode()} ({code})"
-        )
+    branch = f"window kernel at window {window}" if lane0 is not None else "deposit kernel"
+    _build.check(lib, code, f"coherent {branch} (clusters of {C} blocks, F={n_fields})")
     return out
 
 
@@ -709,7 +692,7 @@ def tile_particles_coherent(
         device = torch.device(device)
         prep = _resolve_prep(prep, device, window)
         st = _setup(spec, kernel, levels, d_max)
-        values, _ = _field_matrix(values, device)
+        values, _ = as_field_matrix(values, device, _MAX_FIELDS)
         x, y, h, values, n_valid = _device_inputs(x, y, h, values, spec, device)
         n_rows = x.shape[0] // _CHUNK
         n_fields = values.shape[0]
@@ -815,7 +798,7 @@ def deposit_coherent(
     particles through the oversize route (:func:`.deposit_wide.deposit_wide`)
     on the same device.
     Returns (F, ny, nx). ``precision`` is validated; the sums are f32."""
-    _check_precision(precision)
+    check_precision(precision)
     spec = layout.spec
     total = _render(
         layout.packed, layout.cand_tile, layout.cand_row, layout.tail,
@@ -849,8 +832,8 @@ def deposit_2d_coherent(
     in place (no global sort), the rest route through the sorted engine's
     kernel. Correct for any input order; fastest when consecutive particles
     are spatially adjacent. Returns (ny, nx) or (F, ny, nx) on ``device``."""
-    _check_precision(precision)
-    values, single = _field_matrix(values, device)
+    check_precision(precision)
+    values, single = as_field_matrix(values, device, _MAX_FIELDS)
     layout = tile_particles_coherent(
         x, y, h, values, spec, kernel=kernel, d_max=d_max, window=window, prep=prep, device=device
     )
@@ -979,11 +962,11 @@ def deposit_2d_coherent_fused(
     make no copy; constants (bucket bounds, capacities, the Chebyshev table)
     are uploaded once per process and device.
     """
-    _check_precision(precision)
+    check_precision(precision)
     device = torch.device(device)
     prep = _resolve_prep(prep, device)
     st = _setup(spec, kernel, levels, d_max)
-    values, single = _field_matrix(values, device)
+    values, single = as_field_matrix(values, device, _MAX_FIELDS)
     x, y, h, values, _ = _device_inputs(x, y, h, values, spec, device)
     C, nl = _CHUNK, st.n_levels
     n_rows = x.shape[0] // C

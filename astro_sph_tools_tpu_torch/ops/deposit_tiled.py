@@ -46,25 +46,14 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..kernels.splines import clenshaw, get_kernel, integrated_kernel_chebyshev
+from ..kernels.splines import get_kernel, integrated_kernel_chebyshev, kernel_weight_q2
 from ..utils.profiling import span
+from ._device import LEVEL_STRIDE, as_field_matrix, check_precision, device_const, tile_ranges
 from .deposit import MapSpec
 from .deposit_wide import deposit_wide, deposit_wide_plain
+from .layout_shear import shear_tile_sort
 
 Tensor = torch.Tensor
-
-_PRECISIONS = ("f32", "bf16", "bf16x2", "bf16x3")
-
-
-def _check_precision(precision: str) -> str:
-    """Unknown strings must fail loudly (a typo such as 'fp32' must not
-    silently select another mode)."""
-    if precision not in _PRECISIONS:
-        raise ValueError(
-            f"unknown precision {precision!r}; expected one of {_PRECISIONS}"
-        )
-    return precision
-
 
 _LANES = 128  # accumulator width S
 _MAX_FIELDS = 5
@@ -156,22 +145,6 @@ def _level_geometry(cfg: PallasDepositConfig, spec: MapSpec) -> _LevelGeometry:
 # ---------------------------------------------------------------------------
 
 
-def _tile_ranges(tile_sorted: Tensor, n_tiles: int) -> tuple[Tensor, Tensor]:
-    """(pstart, pcount) int32 per tile over a tile-sorted id array."""
-    tile_range = torch.arange(n_tiles, dtype=tile_sorted.dtype, device=tile_sorted.device)
-    pstart = torch.searchsorted(tile_sorted, tile_range)
-    pend = torch.searchsorted(tile_sorted, tile_range, right=True)
-    return pstart.to(torch.int32), (pend - pstart).to(torch.int32)
-
-
-def _weights(q2: Tensor, kernel: str, projection: str) -> Tensor:
-    """Normalised kernel weight at squared normalised distance ``q2``."""
-    if projection == "integrated":
-        yv = clenshaw(2.0 * torch.clamp(q2, 0.0, 1.0) - 1.0, integrated_kernel_chebyshev(kernel))
-        return torch.where(q2 < 1.0, yv, 0.0)
-    return get_kernel(kernel).shape_q(torch.sqrt(q2))
-
-
 def deposit_tiles_plain(
     u: Tensor, v: Tensor, h: Tensor, values: Tensor,
     pstart: Tensor, pcount: Tensor,
@@ -233,7 +206,7 @@ def deposit_tiles_plain(
             col_ok = ((colk >= 0) & (colk < S)).to(torch.float32)
             dxn = (colk.to(torch.float32) + offset - ul[:, None]) * (psx * inv_n)[:, None]
             q2 = (dyn * dyn)[:, :, None] + (dxn * dxn)[:, None, :]  # (P, R, K)
-            w = _weights(q2, kernel, projection) * col_ok[:, None, :]
+            w = kernel_weight_q2(q2, kernel, projection) * col_ok[:, None, :]
             flat = (
                 (t[:, None, None] * (n_fields * R) + rows_i[None, :, None]) * S
                 + torch.clamp(colk, 0, S - 1).to(torch.int64)[:, None, :]
@@ -328,21 +301,6 @@ def register_pixels(R: int, C: int, rank: int, warp: int, lane: int) -> list:
     return pixels
 
 
-_CONSTS: dict = {}
-
-
-def device_const(values: Sequence, dtype: torch.dtype, device) -> Tensor:
-    """A small constant tensor on ``device``, made once per process and
-    reused. A copy from pageable host memory to the device synchronises the
-    host with the device, so a render meant to run without host syncs must
-    not make one per call."""
-    key = (tuple(values), dtype, str(torch.device(device)))
-    t = _CONSTS.get(key)
-    if t is None:
-        t = _CONSTS[key] = torch.tensor(key[0], dtype=dtype, device=device)
-    return t
-
-
 def _check_cuda_inputs(u, v, h, values, pstart, pcount) -> None:
     dev = u.device
     for name, a in (("u", u), ("v", v), ("h", h)):
@@ -424,11 +382,7 @@ def deposit_tiles(
             cheb.data_ptr() if integrated else None, cheb.numel() if integrated else 0,
             C, None if order is None else order.data_ptr(), stream,
         )
-    if code != 0:
-        raise RuntimeError(
-            f"deposit2d kernel launch failed with clusters of {C} blocks (K={cfg.K}, "
-            f"F={values.shape[0]}): {lib.cuda_error_string(code).decode()} ({code})"
-        )
+    _build.check(lib, code, f"deposit2d kernel (clusters of {C} blocks, K={cfg.K}, F={values.shape[0]})")
     deposit_tiles.launches += 1
     if cfg.K >= REGISTER_MIN_K:
         deposit_tiles.register_launches += 1
@@ -508,7 +462,7 @@ def _render_level(
     """(F, ny, nx) image of one level's tile-sorted segment."""
     ny, nx = spec.shape
     x0, x1, y0, y1 = spec.extent
-    pstart, pcount = _tile_ranges(tile, geom.n_tiles)
+    pstart, pcount = tile_ranges(tile, geom.n_tiles)
     tiles = (deposit_tiles_plain if plain else deposit_tiles)(
         u, v, h, values, pstart, pcount, cfg=geom.cfg, kernel=kernel,
         projection=projection, psx=(x1 - x0) / nx, psy=(y1 - y0) / ny,
@@ -531,18 +485,6 @@ def _is_host_f64(x) -> bool:
 
 def _is_f64(x) -> bool:
     return _is_host_f64(x) or (isinstance(x, Tensor) and x.dtype == torch.float64)
-
-
-def _as_field_matrix(values, device) -> tuple[Tensor, bool]:
-    if not isinstance(values, Tensor):
-        values = np.asarray(values)
-    values = torch.as_tensor(values, dtype=torch.float32, device=device)
-    single = values.ndim == 1
-    if single:
-        values = values[None, :]
-    if values.shape[0] > _MAX_FIELDS:
-        raise ValueError(f"the tiled deposit supports at most {_MAX_FIELDS} fields per pass")
-    return values.contiguous(), single
 
 
 def _coords(x, y, device) -> tuple[Tensor, Tensor]:
@@ -598,14 +540,14 @@ def _on_host_f64(x: Tensor) -> bool:
 
 
 def _assign_keys(xs: Tensor, ys: Tensor, h: Tensor, spec: MapSpec, support_factor: float, bounds, geom_tuples):
-    """(composite key level * _LEVEL_STRIDE + tile, tile-local f32 u, v) per
+    """(composite key level * LEVEL_STRIDE + tile, tile-local f32 u, v) per
     particle, in the dtype and on the device of ``xs``: the plain version
     of the native host assignment (:func:`_native_assign`)."""
     # s_pix from the f32 smoothing lengths, in the coordinates' precision
     s_pix = support_factor * h.to(xs.device, xs.dtype) / min(spec.pixel_size)
     u, v = _pixel_coords(xs, ys, spec)
     level, tile, u_loc, v_loc = _multi_level_assign(u, v, s_pix, bounds, *geom_tuples)
-    return level * _LEVEL_STRIDE + tile, u_loc.to(torch.float32), v_loc.to(torch.float32)
+    return level * LEVEL_STRIDE + tile, u_loc.to(torch.float32), v_loc.to(torch.float32)
 
 
 def _native_assign(xs: Tensor, ys: Tensor, h: Tensor, spec: MapSpec, support_factor: float, bounds, geom_tuples):
@@ -620,7 +562,7 @@ def _native_assign(xs: Tensor, ys: Tensor, h: Tensor, spec: MapSpec, support_fac
         xs.numpy(), ys.numpy(), h.to("cpu", torch.float32).numpy(),
         x0=x0, y0=y0, psx=(x1 - x0) / nx, psy=(y1 - y0) / ny, nx=nx, ny=ny,
         periodic=spec.periodic_wrap, support_factor=support_factor,
-        bounds=bounds, ntx=ntx, nty=nty, tw=tx, th=ty, marg=marg, stride=_LEVEL_STRIDE,
+        bounds=bounds, ntx=ntx, nty=nty, tw=tx, th=ty, marg=marg, stride=LEVEL_STRIDE,
     )
     return torch.from_numpy(key), torch.from_numpy(u_loc), torch.from_numpy(v_loc)
 
@@ -674,10 +616,10 @@ def deposit_2d_pallas(
     (F, ny, nx) on ``device``.
     """
     cfg = level or PALLAS_LEVELS[0]
-    _check_precision(precision)
+    check_precision(precision)
     get_kernel(kernel)
     device = torch.device(device)
-    values, single = _as_field_matrix(values, device)
+    values, single = as_field_matrix(values, device, _MAX_FIELDS)
     geom, *layout = _level_layout(x, y, h, values, spec, cfg, device)
     img = _render_level(geom, spec, kernel, projection, *layout)
     return img[0] if single else img
@@ -698,9 +640,6 @@ def _level_layout(x, y, h, values: Tensor, spec: MapSpec, cfg: PallasDepositConf
 # ---------------------------------------------------------------------------
 # Multi-level layout (TiledParticles)
 # ---------------------------------------------------------------------------
-
-_LEVEL_STRIDE = 1 << 22  # composite sort key: level * STRIDE + tile_id
-
 
 @dataclass(frozen=True)
 class TiledParticles:
@@ -737,7 +676,7 @@ class TiledParticles:
                 "layout was built with need_perm=False; rebuild with "
                 "tile_particles(..., need_perm=True) to re-render new fields"
             )
-        values, _ = _as_field_matrix(values, self.sorted_values.device)
+        values, _ = as_field_matrix(values, self.sorted_values.device, _MAX_FIELDS)
         n = values.shape[1]
         if n != self.n_valid:
             raise ValueError(f"expected {self.n_valid} per-particle values, got {n}")
@@ -762,13 +701,13 @@ def _level_geometries(spec: MapSpec, levels) -> list[Optional[_LevelGeometry]]:
             geoms.append(_level_geometry(cfg, spec))
         except ValueError:
             geoms.append(None)
-    # composite sort keys are level * _LEVEL_STRIDE + tile: a level whose
+    # composite sort keys are level * LEVEL_STRIDE + tile: a level whose
     # tile count reaches the stride would alias into the next level's keys
     for g in geoms:
-        if g is not None and g.n_tiles >= _LEVEL_STRIDE:
+        if g is not None and g.n_tiles >= LEVEL_STRIDE:
             raise ValueError(
                 f"{g.n_tiles} tiles at the K={g.cfg.K} level exceed the "
-                f"composite-key stride ({_LEVEL_STRIDE}); render this map "
+                f"composite-key stride ({LEVEL_STRIDE}); render this map "
                 "in sub-extents (the adaptive tile layout caps at "
                 "2^22 tiles per level)"
             )
@@ -819,18 +758,16 @@ def tile_particles(
             raise ValueError(f"unknown layout {layout!r}; expected 'auto', 'sort' or 'shear'")
         kspec = get_kernel(kernel)
         device = torch.device(device)
-        values, _ = _as_field_matrix(values, device)
+        values, _ = as_field_matrix(values, device, _MAX_FIELDS)
         geoms, bounds, geom_tuples = _assign_setup(spec, levels)
         xs, ys = _coords(x, y, device)
         h = torch.as_tensor(h if isinstance(h, Tensor) else np.asarray(h), dtype=torch.float32)
         n_valid = int(h.shape[0])
         if layout == "shear" and xs.dtype != torch.float64:
-            from .layout_shear import shear_tile_sort  # late import: it imports this module
-
             assign, level_n_tiles = _shear_assign(spec, kspec.support_factor, geoms, bounds, geom_tuples)
             s_tile, su, sv, sh, s_values, perm, counts = shear_tile_sort(
                 None, None, None, h.to(device), values, raw_xy=(xs, ys), assign=assign,
-                level_stride=_LEVEL_STRIDE, level_n_tiles=level_n_tiles,
+                level_stride=LEVEL_STRIDE, level_n_tiles=level_n_tiles,
                 n_fields=values.shape[0], need_perm=need_perm, n_valid=n_valid,
             )
             # the counts include the interleaved pad slots: the data region is
@@ -851,10 +788,10 @@ def tile_particles(
             del u_loc, v_loc
             sh = h.to(device)[perm]
             s_values = values[:, perm].contiguous()
-            lv = torch.arange(len(geoms) + 2, dtype=sorted_key.dtype, device=device) * _LEVEL_STRIDE
+            lv = torch.arange(len(geoms) + 2, dtype=sorted_key.dtype, device=device) * LEVEL_STRIDE
             starts = torch.searchsorted(sorted_key, lv).tolist()  # host sync: a few ints
             counts = [starts[i + 1] - starts[i] for i in range(len(geoms) + 1)]
-            s_tile = torch.remainder(sorted_key, _LEVEL_STRIDE).to(torch.int32)
+            s_tile = torch.remainder(sorted_key, LEVEL_STRIDE).to(torch.int32)
             perm = perm if need_perm else None
 
         level_meta = []
@@ -950,7 +887,7 @@ def deposit_tiled(
     on any device: the reference the kernels are checked against on the
     card.
     """
-    _check_precision(precision)
+    check_precision(precision)
     ny, nx = tp.spec.shape
     dev = tp.sorted_u.device
     total = torch.zeros((tp.n_fields, ny, nx), dtype=torch.float32, device=dev)
@@ -1000,8 +937,8 @@ def deposit_2d_auto(
     """
     if precision is None:
         precision = "bf16x3" if _is_f64(x) else "bf16x2"
-    _check_precision(precision)
-    values, single = _as_field_matrix(values, device)
+    check_precision(precision)
+    values, single = as_field_matrix(values, device, _MAX_FIELDS)
     tp = tile_particles(x, y, h, values, spec, kernel=kernel, device=device)
     total = deposit_tiled(tp, precision=precision, projection=projection, plain=plain)
     return total[0] if single else total

@@ -29,8 +29,9 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from ..kernels.splines import get_kernel, integrated_kernel_chebyshev
+from ..kernels.splines import get_kernel, integrated_kernel_chebyshev, kernel_weight_q2
 from ..utils.profiling import count
+from ._device import device_const
 from .deposit import MapSpec, deposit_2d
 
 Tensor = torch.Tensor
@@ -152,8 +153,6 @@ def deposit_lists_plain(geo: Tensor, scale: Tensor, values: Tensor, starts: Tens
     kernel's normalised offsets, minimum image and support test, added into
     ``out`` (F, ny, nx). Evaluates every (entry, tile pixel) pair in blocks
     of ~2^22."""
-    from .deposit_tiled import _weights  # late import: deposit_tiled imports this module
-
     ny, nx = spec.shape
     ntx, _ = tile_grid(spec)
     off = spec.sample_offset
@@ -176,7 +175,7 @@ def deposit_lists_plain(geo: Tensor, scale: Tensor, values: Tensor, starts: Tens
         dxn = dx * geo[p, 2, None]
         dyn = dy * geo[p, 3, None]
         q2 = (dyn * dyn)[:, :, None] + (dxn * dxn)[:, None, :]  # (E, rows, cols)
-        w = torch.where(q2 < lim2, _weights(q2, kernel, projection), 0.0)
+        w = torch.where(q2 < lim2, kernel_weight_q2(q2, kernel, projection), 0.0)
         inside = (row < ny)[:, :, None] & (col < nx)[:, None, :]
         w = torch.where(inside, w, 0.0)
         flat = (torch.clamp(row, max=ny - 1)[:, :, None] * nx + torch.clamp(col, max=nx - 1)[:, None, :]).reshape(-1)
@@ -200,11 +199,6 @@ def deposit_wide_plain(u: Tensor, v: Tensor, h: Tensor, values: Tensor, spec: Ma
     return out
 
 
-def _launch_check(lib, code: int, what: str) -> None:
-    if code != 0:
-        raise RuntimeError(f"deposit_wide {what} launch failed: {lib.cuda_error_string(code).decode()} ({code})")
-
-
 def _bin_counts(geo: Tensor, lim2: float, spec: MapSpec, plain: bool) -> Tensor:
     if plain:
         return tile_counts_plain(geo, lim2, spec)
@@ -215,7 +209,7 @@ def _bin_counts(geo: Tensor, lim2: float, spec: MapSpec, plain: bool) -> Tensor:
     code = lib.wide_bin_launch(geo.data_ptr(), geo.shape[0], nx, ny, float(spec.sample_offset),
                                int(spec.periodic_wrap), float(lim2), counts.data_ptr(), None, None,
                                torch.cuda.current_stream(geo.device).cuda_stream)
-    _launch_check(lib, code, "binning count")
+    _build.check(lib, code, "deposit_wide binning count")
     deposit_wide.launches += 1
     return counts
 
@@ -229,7 +223,7 @@ def _bin_lists(geo: Tensor, lim2: float, spec: MapSpec, starts: Tensor, total: i
     code = lib.wide_bin_launch(geo.data_ptr(), geo.shape[0], nx, ny, float(spec.sample_offset),
                                int(spec.periodic_wrap), float(lim2), None, starts.data_ptr(), lists.data_ptr(),
                                torch.cuda.current_stream(geo.device).cuda_stream)
-    _launch_check(lib, code, "binning fill")
+    _build.check(lib, code, "deposit_wide binning fill")
     deposit_wide.launches += 1
     return lists
 
@@ -239,8 +233,6 @@ def _deposit(geo, scale, values, starts, lists, spec, *, kernel, projection, lim
         deposit_lists_plain(geo, scale, values, starts, lists, spec, kernel=kernel, projection=projection,
                             lim2=lim2, out=out)
         return
-    from .deposit_tiled import device_const  # late import: deposit_tiled imports this module
-
     ny, nx = spec.shape
     kspec = get_kernel(kernel)
     integrated = projection == "integrated"
@@ -253,7 +245,7 @@ def _deposit(geo, scale, values, starts, lists, spec, *, kernel, projection, lim
         cheb.data_ptr() if integrated else None, cheb.numel() if integrated else 0, CLUSTER,
         torch.cuda.current_stream(geo.device).cuda_stream,
     )
-    _launch_check(lib, code, f"deposit (clusters of {CLUSTER} blocks)")
+    _build.check(lib, code, f"deposit_wide deposit (clusters of {CLUSTER} blocks)")
     deposit_wide.launches += 1
 
 

@@ -50,23 +50,24 @@ import torch
 from .. import _build
 from ..kernels.splines import get_kernel
 from ..utils.profiling import span
-from .deposit_tiled import _LEVEL_STRIDE, _tile_ranges, device_const
+from ._device import (
+    LEVEL_STRIDE,
+    PRECISIONS_3D,
+    as_f32,
+    as_field_matrix,
+    check_precision,
+    device_const,
+    tile_ranges,
+)
 from .grid3d import GridSpec, _per_axis
 from .grid3d_wide import deposit_3d_wide
 
 Tensor = torch.Tensor
 
-_PRECISIONS_3D = ("f32", "bf16", "bf16x2")
 _MAX_FIELDS_3D = 4
 # candidates of one output region that one thread block takes: a denser
 # region is shared by several blocks, which add their sums with atomics
 _REGION_CANDIDATES = 8192
-
-
-def _check_precision_3d(precision: str) -> str:
-    if precision not in _PRECISIONS_3D:
-        raise ValueError(f"unknown precision {precision!r}; expected f32 | bf16 | bf16x2")
-    return precision
 
 
 @dataclass(frozen=True)
@@ -127,12 +128,12 @@ def _geometry_3d(cfg: Pallas3DConfig, shape) -> _Geometry3D:
         nty=-(-ny // cfg.TY),
         ntz=-(-nz // cfg.TZ),
     )
-    # composite sort keys are level * _LEVEL_STRIDE + tile: a level whose
+    # composite sort keys are level * LEVEL_STRIDE + tile: a level whose
     # tile count reaches the stride would alias into the next level's keys
-    if g.n_tiles >= _LEVEL_STRIDE:
+    if g.n_tiles >= LEVEL_STRIDE:
         raise ValueError(
             f"{g.n_tiles} tiles at the K={cfg.K} level exceed the "
-            f"composite-key stride ({_LEVEL_STRIDE}); grid the cube in sub-extents"
+            f"composite-key stride ({LEVEL_STRIDE}); grid the cube in sub-extents"
         )
     return g
 
@@ -401,8 +402,7 @@ def deposit_3d_tiles(
             kspec.kernel_id, float(kspec.norm_3d), float(kspec.support_factor),
             stream,
         )
-    if code != 0:
-        raise RuntimeError(f"deposit3d kernel launch failed: {lib.cuda_error_string(code).decode()} ({code})")
+    _build.check(lib, code, "deposit3d kernel")
     deposit_3d_tiles.launches += 1
     return grid
 
@@ -416,22 +416,6 @@ deposit_3d_tiles.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def _as_field_matrix_3d(values, device) -> tuple[Tensor, bool]:
-    if not isinstance(values, Tensor):
-        values = np.asarray(values)
-    values = torch.as_tensor(values, dtype=torch.float32, device=device)
-    single = values.ndim == 1
-    if single:
-        values = values[None, :]
-    if values.shape[0] > _MAX_FIELDS_3D:
-        raise ValueError("3D pallas deposit supports at most 4 fields per pass")
-    return values.contiguous(), single
-
-
-def _f32(a, device) -> Tensor:
-    return torch.as_tensor(a if isinstance(a, Tensor) else np.asarray(a), dtype=torch.float32, device=device)
-
-
 def _placement_coords(pos, device) -> Tensor:
     """Positions for the level/tile assignment on ``device``: f64 input
     (NumPy or tensor) stays f64, so the tile-local f32 voxel coordinates
@@ -442,7 +426,7 @@ def _placement_coords(pos, device) -> Tensor:
         isinstance(pos, np.ndarray) and pos.dtype == np.float64
     ):
         return torch.as_tensor(pos, device=device)
-    return _f32(pos, device)
+    return as_f32(pos, device)
 
 
 def _voxel_coords(pos: Tensor, spec: GridSpec) -> tuple[Tensor, Tensor, Tensor]:
@@ -513,18 +497,18 @@ def deposit_3d_pallas(
     level.max_s_vox``); use :func:`deposit_3d_auto` for mixed footprints.
     """
     cfg = level or PALLAS_3D_LEVELS[0]
-    _check_precision_3d(precision)
+    check_precision(precision, PRECISIONS_3D)
     get_kernel(kernel)
     device = torch.device(device)
     geom = _geometry_3d(cfg, spec.shape)
-    values, single = _as_field_matrix_3d(values, device)
-    u, v, w = _voxel_coords(_f32(pos, device), spec)
+    values, single = as_field_matrix(values, device, _MAX_FIELDS_3D)
+    u, v, w = _voxel_coords(as_f32(pos, device), spec)
     _, tile, u_loc, v_loc, w_loc = _multi_level_assign_3d(u, v, w, torch.zeros_like(u), (np.inf,), (geom,))
     tile_sorted, perm = torch.sort(tile, stable=True)
-    pstart, pcount = _tile_ranges(tile_sorted, geom.n_tiles)
+    pstart, pcount = tile_ranges(tile_sorted, geom.n_tiles)
     grid = torch.zeros((values.shape[0], *spec.shape), dtype=torch.float32, device=device)
     deposit_3d_tiles(
-        u_loc[perm], v_loc[perm], w_loc[perm], _f32(h, device)[perm], values[:, perm].contiguous(),
+        u_loc[perm], v_loc[perm], w_loc[perm], as_f32(h, device)[perm], values[:, perm].contiguous(),
         pstart, pcount, grid, **_level_args(geom, spec, kernel),
     )
     return grid[0] if single else grid
@@ -573,16 +557,16 @@ def tile_particles_3d(
     with span("layout.grid3d") as sp:
         kspec = get_kernel(kernel)
         device = torch.device(device)
-        values, _ = _as_field_matrix_3d(values, device)
+        values, _ = as_field_matrix(values, device, _MAX_FIELDS_3D)
         geoms = [_geometry_3d(cfg, spec.shape) for cfg in levels]
         bounds = tuple(g.cfg.max_s_vox for g in geoms)
         pos = _placement_coords(pos, device)
-        h = _f32(h, device)
+        h = as_f32(h, device)
         n_valid = int(h.shape[0])
         u, v, w = _voxel_coords(pos, spec)
         s_vox = kspec.support_factor * h / min(spec.voxel_size)
         level, tile, u_loc, v_loc, w_loc = _multi_level_assign_3d(u, v, w, s_vox, bounds, geoms)
-        key = level * _LEVEL_STRIDE + tile
+        key = level * LEVEL_STRIDE + tile
         del u, v, w, s_vox, level, tile
 
         sorted_key, perm = torch.sort(key, stable=True)
@@ -591,10 +575,10 @@ def tile_particles_3d(
         del u_loc, v_loc, w_loc
         sh = h[perm]
         s_values = values[:, perm].contiguous()
-        lv = torch.arange(len(geoms) + 2, dtype=sorted_key.dtype, device=device) * _LEVEL_STRIDE
+        lv = torch.arange(len(geoms) + 2, dtype=sorted_key.dtype, device=device) * LEVEL_STRIDE
         starts = torch.searchsorted(sorted_key, lv).tolist()  # host sync: a few ints
         counts = [starts[i + 1] - starts[i] for i in range(len(geoms) + 1)]
-        s_tile = torch.remainder(sorted_key, _LEVEL_STRIDE).to(torch.int32)
+        s_tile = torch.remainder(sorted_key, LEVEL_STRIDE).to(torch.int32)
 
         level_meta = []
         lo = 0
@@ -623,7 +607,7 @@ def deposit_3d_tiled(
     (:func:`.grid3d_wide.deposit_3d_wide`, span ``deposit3d.oversize``) on
     the same device. ``precision`` is validated; the sums are f32
     throughout."""
-    _check_precision_3d(precision)
+    check_precision(precision, PRECISIONS_3D)
     nz, ny, nx = tp.spec.shape
     dev = tp.sorted_u.device
     grid = torch.zeros((tp.n_fields, nz, ny, nx), dtype=torch.float32, device=dev)
@@ -631,7 +615,7 @@ def deposit_3d_tiled(
     with span("deposit3d.levels", particles=sum(count for _, _, count in tp.geoms)) as sp:
         for geom, lo, count in tp.geoms:
             sl = slice(lo, lo + count)
-            pstart, pcount = _tile_ranges(tp.sorted_tile[sl], geom.n_tiles)
+            pstart, pcount = tile_ranges(tp.sorted_tile[sl], geom.n_tiles)
             deposit_3d_tiles(
                 tp.sorted_u[sl], tp.sorted_v[sl], tp.sorted_w[sl], tp.sorted_h[sl],
                 tp.sorted_values[:, sl], pstart, pcount, grid,
@@ -660,8 +644,8 @@ def deposit_3d_auto(
     launch per populated footprint level, oversize stragglers routed to the
     oversize route. ``values`` is (N,) or (F, N), F <= 4. Returns
     (nz, ny, nx) or (F, nz, ny, nx) on ``device``."""
-    _check_precision_3d(precision)
-    values, single = _as_field_matrix_3d(values, device)
+    check_precision(precision, PRECISIONS_3D)
+    values, single = as_field_matrix(values, device, _MAX_FIELDS_3D)
     tp = tile_particles_3d(pos, h, values, spec, kernel=kernel, device=device)
     total = deposit_3d_tiled(tp, precision=precision)
     return total[0] if single else total

@@ -213,8 +213,7 @@ def _deposit(u, v, w, h, values, starts, lists, spec: GridSpec, *, kernel: str, 
         kspec.kernel_id, float(kspec.norm_3d), float(kspec.support_factor), out.data_ptr(),
         torch.cuda.current_stream(u.device).cuda_stream,
     )
-    if code != 0:
-        raise RuntimeError(f"deposit3d_wide launch failed: {lib.cuda_error_string(code).decode()} ({code})")
+    _build.check(lib, code, "deposit3d_wide")
     deposit_3d_wide.launches += 1
 
 

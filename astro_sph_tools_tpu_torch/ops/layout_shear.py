@@ -45,8 +45,8 @@ import numpy as np
 import torch
 
 from .. import _build
+from ._device import as_f32, as_field_matrix, check_precision, device_const
 from .deposit import MapSpec
-from .deposit_tiled import _check_precision, device_const
 
 Tensor = torch.Tensor
 
@@ -217,8 +217,7 @@ def append_gangs(gangs: Tensor, sched: Tensor, n_dest: int) -> Tensor:
             gangs.data_ptr(), dest.data_ptr(), sched.data_ptr(), sched.shape[0], gangs.shape[1],
             _team_log2(n_dest, sched.shape[0], gangs.shape[1]), torch.cuda.current_stream(dev).cuda_stream,
         )
-    if code != 0:
-        raise RuntimeError(f"gang append kernel launch failed: {lib.cuda_error_string(code).decode()} ({code})")
+    _build.check(lib, code, "gang append kernel")
     append_gangs.launches += 1
     return dest
 
@@ -420,19 +419,6 @@ def _cached_coarse_assign(extent, periodic, n_cx, n_cy):
     return assign
 
 
-def _as_fields(values, device) -> tuple[Tensor, bool]:
-    values = torch.as_tensor(
-        values if isinstance(values, Tensor) else np.asarray(values), dtype=torch.float32, device=device
-    )
-    if values.ndim == 1:
-        return values[None, :], True
-    return values, False
-
-
-def _f32(a, device) -> Tensor:
-    return torch.as_tensor(a if isinstance(a, Tensor) else np.asarray(a), dtype=torch.float32, device=device)
-
-
 def shear_coarse_group(
     x, y, h, values, spec: MapSpec, *,
     n_cy: int = 128, n_cx: int = 2, donate: bool = False,
@@ -450,14 +436,14 @@ def shear_coarse_group(
     signature and ignored: the caller's tensors are never freed.
     """
     device = torch.device(device)
-    values, _ = _as_fields(values, device)
+    values, _ = as_field_matrix(values, device)
     n_fields = values.shape[0]
     if 3 + n_fields > _MAX_CHANNELS:
         raise ValueError("coarse grouping carries at most 5 fields")
     assign = _cached_coarse_assign(
         tuple(float(e) for e in spec.extent), bool(spec.periodic_wrap), n_cx, n_cy,
     )
-    ops = [_f32(x, device), _f32(y, device), _f32(h, device)] + [values[f] for f in range(n_fields)]
+    ops = [as_f32(x, device), as_f32(y, device), as_f32(h, device)] + [values[f] for f in range(n_fields)]
     (gangs, src_gang, head, ngang, cum_ngang, cnt, cum_nsub,
      _, n_gang_total, n_sub_total) = _shear_stage_a(ops, n_keys=n_cy * n_cx, assign=assign)
     del ops
@@ -485,9 +471,9 @@ def deposit_2d_bucketed(
     """
     from .deposit_coherent import deposit_2d_coherent
 
-    _check_precision(precision)
+    check_precision(precision)
     device = torch.device(device)
-    values, single = _as_fields(values, device)
+    values, single = as_field_matrix(values, device)
     gx, gy, gh, gv = shear_coarse_group(x, y, h, values, spec, device=device)
     total = deposit_2d_coherent(
         gx, gy, gh, gv, spec, kernel=kernel, precision=precision, projection=projection, device=device,

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..kernels.splines import get_kernel, integrated_kernel_lookup, integrated_kernel_table
+from ._device import as_f32
 
 Tensor = torch.Tensor
 
@@ -44,15 +45,9 @@ def _block_elems(device: torch.device) -> int:
     return 1 << (22 if device.type == "cpu" else 25)
 
 
-def _f32(a, device) -> Tensor:
-    if not isinstance(a, Tensor):
-        a = np.asarray(a)
-    return torch.as_tensor(a, dtype=torch.float32, device=device)
-
-
 def _field_matrix(values, device) -> tuple[Tensor, bool]:
     """(N, F) f32 values on ``device`` and whether the input was 1-D."""
-    values = _f32(values, device)
+    values = as_f32(values, device)
     single = values.ndim == 1
     return (values[:, None] if single else values), single
 
@@ -95,9 +90,9 @@ def column_integrate(
     """
     device = torch.device(device)
     kspec = get_kernel(kernel)
-    x, y, h = _f32(x, device), _f32(y, device), _f32(h, device)
+    x, y, h = as_f32(x, device), as_f32(y, device), as_f32(h, device)
     values, single = _field_matrix(values, device)
-    rx, ry = _f32(ray_x, device), _f32(ray_y, device)
+    rx, ry = as_f32(ray_x, device), as_f32(ray_y, device)
     lut = _lut(kernel, projection, device)
     n, n_rays = x.shape[0], rx.shape[0]
     totals = torch.zeros((values.shape[1], n_rays), dtype=torch.float32, device=device)
@@ -138,10 +133,10 @@ def los_profiles(
     device = torch.device(device)
     kspec = get_kernel(kernel)
     S = kspec.support_factor
-    pos = _f32(pos, device)
-    h = _f32(h, device)
+    pos = as_f32(pos, device)
+    h = as_f32(h, device)
     values, single = _field_matrix(values, device)
-    rx, ry = _f32(ray_x, device), _f32(ray_y, device)
+    rx, ry = as_f32(ray_x, device), as_f32(ray_y, device)
     z_edges = torch.linspace(z_range[0], z_range[1], n_bins + 1, dtype=torch.float32, device=device)
     zc = 0.5 * (z_edges[:-1] + z_edges[1:])
     R, F, n = rx.shape[0], values.shape[1], pos.shape[0]

@@ -45,8 +45,8 @@ import torch
 
 from .. import _build
 from ..kernels.splines import clenshaw, get_kernel, integrated_kernel_chebyshev
-from .deposit_tiled import device_const
-from .sightlines import _f32, _host
+from ._device import as_f32, device_const
+from .sightlines import _host
 
 Tensor = torch.Tensor
 
@@ -595,10 +595,7 @@ def columns_tiles(
             cheb.data_ptr() if integrated else None, cheb.numel() if integrated else 0,
             stream,
         )
-    if code != 0:
-        raise RuntimeError(
-            f"sightline columns kernel launch failed: {lib.cuda_error_string(code).decode()} ({code})"
-        )
+    _build.check(lib, code, "sightline columns kernel")
     columns_tiles.launches += 1
     return out
 
@@ -660,14 +657,14 @@ def column_integrate_pallas(
 def _columns_layout(x, y, h, values, ray_x, ray_y, *, kernel: str, periodic_box, device):
     """(ColumnLayout or None, n_fields, single) of a columns pass on
     ``device``; None when there is no particle."""
-    values = _f32(values, device)
+    values = as_f32(values, device)
     single = values.ndim == 1
     if single:
         values = values[:, None]
     n_fields = values.shape[1]
     if n_fields > _MAX_FIELDS:
         raise ValueError(f"the fused sightline engine supports at most {_MAX_FIELDS} fields per pass")
-    x, y, h = _f32(x, device), _f32(y, device), _f32(h, device)
+    x, y, h = as_f32(x, device), as_f32(y, device), as_f32(h, device)
     if h.shape[0] == 0:
         return None, n_fields, single
     S = get_kernel(kernel).support_factor

@@ -35,7 +35,8 @@ import torch
 
 from .. import constants as C
 from ..kernels.splines import get_kernel, integrated_kernel_table
-from .sightlines import _binned_domain, _binned_levels, _block_elems, _column_weights, _f32, _host, _min_image
+from ._device import as_f32
+from .sightlines import _binned_domain, _binned_levels, _block_elems, _column_weights, _host, _min_image
 
 Tensor = torch.Tensor
 
@@ -180,7 +181,7 @@ def _spectra_inputs(pos, h, values, velocities_los, temperatures, *, cosmology, 
     v_box = float(box_size * dv_dx) if (box_size is not None and dv_dx > 0) else None
     if isinstance(pos, Tensor):
         pos = pos.to(device)
-        v_pec = _f32(velocities_los, device)
+        v_pec = as_f32(velocities_los, device)
         temp = torch.as_tensor(temperatures, device=device)
         v_eff = (pos[:, 2] * dv_dx + v_pec).float()
         b_dopp = torch.clamp_min(doppler_parameter_kms(temp, atomic_weight), 1e-3).float()
@@ -188,11 +189,11 @@ def _spectra_inputs(pos, h, values, velocities_los, temperatures, *, cosmology, 
         pos = np.asarray(pos)
         v_pec = np.asarray(_host(velocities_los, np.float32))
         temp = _host(temperatures, None)
-        v_eff = _f32((pos[:, 2] * dv_dx + v_pec).astype(np.float32), device)
-        b_dopp = _f32(np.maximum(doppler_parameter_kms(temp, atomic_weight), 1e-3).astype(np.float32), device)
-    x, y = _f32(pos[:, 0], device), _f32(pos[:, 1], device)
-    h = _f32(h, device)
-    col = _f32(values, device)
+        v_eff = as_f32((pos[:, 2] * dv_dx + v_pec).astype(np.float32), device)
+        b_dopp = as_f32(np.maximum(doppler_parameter_kms(temp, atomic_weight), 1e-3).astype(np.float32), device)
+    x, y = as_f32(pos[:, 0], device), as_f32(pos[:, 1], device)
+    h = as_f32(h, device)
+    col = as_f32(values, device)
     if v_box is not None:
         v_edges = np.linspace(0.0, v_box, n_bins + 1)
     else:
@@ -268,7 +269,7 @@ def absorption_spectra(
     kspec = get_kernel(kernel)
     lut = torch.as_tensor(integrated_kernel_table(kernel), dtype=torch.float32, device=device)
     vc = torch.as_tensor(v_centres, device=device)
-    rx, ry = _f32(ray_x, device), _f32(ray_y, device)
+    rx, ry = as_f32(ray_x, device), as_f32(ray_y, device)
     n_rays, n = rx.shape[0], x.shape[0]
     box = float(box_size) if periodic else None
     vbox = v_box if periodic else None

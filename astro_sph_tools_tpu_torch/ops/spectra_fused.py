@@ -29,7 +29,7 @@ import torch
 
 from .. import _build
 from ..kernels.splines import clenshaw, get_kernel, integrated_kernel_chebyshev
-from .deposit_tiled import device_const
+from ._device import device_const
 from .sightlines_fused import (
     _RAY_BATCH,
     _check_layout,
@@ -268,10 +268,7 @@ def spectra_tiles(
             int(profile == "voigt"), float(voigt_k),
             stream,
         )
-    if code != 0:
-        raise RuntimeError(
-            f"sightline spectra kernel launch failed: {lib.cuda_error_string(code).decode()} ({code})"
-        )
+    _build.check(lib, code, "sightline spectra kernel")
     spectra_tiles.launches += 1
     return out
 

@@ -30,17 +30,18 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ops._device import as_field_matrix, check_precision
 from ..ops.deposit import MapSpec
 from ..ops.deposit_coherent import (
     _CHUNK,
     _D_MAX,
+    _MAX_FIELDS,
     CoherentCaps,
-    _field_matrix,
     deposit_2d_coherent_fused,
     deposit_coherent,
     tile_particles_coherent,
 )
-from ..ops.deposit_tiled import PALLAS_LEVELS, _check_precision
+from ..ops.deposit_tiled import PALLAS_LEVELS
 from ._comm import all_reduce_
 from .mesh import Mesh
 
@@ -104,9 +105,9 @@ def deposit_2d_coherent_sharded(
     does (one ``all_reduce`` of both flags comes first). ``precision`` is
     validated; the sums are f32.
     """
-    _check_precision(precision)
+    check_precision(precision)
     device = mesh.device
-    values, single = _field_matrix(values, device)
+    values, single = as_field_matrix(values, device, _MAX_FIELDS)
     n = int(values.shape[1])
     layout = None
     if n % _CHUNK == 0:
@@ -162,7 +163,7 @@ def deposit_2d_coherent_sharded_fused(
     every rank still joins both reductions (a raise on that rank alone would
     leave the others waiting in them).
     """
-    _check_precision(precision)
+    check_precision(precision)
     device = mesh.device
     n = int(values.shape[-1])
     if n % _CHUNK == 0:
@@ -171,7 +172,7 @@ def deposit_2d_coherent_sharded_fused(
             projection=projection, d_max=d_max, prep=prep, device=device,
         )
     else:
-        fields, single = _field_matrix(values, device)
+        fields, single = as_field_matrix(values, device, _MAX_FIELDS)
         lead = () if single else (fields.shape[0],)
         total = torch.zeros((*lead, *spec.shape), dtype=torch.float32, device=device)
         ok = torch.zeros((), dtype=torch.bool, device=device)

@@ -33,11 +33,11 @@ import torch
 import torch.distributed as dist
 
 from ..data_structures import Cosmology
+from ..ops import kernel_counters
 from ..ops.deposit import MapSpec
 from ..ops.deposit_coherent import caps_from_layout, tile_particles_coherent
 from ..ops.grid3d import GridSpec
 from ..render import render_halo_maps_sharded
-from ..utils.profiling import kernel_counters
 from .coherent import caps_union_mesh, deposit_2d_coherent_sharded, deposit_2d_coherent_sharded_fused, pad_particles_mesh
 from .mesh import make_mesh
 from .rebalance import rebalance_evenly

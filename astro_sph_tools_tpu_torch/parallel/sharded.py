@@ -24,13 +24,12 @@ import numpy as np
 import torch
 
 from ..kernels.splines import get_kernel
+from ..ops._device import PRECISIONS_3D, as_f32, check_precision, tile_ranges
 from ..ops.deposit import MapSpec, _as_tensor, _stencil_level_pass
-from ..ops.deposit_tiled import PALLAS_LEVELS, _check_precision, _tile_ranges, deposit_2d_pallas
+from ..ops.deposit_tiled import PALLAS_LEVELS, deposit_2d_pallas
 from ..ops.grid3d import GridSpec, _stencil_level_pass_3d
 from ..ops.grid3d_tiled import (
     PALLAS_3D_LEVELS,
-    _check_precision_3d,
-    _f32,
     _geometry_3d,
     _multi_level_assign_3d,
     _voxel_coords,
@@ -85,18 +84,18 @@ def deposit_2d_sharded(
     package's padding (``pad_for_mesh``: h = 1, values 0) deposits nothing.
     ``precision`` is validated; the sums are f32.
     """
-    _check_precision(precision)
+    check_precision(precision)
     get_kernel(kernel)
     if engine not in ("pallas", "xla"):
         raise ValueError(f"Unknown engine {engine!r} (pallas | xla)")
     device = mesh.device
-    vals = _f32(values, device)
+    vals = as_f32(values, device)
     single = vals.ndim == 1
     if single:
         vals = vals[:, None]
     n_fields = vals.shape[1]
     ny, nx = spec.shape
-    hs = _f32(h, device)
+    hs = as_f32(h, device)
     if engine == "pallas":
         cfg = _pallas_level_for_K(K)
         if hs.shape[0]:
@@ -149,7 +148,7 @@ def deposit_3d_sharded(
     from above (it wrapped round the ring). Raises when ``nz`` does not
     divide over the mesh or a slab is thinner than its halo.
     """
-    _check_precision_3d(precision)
+    check_precision(precision, PRECISIONS_3D)
     if engine not in ("pallas", "xla"):
         raise ValueError(f"Unknown engine {engine!r} (pallas | xla)")
     nz, ny, nx = spec.shape
@@ -168,9 +167,9 @@ def deposit_3d_sharded(
     periodic = (spec.periodic_wrap, spec.periodic_wrap, False)
     device = mesh.device
 
-    p = _f32(pos, device).reshape(-1, 3)
-    hs = _f32(h, device)
-    vs = _f32(values, device).reshape(-1)
+    p = as_f32(pos, device).reshape(-1, 3)
+    hs = as_f32(h, device)
+    vs = as_f32(values, device).reshape(-1)
     if engine == "pallas":
         cfg = next((c for c in PALLAS_3D_LEVELS if c.K >= K), None)
         if cfg is None:
@@ -221,7 +220,7 @@ def _slab_launch(p: Tensor, h: Tensor, values: Tensor, spec: GridSpec, cfg, firs
     w = ((p[:, 2] - z0) / ((z1 - z0) / nz)).double() - first_plane
     _, tile, ul, vl, wl = _multi_level_assign_3d(u, v, w, torch.zeros_like(u), (np.inf,), (geom,))
     tile_sorted, perm = torch.sort(tile, stable=True)
-    pstart, pcount = _tile_ranges(tile_sorted, geom.n_tiles)
+    pstart, pcount = tile_ranges(tile_sorted, geom.n_tiles)
     args = (ul[perm], vl[perm], wl.float()[perm], h[perm], values[perm][None, :].contiguous(), pstart, pcount)
     kw = dict(geom=geom, kernel=kernel, periodic=(spec.periodic_wrap, spec.periodic_wrap, False),
               psx=(x1 - x0) / nx, psy=(y1 - y0) / ny, psz=(z1 - z0) / nz, offset=spec.sample_offset)

@@ -5,8 +5,10 @@ Counterpart: ``astro_sph_tools_tpu/render.py`` (``render_map_stack``,
 ``render_grid_stack``, the same path for 3D voxel cubes. One
 call reads the needed
 fields, stacks the deposit payloads (weighted quantities ride the same pass
-as the weights), renders on the chosen engine on ``device``, and derives
-weighted means. Maps come back as NumPy arrays, as in the JAX package.
+as the weights), renders on the chosen engine on ``device``, and ends as
+every product ends (:func:`_finish`): the weighted means derived on
+``device``, then every map copied back. Maps come back as NumPy arrays, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -22,8 +24,9 @@ from .io.catalogue import BasicHaloDefinitions
 from .io.snapshot import SnapshotBase
 from .kernels.splines import get_kernel
 from .ops.deposit import MapSpec, deposit_2d
+from .ops._device import check_precision
 from .ops.deposit_coherent import deposit_2d_coherent
-from .ops.deposit_tiled import _check_precision, deposit_2d_auto
+from .ops.deposit_tiled import deposit_2d_auto
 from .ops.grid3d import GridSpec
 from .ops.grid3d_tiled import deposit_3d_auto
 from .ops.periodic import shift_centre
@@ -77,10 +80,9 @@ def render_map_stack(
     kept from the JAX package); ``"coherent"`` is the coherent-order engine
     for snapshot-ordered particles (``ops/deposit_coherent.py``, at most 4
     fields per pass); ``"xla"`` is the plain torch stencil engine
-    (``ops/deposit.py``).
+    (``ops/deposit.py``). ``timings`` holds the io, deposit, derive and
+    to_host seconds.
     """
-    if engine not in ("pallas", "coherent", "xla"):
-        raise ValueError(f"Unknown engine {engine!r} (pallas | coherent | xla)")
     with span("render.map_stack") as sp:
         device = torch.device(device)
         timer = PhaseTimer(device)
@@ -102,35 +104,10 @@ def render_map_stack(
             extent=tuple(float(v) for v in extent),
             periodic_wrap=periodic,
         )
-        values = _stack(payloads)
-
         with timer.phase("deposit"):
-            if engine in ("pallas", "coherent"):
-                render = deposit_2d_auto if engine == "pallas" else deposit_2d_coherent
-                maps = render(
-                    pos[:, i], pos[:, j], h, values, spec, kernel=kernel,
-                    projection=projection, device=device,
-                )
-            else:
-                maps = deposit_2d(
-                    pos[:, i], pos[:, j], h, values.T, spec, kernel=kernel,
-                    projection=projection, device=device,
-                ).permute(2, 0, 1)
-            with span("render.to_host", bytes=maps.numel() * maps.element_size()):
-                maps = maps.cpu().numpy()
-            if maps.ndim == 2:
-                maps = maps[None]
-
-        result = {name: m for name, m in zip(names, maps)}
-        with timer.phase("derive"):
-            denom_name = "mass" if "mass" in result else (
-                "surface_density" if "surface_density" in result else None
-            )
-            if denom_name:
-                denom = result[denom_name]
-                for name in weighted:
-                    mean = np.where(denom > 0, result[name] / np.maximum(denom, 1e-30), 0.0)
-                    result[name.replace("mass_weighted", "mean")] = mean
+            maps = _deposit_2d(engine, pos[:, i], pos[:, j], h, _stack(payloads), spec, kernel=kernel,
+                               projection=projection, device=device)
+        result = _finish(dict(zip(names, maps)), weighted, "surface_density", timer, pinned=False)
 
         return MapStack(
             maps=result,
@@ -197,6 +174,48 @@ def _stack(payloads: list):
     return torch.stack(payloads, dim=0) if isinstance(payloads[0], torch.Tensor) else np.stack(payloads, axis=0)
 
 
+def _deposit_2d(engine: str, x, y, h, values, spec: MapSpec, *, kernel: str, projection: str,
+                device) -> torch.Tensor:
+    """The (F, ny, nx) maps of ``values`` (F, N) on ``device`` from
+    ``engine``: ``"pallas"`` (the sorted tile engine), ``"coherent"`` or
+    ``"xla"`` (the stencil engine, which takes and returns fields last)."""
+    kw = dict(kernel=kernel, projection=projection, device=device)
+    if engine == "pallas":
+        return deposit_2d_auto(x, y, h, values, spec, **kw)
+    if engine == "coherent":
+        return deposit_2d_coherent(x, y, h, values, spec, **kw)
+    if engine == "xla":
+        return deposit_2d(x, y, h, values.T, spec, **kw).permute(2, 0, 1)
+    raise ValueError(f"Unknown engine {engine!r} (pallas | coherent | xla)")
+
+
+def _derive_means(result: dict, weighted: Sequence[str], denom_name: str) -> None:
+    """Add to ``result`` each weighted map's (or cube's) ``mean_*``, on
+    their device: the JAX package's ``where(d > 0, n / max(d, 1e-30), 0)``
+    over the denominator ``d``, in f32, which gives NumPy's bits."""
+    if not weighted:
+        return
+    denom = result[denom_name]
+    positive = denom > 0
+    safe = torch.clamp_min(denom, 1e-30)
+    for name in weighted:
+        result[name.replace("mass_weighted", "mean")] = torch.where(positive, result[name] / safe, 0.0)
+
+
+def _finish(result: dict, weighted: Sequence[str], density_name: str, timer: PhaseTimer, *,
+            pinned: bool) -> dict:
+    """The end of every product, from its maps (or cubes) on the device:
+    the ``derive`` phase (the means over ``"mass"`` where it was rendered,
+    else over ``density_name``), then the ``to_host`` phase, which counts
+    the ``bytes`` it copies back and returns NumPy arrays (:func:`_to_host`
+    with ``pinned``)."""
+    with timer.phase("derive"):
+        _derive_means(result, weighted, "mass" if "mass" in result else density_name)
+    with timer.phase("to_host"):
+        count(bytes=sum(t.numel() * t.element_size() for t in result.values()))
+        return {name: _to_host(t, pinned=pinned) for name, t in result.items()}
+
+
 def render_grid_stack(
     snapshot: SnapshotBase,
     fields: Sequence[str] = ("density",),
@@ -255,36 +274,21 @@ def render_grid_stack(
 
         with timer.phase("deposit"):
             cubes = deposit_3d_auto(pos, h, _stack(payloads), spec, kernel=kernel, device=device)
-            if cubes.ndim == 3:
-                cubes = cubes[None]
-
-        result = dict(zip(names, cubes))
-        with timer.phase("derive"):
-            denom = result.get("mass", result.get("density"))
-            if denom is not None:
-                positive = denom > 0
-                safe = torch.where(positive, denom, 1.0)
-                for name in weighted:
-                    result[name.replace("mass_weighted", "mean")] = torch.where(positive, result[name] / safe, 0.0)
-                del positive, safe
-        del cubes
-
-        with timer.phase("to_host"):
-            count(bytes=sum(c.numel() * c.element_size() for c in result.values()))
-            result = {name: _to_host(c) for name, c in result.items()}
+        result = _finish(dict(zip(names, cubes)), weighted, "density", timer, pinned=True)
 
         return MapStack(maps=result, spec=spec, axis=None, particle_type=particle_type, timings=timer.report())
 
 
-def _to_host(t: torch.Tensor) -> np.ndarray:
-    """``t`` as a NumPy array of its own. From a CUDA device the array lives
-    in page-locked host memory from torch's pinned allocator, which keeps a
-    dropped array's memory for the next copy: three 512 MB cubes then copy
-    in ~30 ms at the link's rate, where a pageable ``.cpu()`` faults in 1.5
-    GB of fresh pages (670-870 ms, varying with the host's load). Growing
-    the pool, while the caller holds more arrays than it has, costs about
-    what the pageable copy does."""
-    if t.device.type != "cuda":
+def _to_host(t: torch.Tensor, *, pinned: bool) -> np.ndarray:
+    """``t`` as a NumPy array: ``.cpu()``'s unless ``pinned`` and ``t`` is
+    on a CUDA device. Then the array is one of its own in page-locked host
+    memory from torch's pinned allocator, which keeps a dropped array's
+    memory for the next copy: three 512 MB cubes then copy in ~30 ms at the
+    link's rate, where a pageable ``.cpu()`` faults in 1.5 GB of fresh pages
+    (670-870 ms, varying with the host's load). Growing the pool, while the
+    caller holds more arrays than it has, costs about what the pageable
+    copy does."""
+    if not pinned or t.device.type != "cuda":
         return t.cpu().numpy()
     out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     out.copy_(t)
@@ -343,8 +347,8 @@ def render_halo_maps(
     assignment (f32 ones cost ~5e-5 px at 1024², over the 1e-5 budget), and
     the sorted engine's f32 pixel coordinates, which its oversize route
     (``ops/deposit_wide.py``) deposits from, stay at the cutout's own scale. ``timings``
-    holds each halo's recentre, select, deposit and derive seconds; the
-    first stack's also holds ``io``, the call's one read and upload.
+    holds each halo's recentre, select, deposit, derive and to_host seconds;
+    the first stack's also holds ``io``, the call's one read and upload.
 
     ``mesh`` (a :class:`~astro_sph_tools_tpu_torch.parallel.Mesh`): the
     snapshot holds this rank's particles (``open_process_local_snapshot``);
@@ -371,7 +375,10 @@ def render_halo_maps(
             h = snapshot.get_smoothing_lengths(particle_type).to_value("Mpc")
             mass = snapshot.get_masses(particle_type).to_value("Msun")
 
-            # the payload stack, once (same semantics as the JAX package)
+            # the payload stack, once, as the JAX package builds it: its own
+            # loop, not _read_payloads, because the JAX halo path reads
+            # get_masses for every particle type and maps only temperature
+            # and metallicity beside the always-rendered surface density
             payloads = [mass]
             names = ["surface_density"]
             weighted = []
@@ -417,7 +424,7 @@ def _halo_stacks(
     device, mesh, io_timings: dict,
 ) -> list[MapStack]:
     """The per-halo loop of :func:`render_halo_maps`: recentre, select,
-    deposit (then sum over ``mesh`` when given), derive."""
+    deposit (then sum over ``mesh`` when given), derive, copy back."""
     xy, h64, values = particles
     centres, radii = _host_f64(centres), _host_f64(radii)
     i, j = axis.projection_plane
@@ -445,24 +452,13 @@ def _halo_stacks(
                 sp.count(selected=int(sel.shape[0]))
                 del local, reach, sel
             with timer.phase("deposit"):
-                if engine == "pallas":
-                    maps = deposit_2d_auto(lx, ly, hs, vs, local_spec, kernel=kernel, device=device)
-                else:
-                    maps = deposit_2d(lx, ly, hs, vs.T, local_spec, kernel=kernel, device=device).permute(2, 0, 1)
-                if maps.ndim == 2:
-                    maps = maps[None]
+                maps = _deposit_2d(engine, lx, ly, hs, vs, local_spec, kernel=kernel, projection="kernel3d",
+                                   device=device)
                 if mesh is not None:
                     maps = all_reduce_(maps.contiguous(), mesh)
-                with span("render.to_host", bytes=maps.numel() * maps.element_size()):
-                    maps = maps.cpu().numpy()
                 del lx, ly, hs, vs
-            with timer.phase("derive"):
-                result = {name: m for name, m in zip(names, maps)}
-                denom = result["surface_density"]
-                for name in weighted:
-                    result[name.replace("mass_weighted", "mean")] = np.where(
-                        denom > 0, result[name] / np.maximum(denom, 1e-30), 0.0
-                    )
+            result = _finish(dict(zip(names, maps)), weighted, "surface_density", timer, pinned=False)
+            del maps  # free the device maps before the next halo's deposit
             timings = timer.report()
             if not stacks:
                 timings = {**io_timings, **timings}
@@ -497,7 +493,7 @@ def render_halo_maps_sharded(
     recentres in f32 and raises past K = 64; neither is copied.
     ``precision`` is validated; the sums are f32.
     """
-    _check_precision(precision)
+    check_precision(precision)
     particles = _halo_particles(positions, h, [mass], axis, mesh.device)
     return _halo_stacks(
         particles, ["surface_density"], [], centres, radii, halo_indexes, box=box,

@@ -46,7 +46,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..utils.profiling import kernel_counters
+from ..ops import kernel_counters
 
 BUDGET = 1e-5
 PAIRS = 1 << 24  # (pixel, particle) pairs a scatter chunk holds

@@ -252,7 +252,7 @@ def device_trace(*, top: int = 8, device=None) -> Iterator[DeviceTrace]:
 
 class PhaseTimer:
     """The render's per-phase wall clock: IO, recentre, select, deposit,
-    derive.
+    derive, to_host.
 
     Phases are re-enterable; ``report()`` returns {phase: seconds}. With a
     CUDA ``device`` every phase synchronises that device before it stops the
@@ -276,22 +276,3 @@ class PhaseTimer:
 
     def report(self) -> dict[str, float]:
         return dict(self._totals)
-
-
-def kernel_counters() -> dict:
-    """Every CUDA kernel wrapper of the package by kernel name; each
-    carries ``launches``, the launches it made in this process (the CPU
-    plain versions count none)."""
-    from ..ops.coherent_prep import prep_rows
-    from ..ops.deposit_coherent import deposit_coherent_tiles, deposit_coherent_windows
-    from ..ops.deposit_tiled import deposit_tiles
-    from ..ops.grid3d_tiled import deposit_3d_tiles
-    from ..ops.grid3d_wide import deposit_3d_wide
-    from ..ops.layout_shear import append_gangs
-    from ..ops.sightlines_fused import columns_tiles
-    from ..ops.spectra_fused import spectra_tiles
-
-    return {"deposit2d": deposit_tiles, "coherent_prep": prep_rows, "coherent_deposit": deposit_coherent_tiles,
-            "coherent_window": deposit_coherent_windows, "sightline_columns": columns_tiles,
-            "sightline_spectra": spectra_tiles, "deposit3d": deposit_3d_tiles, "deposit3d_wide": deposit_3d_wide,
-            "append_gangs": append_gangs}

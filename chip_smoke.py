@@ -692,7 +692,8 @@ def ptxas_summary(log: str, kernel: str) -> dict:
 
 def _level_inputs(torch, cfg, lo_s, hi_s, n_fields, n, spec, seed, device):
     """Tile-sorted tile-local inputs of one level, h inside (lo_s, hi_s] px."""
-    from astro_sph_tools_tpu_torch.ops.deposit_tiled import _level_geometry, _tile_local_coords, _tile_ranges
+    from astro_sph_tools_tpu_torch.ops._device import tile_ranges
+    from astro_sph_tools_tpu_torch.ops.deposit_tiled import _level_geometry, _tile_local_coords
 
     g = torch.Generator(device=device)
     g.manual_seed(seed)
@@ -706,7 +707,7 @@ def _level_inputs(torch, cfg, lo_s, hi_s, n_fields, n, spec, seed, device):
     geom = _level_geometry(cfg, spec)
     tile, u_loc, v_loc = _tile_local_coords(x, y, geom, spec)
     tile, perm = torch.sort(tile, stable=True)
-    pstart, pcount = _tile_ranges(tile, geom.n_tiles)
+    pstart, pcount = tile_ranges(tile, geom.n_tiles)
     return geom, (u_loc[perm], v_loc[perm], h[perm], vals[:, perm].contiguous(), pstart, pcount)
 
 
@@ -750,7 +751,8 @@ def _dense_level_inputs(torch, cfg, lo_s, hi_s, n_fields, n, spec, seed, device,
     clustered particles on ``side`` x ``side`` of the level's tiles, their
     support radii log-uniform (``radii="log"``) or uniform in (lo_s, hi_s]
     px: the dense tiles a clustered snapshot makes."""
-    from astro_sph_tools_tpu_torch.ops.deposit_tiled import _level_geometry, _tile_local_coords, _tile_ranges
+    from astro_sph_tools_tpu_torch.ops._device import tile_ranges
+    from astro_sph_tools_tpu_torch.ops.deposit_tiled import _level_geometry, _tile_local_coords
 
     geom = _level_geometry(cfg, spec)
     px = spec.extent[1] / spec.shape[1]
@@ -761,7 +763,7 @@ def _dense_level_inputs(torch, cfg, lo_s, hi_s, n_fields, n, spec, seed, device,
     vals = 0.5 + 1.5 * torch.rand((n_fields, n), generator=g, device=device)
     tile, u_loc, v_loc = _tile_local_coords(x, y, geom, spec)
     tile, perm = torch.sort(tile, stable=True)
-    pstart, pcount = _tile_ranges(tile, geom.n_tiles)
+    pstart, pcount = tile_ranges(tile, geom.n_tiles)
     return geom, (u_loc[perm], v_loc[perm], h[perm], vals[:, perm].contiguous(), pstart, pcount)
 
 
@@ -940,7 +942,8 @@ def main_particles(torch, device, n_log2: int):
 
 def phase_main(torch, device, particles, gen_s):
     from astro_sph_tools_tpu_torch.ops import MapSpec, deposit_2d_auto, deposit_tiled, tile_particles
-    from astro_sph_tools_tpu_torch.ops.deposit_tiled import _tile_ranges, deposit_tiles, deposit_tiles_plain
+    from astro_sph_tools_tpu_torch.ops._device import tile_ranges
+    from astro_sph_tools_tpu_torch.ops.deposit_tiled import deposit_tiles, deposit_tiles_plain
 
     x, y, h, m, t, box = particles
     n = x.shape[0]
@@ -957,7 +960,7 @@ def phase_main(torch, device, particles, gen_s):
     tp = tile_particles(x, y, h, fields, spec, device=device)
     levels = []
     for geom, lo, count in tp.geoms:
-        _, pcount = _tile_ranges(tp.sorted_tile[lo:lo + count], geom.n_tiles)
+        _, pcount = tile_ranges(tp.sorted_tile[lo:lo + count], geom.n_tiles)
         levels.append({"K": geom.cfg.K, "count": count, "n_tiles": geom.n_tiles,
                        "max_pcount": int(pcount.max())})
     check(launches >= len(tp.geoms), f"{launches} kernel launches for {len(tp.geoms)} levels")
@@ -970,7 +973,7 @@ def phase_main(torch, device, particles, gen_s):
     deposit_s = wall_s(lambda: deposit_tiled(tp), 3)
     for lev, (geom, lo, count) in zip(levels, tp.geoms):
         sl = slice(lo, lo + count)
-        pstart, pcount = _tile_ranges(tp.sorted_tile[sl], geom.n_tiles)
+        pstart, pcount = tile_ranges(tp.sorted_tile[sl], geom.n_tiles)
         args = (tp.sorted_u[sl], tp.sorted_v[sl], tp.sorted_h[sl], tp.sorted_values[:, sl], pstart, pcount)
         kw = dict(cfg=geom.cfg, kernel="cubic_spline", projection="kernel3d",
                   psx=box / 1024, psy=box / 1024, offset=spec.sample_offset)
@@ -1385,12 +1388,12 @@ def _tail_levels_vs_plain(torch, lay, spec, plain_reps: int = 1, **tags):
 def _sorted_levels_vs_plain(torch, tp, f64_run: int = 0, plain_reps: int = 1, **tags):
     """Kernel #1 vs its plain version on each level of a sorted layout, as
     ``deposit_tiled`` launches it (``f64_run``: ``_level_vs_plain``'s)."""
-    from astro_sph_tools_tpu_torch.ops.deposit_tiled import _tile_ranges
+    from astro_sph_tools_tpu_torch.ops._device import tile_ranges
 
     out = []
     for geom, lo, count in tp.geoms:
         sl = slice(lo, lo + count)
-        pstart, pcount = _tile_ranges(tp.sorted_tile[sl], geom.n_tiles)
+        pstart, pcount = tile_ranges(tp.sorted_tile[sl], geom.n_tiles)
         args = (tp.sorted_u[sl], tp.sorted_v[sl], tp.sorted_h[sl], tp.sorted_values[:, sl], pstart, pcount)
         out.append(_level_vs_plain(torch, geom, args, slice(None), tp.spec, "sorted-level", f64_run, plain_reps,
                                    **tags))
@@ -1879,8 +1882,8 @@ def box_level_cases(torch, device) -> list:
     the module docstring)."""
     from astro_sph_tools_tpu_torch.ops import MapSpec, deposit_coherent, deposit_tiled, tile_particles
     from astro_sph_tools_tpu_torch.ops.deposit_coherent import tile_particles_coherent
-    from astro_sph_tools_tpu_torch.ops.deposit_tiled import (
-        REGISTER_MIN_K, _tile_ranges, deposit_tiles, deposit_tiles_plain)
+    from astro_sph_tools_tpu_torch.ops._device import tile_ranges
+    from astro_sph_tools_tpu_torch.ops.deposit_tiled import REGISTER_MIN_K, deposit_tiles, deposit_tiles_plain
     from astro_sph_tools_tpu_torch.utils.profiling import device_trace, spans
     from sphbench.counting import pair_ops
     from sphbench.generators import clustered
@@ -1931,7 +1934,7 @@ def box_level_cases(torch, device) -> list:
         if geom.cfg.K < REGISTER_MIN_K:
             continue
         sl = slice(lo, lo + count)
-        pstart, pcount = _tile_ranges(tp.sorted_tile[sl], geom.n_tiles)
+        pstart, pcount = tile_ranges(tp.sorted_tile[sl], geom.n_tiles)
         args = (tp.sorted_u[sl], tp.sorted_v[sl], tp.sorted_h[sl], tp.sorted_values[:, sl], pstart, pcount)
         lkw = dict(cfg=geom.cfg, **kw)
         got = deposit_tiles(*args, **lkw)
@@ -2605,7 +2608,7 @@ def _voxel_level_inputs(torch, cfg, lo_s, hi_s, n_fields, n, spec, seed, device)
     """Tile-sorted tile-local inputs of one 3D level, h inside (lo_s, hi_s]
     voxels; positions reach 2 % past each face of the box (wrapped on a
     periodic grid, clipped into the edge tiles on an open one)."""
-    from astro_sph_tools_tpu_torch.ops.deposit_tiled import _tile_ranges
+    from astro_sph_tools_tpu_torch.ops._device import tile_ranges
     from astro_sph_tools_tpu_torch.ops.grid3d_tiled import _geometry_3d, _multi_level_assign_3d, _voxel_coords
 
     g = torch.Generator(device=device)
@@ -2620,7 +2623,7 @@ def _voxel_level_inputs(torch, cfg, lo_s, hi_s, n_fields, n, spec, seed, device)
     u, v, w = _voxel_coords(pos, spec)
     _, tile, ul, vl, wl = _multi_level_assign_3d(u, v, w, torch.zeros_like(u), (math.inf,), (geom,))
     tile, perm = torch.sort(tile, stable=True)
-    pstart, pcount = _tile_ranges(tile, geom.n_tiles)
+    pstart, pcount = tile_ranges(tile, geom.n_tiles)
     return geom, (ul[perm], vl[perm], wl[perm], h[perm], vals[:, perm].contiguous(), pstart, pcount)
 
 
@@ -2746,7 +2749,7 @@ def voxel_particles(torch, device, n: int, box: float, seed: int):
 def phase_voxel(torch, device, n_log2: int):
     """The config-3 path at full size: ``deposit_3d_auto`` into 512^3 x 4."""
     from astro_sph_tools_tpu_torch.ops import GridSpec, deposit_3d, deposit_3d_auto, deposit_3d_tiled, tile_particles_3d
-    from astro_sph_tools_tpu_torch.ops.deposit_tiled import _tile_ranges
+    from astro_sph_tools_tpu_torch.ops._device import tile_ranges
     from astro_sph_tools_tpu_torch.ops.grid3d_tiled import _level_args, deposit_3d_tiles, deposit_3d_tiles_plain
 
     n = 1 << n_log2
@@ -2780,7 +2783,7 @@ def phase_voxel(torch, device, n_log2: int):
     levels = []
     for geom, lo, count in tp.geoms:
         sl = slice(lo, lo + count)
-        pstart, pcount = _tile_ranges(tp.sorted_tile[sl], geom.n_tiles)
+        pstart, pcount = tile_ranges(tp.sorted_tile[sl], geom.n_tiles)
         args = (tp.sorted_u[sl], tp.sorted_v[sl], tp.sorted_w[sl], tp.sorted_h[sl], tp.sorted_values[:, sl],
                 pstart, pcount)
         got = torch.zeros((4, ng, ng, ng), device=device)
@@ -2855,7 +2858,7 @@ def phase_voxel_tiles(torch, device, n_log2: int):
     """Kernel #6's time per level under other tile geometries, on phase 14's
     particles (the same layout code, only the level's (TZ, TY, TX) differs)."""
     from astro_sph_tools_tpu_torch.ops import PALLAS_3D_LEVELS, GridSpec, Pallas3DConfig, tile_particles_3d
-    from astro_sph_tools_tpu_torch.ops.deposit_tiled import _tile_ranges
+    from astro_sph_tools_tpu_torch.ops._device import tile_ranges
     from astro_sph_tools_tpu_torch.ops.grid3d_tiled import _level_args, deposit_3d_tiles
 
     ng = VOX_GRID
@@ -2874,7 +2877,7 @@ def phase_voxel_tiles(torch, device, n_log2: int):
             tp = tile_particles_3d(pos, h, fields, spec, levels=tuple(levels), device=device)
             geom, lo, count = next(g for g in tp.geoms if g[0].cfg.K == levels[li].K)
             sl = slice(lo, lo + count)
-            pstart, pcount = _tile_ranges(tp.sorted_tile[sl], geom.n_tiles)
+            pstart, pcount = tile_ranges(tp.sorted_tile[sl], geom.n_tiles)
             kw = _level_args(geom, spec, "cubic_spline")
             case = {"phase": "voxel_tile_ab", "K": geom.cfg.K, "tiles_zyx": list(tiles), "count": count,
                     "n_tiles": geom.n_tiles, "max_pcount": int(pcount.max())}
@@ -2904,7 +2907,7 @@ def phase_voxel_split(torch, device, n_log2: int):
     blocks that add with atomics), each held against the default's cube."""
     from astro_sph_tools_tpu_torch.ops import GridSpec, tile_particles_3d
     from astro_sph_tools_tpu_torch.ops import grid3d_tiled as G
-    from astro_sph_tools_tpu_torch.ops.deposit_tiled import _tile_ranges
+    from astro_sph_tools_tpu_torch.ops._device import tile_ranges
 
     ng = VOX_GRID
     spec = GridSpec(shape=(ng,) * 3, extent=(0.0, VOX_BOX) * 3, periodic_wrap=True)
@@ -2918,7 +2921,7 @@ def phase_voxel_split(torch, device, n_log2: int):
     try:
         for geom, lo, count in tp.geoms:
             sl = slice(lo, lo + count)
-            pstart, pcount = _tile_ranges(tp.sorted_tile[sl], geom.n_tiles)
+            pstart, pcount = tile_ranges(tp.sorted_tile[sl], geom.n_tiles)
             args = (tp.sorted_u[sl], tp.sorted_v[sl], tp.sorted_w[sl], tp.sorted_h[sl], tp.sorted_values[:, sl],
                     pstart, pcount)
             kw = G._level_args(geom, spec, "cubic_spline")
@@ -3991,7 +3994,7 @@ PAR_TIMEOUT_S = 300  # the gloo group's timeout; the parent waits this long past
 
 def _par_counters():
     """The launch counters of kernels #1-#6, by the ``kernels`` line's names."""
-    from astro_sph_tools_tpu_torch.utils.profiling import kernel_counters
+    from astro_sph_tools_tpu_torch.ops import kernel_counters
 
     names = ("deposit2d", "coherent_prep", "coherent_deposit", "sightline_columns", "sightline_spectra", "deposit3d")
     return {k: v for k, v in kernel_counters().items() if k in names}
@@ -4011,11 +4014,12 @@ def par_level_vs_plain(torch, x, y, h, values, spec, K: int, **tags) -> dict:
     ``deposit_2d_sharded`` launches on these particles (``values`` (F, N)),
     as ``deposit_2d_pallas(level=...)`` lays them out."""
     from astro_sph_tools_tpu_torch.ops import PALLAS_LEVELS
-    from astro_sph_tools_tpu_torch.ops.deposit_tiled import _level_layout, _tile_ranges
+    from astro_sph_tools_tpu_torch.ops._device import tile_ranges
+    from astro_sph_tools_tpu_torch.ops.deposit_tiled import _level_layout
 
     cfg = next(c for c in PALLAS_LEVELS if c.K == K)
     geom, u, v, hs, vals, tile = _level_layout(x, y, h, values.contiguous(), spec, cfg, values.device)
-    pstart, pcount = _tile_ranges(tile, geom.n_tiles)
+    pstart, pcount = tile_ranges(tile, geom.n_tiles)
     return _level_vs_plain(torch, geom, (u, v, hs, vals, pstart, pcount), slice(None), spec, "sharded-level",
                            plain_reps=0, **tags)
 
@@ -4024,9 +4028,8 @@ def par_slab_vs_plain(torch, pos, h, values, spec, rank: int, n_dev: int, K: int
     """Kernel #6 vs its plain version on the extended slab (its planes plus
     K // 2 halo planes a side, periodic in x and y when the grid is, open in
     z) that ``deposit_3d_sharded`` fills on rank ``rank`` of ``n_dev``."""
-    from astro_sph_tools_tpu_torch.ops.grid3d_tiled import (
-        PALLAS_3D_LEVELS, _f32, deposit_3d_tiles, deposit_3d_tiles_plain,
-    )
+    from astro_sph_tools_tpu_torch.ops._device import as_f32
+    from astro_sph_tools_tpu_torch.ops.grid3d_tiled import PALLAS_3D_LEVELS, deposit_3d_tiles, deposit_3d_tiles_plain
     from astro_sph_tools_tpu_torch.parallel.sharded import _slab_launch
 
     device = pos.device
@@ -4034,8 +4037,8 @@ def par_slab_vs_plain(torch, pos, h, values, spec, rank: int, n_dev: int, K: int
     slab, halo = nz // n_dev, K // 2
     ext_shape = (slab + 2 * halo, ny, nx)
     cfg = next(c for c in PALLAS_3D_LEVELS if c.K >= K)
-    args, kw = _slab_launch(_f32(pos, device).reshape(-1, 3), _f32(h, device), _f32(values, device).reshape(-1),
-                            spec, cfg, rank * slab - halo, ext_shape, "cubic_spline")
+    args, kw = _slab_launch(as_f32(pos, device).reshape(-1, 3), as_f32(h, device),
+                            as_f32(values, device).reshape(-1), spec, cfg, rank * slab - halo, ext_shape, "cubic_spline")
     got = torch.zeros((1, *ext_shape), dtype=torch.float32, device=device)
     ref = torch.zeros_like(got)
     deposit_3d_tiles(*args, got, **kw)

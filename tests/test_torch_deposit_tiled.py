@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from astro_sph_tools_tpu_torch.ops import MapSpec
+from astro_sph_tools_tpu_torch.ops._device import PRECISIONS_2D, tile_ranges
 from oracles import project_oracle
 
 try:
@@ -84,7 +85,7 @@ def test_plain_kernel_matches_pallas_kernel(li, n_fields, projection):
     n = J._CHUNK  # the Pallas kernel takes whole 2048-particle chunk rows
     geom, tile, u, v, h, vals = level_inputs(rng, li, n, n_fields, spec)
     px = BOX / 64
-    pstart, pcount = T._tile_ranges(tile, geom.n_tiles)
+    pstart, pcount = tile_ranges(tile, geom.n_tiles)
     got = T.deposit_tiles(
         u, v, h, vals, pstart, pcount, cfg=geom.cfg, kernel="cubic_spline",
         projection=projection, psx=px, psy=px, offset=0.5,
@@ -222,7 +223,7 @@ def test_unknown_precision_and_unported_options_raise():
     tp = T.tile_particles(x, x, h, m, spec, device="cpu")
     with pytest.raises(ValueError, match="unknown precision"):
         T.deposit_tiled(tp, precision="f64")
-    for p in T._PRECISIONS:  # every accepted string renders the same f32 sums
+    for p in PRECISIONS_2D:  # every accepted string renders the same f32 sums
         assert torch.equal(T.deposit_tiled(tp, precision=p), T.deposit_tiled(tp))
     with pytest.raises(ValueError, match="unknown layout"):
         T.tile_particles(x, x, h, m, spec, layout="shaer", device="cpu")
@@ -260,7 +261,7 @@ def test_wrapper_takes_plain_version_only_on_cpu():
     rng = np.random.default_rng(61)
     spec = MapSpec(shape=(64, 64), extent=(0.0, BOX, 0.0, BOX))
     geom, tile, u, v, h, vals = level_inputs(rng, 0, 300, 2, spec)
-    pstart, pcount = T._tile_ranges(tile, geom.n_tiles)
+    pstart, pcount = tile_ranges(tile, geom.n_tiles)
     kw = dict(cfg=geom.cfg, kernel="cubic_spline", projection="kernel3d", psx=BOX / 64, psy=BOX / 64, offset=0.5)
     before = T.deposit_tiles.launches
     assert torch.equal(T.deposit_tiles(u, v, h, vals, pstart, pcount, **kw),
@@ -375,7 +376,7 @@ def split_deposit_emulated(u, v, h, vals, pstart, pcount, C, **kw):
     total = None
     for r in range(C):
         sel = index[rank == r]  # tile-sorted: the tile order is kept
-        ps, pc = T._tile_ranges(tile_of[rank == r], n_tiles)
+        ps, pc = tile_ranges(tile_of[rank == r], n_tiles)
         part = T.deposit_tiles_plain(u[sel], v[sel], h[sel], vals[:, sel], ps, pc, **kw)
         total = part if total is None else total + part
     return total
@@ -390,7 +391,7 @@ def test_split_sum_matches_plain_and_pallas_kernel(li, C):
     n, n_fields = J._CHUNK, 2  # the Pallas kernel takes whole 2048-particle chunk rows
     geom, tile, u, v, h, vals = dense_level_inputs(rng, li, n, n_fields, spec)
     px = BOX / 64
-    pstart, pcount = T._tile_ranges(tile, geom.n_tiles)
+    pstart, pcount = tile_ranges(tile, geom.n_tiles)
     assert int((pcount > 0).sum()) >= 2 and int(pcount.max()) > 8 * C  # dense tiles, every rank busy
     kw = dict(cfg=geom.cfg, kernel="cubic_spline", projection="kernel3d", psx=px, psy=px, offset=0.5)
     got = split_deposit_emulated(u, v, h, vals, pstart, pcount, C, **kw)
@@ -417,7 +418,7 @@ def test_cluster_argument_is_checked(monkeypatch):
     rng = np.random.default_rng(97)
     spec = MapSpec(shape=(64, 64), extent=(0.0, BOX, 0.0, BOX))
     geom, tile, u, v, h, vals = level_inputs(rng, 0, 300, 1, spec)
-    pstart, pcount = T._tile_ranges(tile, geom.n_tiles)
+    pstart, pcount = tile_ranges(tile, geom.n_tiles)
     kw = dict(cfg=geom.cfg, kernel="cubic_spline", projection="kernel3d", psx=BOX / 64, psy=BOX / 64, offset=0.5)
     with pytest.raises(TypeError, match="cluster"):
         T.deposit_tiles(u, v, h, vals, pstart, pcount, cluster=8, **kw)
@@ -453,7 +454,7 @@ def test_cuda_kernel_matches_plain(cuda_device, monkeypatch, projection):
         for n_fields in WIDE_FIELDS if wide else (5,):
             geom, tile, u, v, h, vals = level_inputs(rng, li, 20000, n_fields, spec)
             args = [a.to(cuda_device) for a in (u, v, h, vals)]
-            pstart, pcount = T._tile_ranges(tile.to(cuda_device), geom.n_tiles)
+            pstart, pcount = tile_ranges(tile.to(cuda_device), geom.n_tiles)
             kw = dict(cfg=geom.cfg, kernel="cubic_spline", projection=projection,
                       psx=BOX / 256, psy=BOX / 256, offset=0.5)
             ref = T.deposit_tiles_plain(*args, pstart, pcount, **kw)
@@ -501,7 +502,7 @@ def test_cuda_dense_tile_split_matches_plain(cuda_device, monkeypatch, li, C):
     for n_fields in WIDE_FIELDS if wide else (5,):
         geom, tile, u, v, h, vals = dense_level_inputs(rng, li, 60000, n_fields, spec, n_tiles_used=2)
         args = [a.to(cuda_device) for a in (u, v, h, vals)]
-        pstart, pcount = T._tile_ranges(tile.to(cuda_device), geom.n_tiles)
+        pstart, pcount = tile_ranges(tile.to(cuda_device), geom.n_tiles)
         for projection in ("kernel3d", "integrated"):
             kw = dict(cfg=geom.cfg, kernel="cubic_spline", projection=projection,
                       psx=BOX / 256, psy=BOX / 256, offset=0.5)
@@ -525,6 +526,6 @@ def test_cuda_register_path_is_repeatable(cuda_device, li):
     spec = MapSpec(shape=(256, 256), extent=(0.0, BOX, 0.0, BOX), periodic_wrap=True)
     geom, tile, u, v, h, vals = dense_level_inputs(rng, li, 60000, 2, spec, n_tiles_used=2)
     args = [a.to(cuda_device) for a in (u, v, h, vals)]
-    pstart, pcount = T._tile_ranges(tile.to(cuda_device), geom.n_tiles)
+    pstart, pcount = tile_ranges(tile.to(cuda_device), geom.n_tiles)
     kw = dict(cfg=geom.cfg, kernel="wendland_c2", projection="kernel3d", psx=BOX / 256, psy=BOX / 256, offset=0.5)
     assert torch.equal(T.deposit_tiles(*args, pstart, pcount, **kw), T.deposit_tiles(*args, pstart, pcount, **kw))

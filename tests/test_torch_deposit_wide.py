@@ -215,3 +215,27 @@ def test_cuda_oversize_span_counts_launches_and_tile_pairs(cuda_device):
     assert over[0]["tile_pairs"] == int(W.tile_counts_plain(geo, lim2, spec).sum())
     ref = deposit_2d_auto(x, y, h, values, spec, kernel="wendland_c2", device=cuda_device, plain=True)
     assert rel_err(got, ref) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_halo_render_counts_its_oversize_launches_in_the_registry(cuda_device):
+    """A halo cutout much finer than its particles' h sends them over the
+    oversize route, whose launches ``ops.kernel_counters()`` counts."""
+    from astro_sph_tools_tpu_torch import render_halo_maps
+    from astro_sph_tools_tpu_torch.io.catalogue import BasicHaloDefinitions
+    from astro_sph_tools_tpu_torch.io.memory import MemoryCatalogue, MemorySnapshot
+    from astro_sph_tools_tpu_torch.ops import kernel_counters
+
+    rng = np.random.default_rng(4)
+    n, box = 3000, 10.0
+    snap = MemorySnapshot({
+        "positions": torch.tensor(rng.uniform(4.0, 6.0, (n, 3)), dtype=torch.float32, device=cuda_device),
+        "smoothing_lengths": torch.tensor(rng.uniform(0.3, 0.6, n), dtype=torch.float32, device=cuda_device),
+        "masses": torch.ones(n, device=cuda_device),
+    }, box)
+    cat = MemoryCatalogue(snap, np.array([[5.0, 5.0, 5.0]]), {BasicHaloDefinitions.SO_200_CRIT.value: np.array([0.5])})
+    wide = kernel_counters()["deposit_wide"]
+    launches = wide.launches
+    (stack,) = render_halo_maps(snap, cat, [0], resolution=128, device=cuda_device)
+    assert wide.launches >= launches + 3  # count, fill, deposit
+    assert stack["surface_density"].max() > 0

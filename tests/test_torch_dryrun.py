@@ -11,7 +11,7 @@ import torch_parallel_tasks as T
 from torch_dist import RankError, RankPool
 
 from astro_sph_tools_tpu_torch.parallel.dryrun import dryrun_multichip
-from astro_sph_tools_tpu_torch.utils.profiling import kernel_counters
+from astro_sph_tools_tpu_torch.ops import kernel_counters
 
 STEPS = {"deposit_2d_sharded", "deposit_3d_sharded", "distributed_reorder", "deposit_2d_coherent_sharded",
          "deposit_2d_coherent_sharded_fused", "render_halo_maps_sharded", "sightlines_sharded", "rebalance_evenly"}

@@ -23,6 +23,7 @@ import torch
 from astro_sph_tools_tpu.ops import grid3d as JG
 from astro_sph_tools_tpu.ops import grid3d_pallas as JP
 from astro_sph_tools_tpu_torch.ops import GridSpec, deposit_3d
+from astro_sph_tools_tpu_torch.ops._device import PRECISIONS_3D, tile_ranges
 from oracles import grid3d_oracle
 
 T = importlib.import_module("astro_sph_tools_tpu_torch.ops.grid3d_tiled")
@@ -68,7 +69,7 @@ def sorted_level_inputs(pos, h, vals, spec, cfg):
     u, v, w = T._voxel_coords(torch.as_tensor(pos, dtype=torch.float32), spec)
     _, tile, ul, vl, wl = T._multi_level_assign_3d(u, v, w, torch.zeros_like(u), (np.inf,), (geom,))
     order = torch.argsort(tile, stable=True)
-    pstart, pcount = T._tile_ranges(tile[order], geom.n_tiles)
+    pstart, pcount = tile_ranges(tile[order], geom.n_tiles)
     h32 = torch.as_tensor(h, dtype=torch.float32)[order]
     vals32 = torch.as_tensor(vals, dtype=torch.float32)[:, order].contiguous()
     return geom, (ul[order], vl[order], wl[order], h32, vals32, pstart, pcount)
@@ -192,7 +193,7 @@ def test_unknown_precision_and_too_many_fields_raise():
     tp = T.tile_particles_3d(pos, h, m, spec, device="cpu")
     with pytest.raises(ValueError, match="unknown precision"):
         T.deposit_3d_tiled(tp, precision="f64")
-    for p in T._PRECISIONS_3D:  # every accepted string renders the same f32 sums
+    for p in PRECISIONS_3D:  # every accepted string renders the same f32 sums
         assert torch.equal(T.deposit_3d_tiled(tp, precision=p), T.deposit_3d_tiled(tp))
     five = np.ones((5, 1))
     with pytest.raises(ValueError, match="at most 4 fields"):

@@ -30,6 +30,7 @@ from astro_sph_tools_tpu_torch import _build, native
 from astro_sph_tools_tpu_torch.io import packing as P
 from astro_sph_tools_tpu_torch.kernels.splines import get_kernel
 from astro_sph_tools_tpu_torch.ops import MapSpec
+from astro_sph_tools_tpu_torch.ops._device import LEVEL_STRIDE
 
 T = importlib.import_module("astro_sph_tools_tpu_torch.ops.deposit_tiled")
 
@@ -76,7 +77,7 @@ def test_assign_tiles_equals_the_torch_formulation_bit_for_bit(name):
     assert torch.equal(u_c.view(torch.int32), u_t.view(torch.int32))
     assert torch.equal(v_c.view(torch.int32), v_t.view(torch.int32))
     # the inputs reach every populated level and the oversize route
-    levels = set((key_t // T._LEVEL_STRIDE).tolist())
+    levels = set((key_t // LEVEL_STRIDE).tolist())
     assert len(geoms) in levels and len(levels) >= 3
 
 

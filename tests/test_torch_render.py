@@ -87,7 +87,7 @@ def test_render_map_stack_matches_jax(snap_path, engine):
     sd = ref["surface_density"]
     covered = sd > 1e-3 * sd.max()
     assert rel_err(got["mean_temperature"][covered], ref["mean_temperature"][covered]) <= 1e-5
-    assert set(got.timings) == {"io", "deposit", "derive"}
+    assert set(got.timings) == {"io", "deposit", "derive", "to_host"}
 
 
 def test_render_rejects_unported_engine(snap_path):

@@ -254,11 +254,11 @@ def test_cuda_copy_back_gives_arrays_of_their_own(cuda_device, n):
     from astro_sph_tools_tpu_torch.render import _to_host
 
     t = torch.randn(n, device=cuda_device).reshape(-1, 1) * 3.0
-    a, b = _to_host(t), _to_host(t)
+    a, b = _to_host(t, pinned=True), _to_host(t, pinned=True)
     assert a.shape == (n, 1) and a.dtype == np.float32
     assert np.array_equal(a, t.cpu().numpy()) and np.array_equal(b, a)
     assert n == 0 or not np.shares_memory(a, b)
     del b
     t.mul_(-1.0)
-    c = _to_host(t)
+    c = _to_host(t, pinned=True)
     assert np.array_equal(c, t.cpu().numpy()) and np.array_equal(a, -c)

@@ -93,7 +93,7 @@ class TestRenderHaloMaps:
             sd = stack["surface_density"]
             assert sd.shape == (32, 32) and np.isfinite(sd).all()
             assert "mean_temperature" in stack.keys()
-            assert {"recentre", "select", "deposit", "derive"} <= set(stack.timings)
+            assert {"recentre", "select", "deposit", "derive", "to_host"} <= set(stack.timings)
         assert "io" in stacks[0].timings and "io" not in stacks[1].timings
         lo, hi, *_ = stacks[0].spec.extent
         assert lo < 5.0 < hi

@@ -124,7 +124,7 @@ def test_off_span_is_one_shared_object_that_records_nothing(box_snap):
 # ---------------------------------------------------------------------------
 
 MAP_TOP = [("render.map_stack", None), ("render.io", "render.map_stack"), ("render.deposit", "render.map_stack")]
-MAP_END = [("render.to_host", "render.deposit"), ("render.derive", "render.map_stack")]
+MAP_END = [("render.derive", "render.map_stack"), ("render.to_host", "render.map_stack")]
 TREES = {
     "coherent": MAP_TOP + [("layout.coherent", "render.deposit"), ("deposit.coherent", "render.deposit"),
                            ("deposit.tail", "render.deposit")] + MAP_END,
@@ -133,7 +133,7 @@ TREES = {
 HALO = [("render.halo", "render.halo_maps"), ("render.recentre", "render.halo"), ("render.select", "render.halo"),
         ("render.deposit", "render.halo"), ("layout.sorted", "render.deposit"),
         ("deposit.levels", "render.deposit"), ("deposit.oversize", "render.deposit"),
-        ("render.to_host", "render.deposit"), ("render.derive", "render.halo")]
+        ("render.derive", "render.halo"), ("render.to_host", "render.halo")]
 HALO_TREE = [("render.halo_maps", None), ("render.io", "render.halo_maps")] + HALO + HALO
 GRID_TREE = [("render.grid_stack", None), ("render.io", "render.grid_stack"), ("render.deposit", "render.grid_stack"),
              ("layout.grid3d", "render.deposit"), ("deposit3d.levels", "render.deposit"),
@@ -216,7 +216,8 @@ def test_coherent_layout_counters_equal_its_stats(box_snap):
     # no kernel runs on the CPU: the counts of launches are there, and 0
     assert one(records, "deposit.tail") == {"particles": layout.tail[0].shape[0], "launches": 0,
                                             "register_launches": 0}
-    assert one(records, "render.to_host") == {"bytes": 2 * RES * RES * 4}
+    # the surface density, the weighted temperature and its mean
+    assert one(records, "render.to_host") == {"bytes": 3 * RES * RES * 4}
 
 
 def test_sorted_layout_counters_equal_its_levels(box_snap):
