@@ -12,31 +12,40 @@
 // contributes nothing. Every precision string of the TPU engine (f32, bf16,
 // bf16x2) becomes f32 FMA arithmetic here.
 //
-// Design: owner computes. The TPU kernel wrote a halo'd (TZ+K, TY+K, 128)
-// stack per tile that XLA then overlap-added. The first port of it pushed
-// each tile's (T+K)^3 box, accumulated in shared memory, into the cube
-// through global atomics; at K = 16 that box held one block per SM, and
-// its column gather, not the flush, took 90 % of the time (PERF.md). Here
-// every block, one warp, owns one output region, a layout tile's T voxels
-// per axis, and pulls into it:
+// Design: owner computes, output-stationary. The TPU kernel wrote a halo'd
+// (TZ+K, TY+K, 128) stack per tile that XLA then overlap-added. The first
+// port of it pushed each tile's (T+K)^3 box, accumulated in shared memory,
+// into the cube through global atomics; the second gave each region to
+// one warp that walked every staged candidate's clipped box across its
+// lanes into shared-memory sums, a __syncwarp a candidate (PERF.md). Here
+// every block owns one output region, a layout tile's T voxels per axis,
+// and pulls into it:
 //   * its candidates are the particles of every (source tile, image) pair
 //     whose box meets the region. The wrapper builds those pairs per axis
 //     from the geometry (source tile, and the integer shift d that maps the
 //     tile's box-local index j to the region-local index j + d), so a grid
 //     that the tiles do not divide, or a box that folds over a small
 //     periodic grid, needs nothing special here;
-//   * the warp stages kStage candidates at a time in shared memory, each
-//     clipped once per axis to the voxels it can reach inside the region
-//     (its K window, its box and its support, shifted by d); those that
-//     reach the region are kept in candidate order (a ballot);
-//   * the region's F x T^3 sums live in shared memory. For one staged
-//     candidate at a time the lanes take the voxels of its clipped box, so
-//     no two lanes add to one voxel and no atomics are needed; voxel offsets
-//     are computed from the box-local index (region index minus d), so each
-//     weight is the plain version's arithmetic;
-//   * the warp adds its sums into the cube once, with plain loads and stores
-//     (the cube may hold earlier levels): no halo box, no atomic flush, and
-//     the same bits on every run. A region whose candidates outnumber the
+//   * all warps of the block stage the candidates together, a candidate a
+//     thread, each clipped once per axis to the voxels it can reach inside
+//     the region (its K window, its box and its support, shifted by d);
+//     those that reach the region are kept in candidate order (a ballot a
+//     warp, the warps' counts through shared memory);
+//   * a block has a thread for each (x, y) column of the region (64 at the
+//     layout's 8^3 tiles), and the thread's F x TZ sums live in registers
+//     (tiles up to kRegZ voxels deep; a deeper tile's in the thread's own
+//     shared-memory column). For each staged candidate, a thread whose
+//     column meets the support (dx^2 + dy^2 < lim^2) walks only the chord
+//     |z + offset - w| < sqrt(lim^2 - dx^2 - dy^2) / sz (0.01 voxel of
+//     slack) inside the candidate's clipped z range; the exact test
+//     q^2 < lim^2 decides each voxel. Voxel offsets are computed from the
+//     box-local index (region index minus d), so each weight is the plain
+//     version's arithmetic. No two threads add to one voxel: no atomics,
+//     and no synchronisation but a barrier a staged batch;
+//   * each thread adds its column into the cube once, with plain loads and
+//     stores (the cube may hold earlier levels): no halo box, no atomic
+//     flush, and each voxel's candidates summed in candidate order, so the
+//     same bits on every run. A region whose candidates outnumber the
 //     wrapper's split is shared by several blocks, each over a slice of the
 //     candidates, and only those blocks add with atomics;
 //   * blocks run the regions heaviest first (the wrapper's order), so the
@@ -44,19 +53,29 @@
 //
 // Bound on the card. The arithmetic is small (about 12 + 2F FP32 operations
 // per voxel inside a support) and the bytes are the particles and the cube.
-// Left over above both: every candidate is staged by each of the ~27
-// regions around its tile; the clipped boxes hold about twice the voxels of
-// the supports; and each voxel evaluation is a chain of dependent steps
-// (index, offsets, sqrt, kernel polynomial, shared-memory add) that about
-// 16 resident warps per SM do not hide.
+// Left over above both (PERF.md section 6, at the cube cell's levels): every
+// candidate is staged, its particle read and clipped, by each of the ~27
+// regions around its tile (the wrapper counts them: deposit_3d_tiles.
+// candidates), a fifth of the time; a support of 3-7 voxels meets an 8^3
+// region in a corner, so the warp's column test, chord and slot tests are
+// paid per (candidate, warp) for a few short chords; and the walk waits on
+// its own dependent steps, so occupancy sets the pace: the same code at 48
+// registers runs the F <= 2 levels about 1.2x faster than at 64-77
+// (kMinBlocks).
 
 #include "deposit_common.cuh"
 
 namespace {
 
-constexpr int kStage = 64;         // candidates staged in shared memory at once
-constexpr float kRound = 12582912.0f;  // 1.5 * 2^23: x + kRound - kRound = round(x)
-constexpr int kMaxCombos = 512;    // (z, y, x) candidate pairs of one region
+constexpr int kMaxThreads = 256;  // a thread an (x, y) column: TY * TX <= 256
+// Resident blocks of kMaxThreads the compiler must leave room for: with up
+// to two fields 5 (48 registers), else 4 (64 registers: F = 4's 32 sums
+// spill at 48). Occupancy sets the pace (PERF.md).
+template <int F>
+constexpr int kMinBlocks = F <= 2 ? 5 : 4;
+constexpr int kRegZ = 8;          // tiles up to this deep keep their sums in registers
+constexpr float kSlack = 0.01f;   // voxels a chord is widened by
+constexpr int kMaxCombos = 512;   // (z, y, x) candidate pairs of one region
 constexpr int kMaxFields3 = 4;
 
 struct Pull3 {
@@ -65,10 +84,12 @@ struct Pull3 {
   int ntx, nty;       // tiles per x row, per y column
   int nz, ny, nx;     // the cube
   int wz, wy, wx;     // candidate pairs per region, table width per axis
+  int stage;          // candidates staged in shared memory at once
   float offset;          // voxel sample offset (0.5: centres)
   float psx, psy, psz;   // voxel edges (world units)
   float norm3d;          // 3D kernel normalisation
-  float lim, lim2;       // support_factor and its square
+  float lim2;            // support_factor squared
+  float rx, ry, rz;      // support_factor / voxel edge per axis
 };
 
 // Float voxel bound -> int, clamped to [lo, hi] before the conversion so far
@@ -102,9 +123,20 @@ __device__ __forceinline__ int range_lo(int p) { return p & 0xff; }
 __device__ __forceinline__ int range_hi(int p) { return (p >> 8) & 0xff; }
 __device__ __forceinline__ int range_d(int p) { return p >> 16; }  // arithmetic shift
 
+// Whether region-local index i lies in the packed range.
+__device__ __forceinline__ bool in_range(int i, int p) {
+  return (unsigned)(i - range_lo(p)) <= (unsigned)(range_hi(p) - range_lo(p));
+}
+
 // sqrt from the hardware reciprocal square root (a few ulp: the weights
-// keep ~1e-7 of their value)
-__device__ __forceinline__ float fast_sqrt(float x) { return x > 0.0f ? x * rsqrtf(x) : 0.0f; }
+// keep ~1e-7 of their value). The approximation flushes subnormal inputs,
+// which rsqrtf would rescale first: below FLT_MIN the root is taken as 0,
+// where every kernel shape already reads its value at 0 in f32.
+__device__ __forceinline__ float fast_sqrt(float x) {
+  float r;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return x >= 1.17549435e-38f ? x * r : 0.0f;
+}
 
 // Candidate pair c of an axis table row: source tile index and shift.
 __device__ __forceinline__ void pair_of(const int* row, int c, int* t, int* d) {
@@ -112,8 +144,10 @@ __device__ __forceinline__ void pair_of(const int* row, int c, int* t, int* d) {
   *d = row[2 + 2 * c];
 }
 
-template <int KID, int F>
-__global__ void __launch_bounds__(32)
+// One region a block (see the file's head). kZ > 0: each thread's sums in
+// registers, kZ >= TZ; kZ == 0: in the thread's own shared-memory column.
+template <int KID, int F, int kZ>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks<F>)
 deposit3d_pull_kernel(const float* __restrict__ u, const float* __restrict__ v,
                       const float* __restrict__ w, const float* __restrict__ h,
                       const float* __restrict__ vals, long long ld_vals,
@@ -121,17 +155,27 @@ deposit3d_pull_kernel(const float* __restrict__ u, const float* __restrict__ v,
                       const int* __restrict__ tabz, const int* __restrict__ taby,
                       const int* __restrict__ tabx, const int* __restrict__ items,
                       float* __restrict__ out, Pull3 p) {
-  // dynamic: the region's F x TZ x TY x TX sums, then the candidate
-  // pairs' running particle counts (wz * wy * wx + 1)
-  extern __shared__ float s_acc[];
-  __shared__ int4 s_rng[kStage];      // packed x, y, z ranges, region-local
-  __shared__ float4 s_pos[kStage];    // u, v, sx, sy
-  __shared__ float2 s_zw[kStage];     // w, sz
-  __shared__ float s_val[kStage][F];  // weighted values
-  const int n_vox = p.TZ * p.TY * p.TX;
-  int* s_prefix = reinterpret_cast<int*>(s_acc + F * n_vox);
+  // dynamic: the stage (u, v, sx, sy; w, sz, h / psz and -d + offset on z;
+  // -d + offset on x and y and the clipped z range, region-local, as
+  // floats; the packed x and y ranges, region-local; the weighted values
+  // [f][slot]), the candidate pairs (first particle, z, y, x shifts;
+  // wz * wy * wx) and their running particle counts (wz * wy * wx + 1), the
+  // warps' kept counts (two rounds'), then for kZ == 0 the columns' sums
+  // [f][z][thread]
+  extern __shared__ float4 s_dyn[];
+  const int S = p.stage;
+  const int n_thr = blockDim.x, n_warps = n_thr >> 5;
+  float4* s_xy = s_dyn;
+  float4* s_z = s_dyn + S;
+  float4* s_b = s_dyn + 2 * S;
+  int4* s_pair = reinterpret_cast<int4*>(s_dyn + 3 * S);
+  int2* s_rng = reinterpret_cast<int2*>(s_pair + p.wz * p.wy * p.wx);
+  float* s_val = reinterpret_cast<float*>(s_rng + S);
+  int* s_prefix = reinterpret_cast<int*>(s_val + F * S);
+  int* s_cnt = s_prefix + p.wz * p.wy * p.wx + 1;
+  float* s_col = reinterpret_cast<float*>(s_cnt + 2 * n_warps);
 
-  const int lane = threadIdx.x;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int* item = items + 4 * (long long)blockIdx.x;
   const int region = item[0], c_lo = item[1], c_hi = item[2], atomic = item[3];
   const int tz = region / (p.ntx * p.nty);
@@ -145,50 +189,64 @@ deposit3d_pull_kernel(const float* __restrict__ u, const float* __restrict__ v,
   const int* rowx = tabx + tx * (1 + 2 * p.wx);
   const int ncz = rowz[0], ncy = rowy[0], ncx = rowx[0];
   const int n_combo = ncz * ncy * ncx;  // <= kMaxCombos (checked by the launcher)
+  // this thread's column of the region (none past TY x TX or the grid)
+  const int xr = t % p.TX, yr = t / p.TX;
+  const bool mine = yr < RY && xr < RX;
+  const float xf = (float)xr, yf = (float)yr;
 
-  // particles per candidate pair, then their running sum; the sums start at 0
-  for (int c = lane; c < n_combo; c += 32) {
+  // each candidate pair's first particle and shifts, and its particles,
+  // then their running sum; the sums start at 0
+  for (int c = t; c < n_combo; c += n_thr) {
     const int cz = c / (ncy * ncx), cyx = c - cz * ncy * ncx;
     const int cy = cyx / ncx, cx = cyx - cy * ncx;
-    int t_z, t_y, t_x, d;
-    pair_of(rowz, cz, &t_z, &d);
-    pair_of(rowy, cy, &t_y, &d);
-    pair_of(rowx, cx, &t_x, &d);
-    s_prefix[c + 1] = pcount[(t_z * p.nty + t_y) * p.ntx + t_x];
+    int t_z, t_y, t_x, dz, dy, dx;
+    pair_of(rowz, cz, &t_z, &dz);
+    pair_of(rowy, cy, &t_y, &dy);
+    pair_of(rowx, cx, &t_x, &dx);
+    const int tile = (t_z * p.nty + t_y) * p.ntx + t_x;
+    s_pair[c] = make_int4(pstart[tile], dz, dy, dx);
+    s_prefix[c + 1] = pcount[tile];
   }
-  for (int k = lane; k < F * n_vox; k += 32) s_acc[k] = 0.0f;
-  __syncwarp();
-  if (lane == 0) {
+  float acc[F][kZ > 0 ? kZ : 1];
+#pragma unroll
+  for (int f = 0; f < F; ++f)
+#pragma unroll
+    for (int z = 0; z < (kZ > 0 ? kZ : 1); ++z) acc[f][z] = 0.0f;
+  if constexpr (kZ == 0) {
+    for (int k = t; k < F * p.TZ * n_thr; k += n_thr) s_col[k] = 0.0f;
+  }
+  __syncthreads();
+  if (t == 0) {
     s_prefix[0] = 0;
     for (int c = 0; c < n_combo; ++c) s_prefix[c + 1] += s_prefix[c];
   }
-  __syncwarp();
+  __syncthreads();
 
+  int round = 0;
+  // the candidate pair holding this thread's candidate idx, s_prefix[pair]
+  // <= idx < s_prefix[pair + 1]; idx only grows, so each round scans on
+  // from the last (a binary search finds the first)
+  int pair = 0;
+  for (int hi = n_combo - 1; pair < hi;) {
+    const int mid = (pair + hi + 1) >> 1;
+    if (s_prefix[mid] <= c_lo + t) pair = mid; else hi = mid - 1;
+  }
   for (int base = c_lo; base < c_hi;) {
-    // stage: a candidate a lane, clipped to the region once; only those
-    // that reach it are kept, in candidate order (ballot)
+    // stage: a candidate a thread, clipped to the region once; only those
+    // that reach it are kept, in candidate order (a ballot a warp, then
+    // the warps' counts, double-buffered by round)
     int ns = 0;
-    while (base < c_hi && ns <= kStage - 32) {
-      const int idx = base + lane;
+    while (base < c_hi && ns <= S - n_thr) {
+      const int idx = base + t;
       bool keep = false;
       int4 r = make_int4(0, 0, 0, 0);
       float ul = 0.0f, vl = 0.0f, wl = 0.0f, sx = 0.0f, sy = 0.0f, sz = 0.0f, vs = 0.0f;
       int i = 0;
       if (idx < c_hi) {
-        // the candidate pair holding idx: s_prefix[c] <= idx < s_prefix[c + 1]
-        int lo = 0, hi = n_combo - 1;
-        while (lo < hi) {
-          const int mid = (lo + hi + 1) >> 1;
-          if (s_prefix[mid] <= idx) lo = mid; else hi = mid - 1;
-        }
-        const int c = lo;
-        const int cz = c / (ncy * ncx), cyx = c - cz * ncy * ncx;
-        const int cy = cyx / ncx, cx = cyx - cy * ncx;
-        int t_z, t_y, t_x, dz, dy, dx;
-        pair_of(rowz, cz, &t_z, &dz);
-        pair_of(rowy, cy, &t_y, &dy);
-        pair_of(rowx, cx, &t_x, &dx);
-        i = pstart[(t_z * p.nty + t_y) * p.ntx + t_x] + (idx - s_prefix[c]);
+        while (s_prefix[pair + 1] <= idx) ++pair;
+        const int4 pr = s_pair[pair];
+        const int dz = pr.y, dy = pr.z, dx = pr.w;
+        i = pr.x + (idx - s_prefix[pair]);
         const float hi_ = h[i];
         ul = u[i]; vl = v[i]; wl = w[i];
         if (hi_ > 0.0f) {  // zero-h particles contribute exactly 0
@@ -196,93 +254,124 @@ deposit3d_pull_kernel(const float* __restrict__ u, const float* __restrict__ v,
           vs = (p.norm3d * inv_h) * (inv_h * inv_h);
           sx = p.psx * inv_h; sy = p.psy * inv_h; sz = p.psz * inv_h;
           int a, b;
-          axis_range(ul, p.lim / sx, p.K, p.BX, p.offset, &a, &b);
+          axis_range(ul, hi_ * p.rx, p.K, p.BX, p.offset, &a, &b);
           r.x = pack_range(a, b, dx, RX);
-          axis_range(vl, p.lim / sy, p.K, p.BY, p.offset, &a, &b);
+          axis_range(vl, hi_ * p.ry, p.K, p.BY, p.offset, &a, &b);
           r.y = pack_range(a, b, dy, RY);
-          axis_range(wl, p.lim / sz, p.K, p.BZ, p.offset, &a, &b);
+          axis_range(wl, hi_ * p.rz, p.K, p.BZ, p.offset, &a, &b);
           r.z = pack_range(a, b, dz, RZ);
           keep = range_lo(r.x) <= range_hi(r.x) && range_lo(r.y) <= range_hi(r.y) &&
                  range_lo(r.z) <= range_hi(r.z);
         }
       }
       const unsigned ballot = __ballot_sync(0xffffffffu, keep);
-      if (keep) {
-        const int s = ns + __popc(ballot & ((1u << lane) - 1u));
-        s_rng[s] = r;
-        s_pos[s] = make_float4(ul, vl, sx, sy);
-        s_zw[s] = make_float2(wl, sz);
-#pragma unroll
-        for (int f = 0; f < F; ++f) s_val[s][f] = vals[f * ld_vals + i] * vs;
+      int* cnt = s_cnt + (round & 1) * n_warps;
+      if (lane == 0) cnt[warp] = __popc(ballot);
+      __syncthreads();
+      int before = ns;
+      for (int k = 0; k < n_warps; ++k) {
+        if (k < warp) before += cnt[k];
+        ns += cnt[k];
       }
-      ns += __popc(ballot);
-      base += 32;
+      if (keep) {
+        // the walk takes each shift plus the sample offset (exact: the
+        // offset is 0 or 1/2) and the z range as floats, and the chord's
+        // scale h / psz, from here: no conversion per column
+        const int s = before + __popc(ballot & ((1u << lane) - 1u));
+        const int dz = range_d(r.z);
+        s_xy[s] = make_float4(ul, vl, sx, sy);
+        s_z[s] = make_float4(wl, sz, __frcp_rn(sz), (float)(-dz) + p.offset);
+        s_b[s] = make_float4((float)(-range_d(r.x)) + p.offset, (float)(-range_d(r.y)) + p.offset,
+                             (float)range_lo(r.z), (float)range_hi(r.z));
+        s_rng[s] = make_int2(r.x, r.y);
+#pragma unroll
+        for (int f = 0; f < F; ++f) s_val[f * S + s] = vals[f * ld_vals + i] * vs;
+      }
+      base += n_thr;
+      ++round;
     }
-    __syncwarp();
-    // one staged candidate at a time: the lanes take the voxels of its
-    // clipped box (x fastest), so no two lanes add to one voxel
-    for (int j = 0; j < ns; ++j) {
-      const int4 r = s_rng[j];
-      const float4 a = s_pos[j];
-      const float2 zw = s_zw[j];
-      float ve[F];
+    __syncthreads();  // the stage is written
+    // each staged candidate in turn: the thread walks its column's chord
+    // of the support (none if the support misses the column)
+    if (mine) {
+      int2 r_next = s_rng[0];
+      for (int j = 0; j < ns; ++j) {
+        const int2 r = r_next;
+        r_next = s_rng[min(j + 1, S - 1)];  // read ahead: the test waits on no load
+        if (!in_range(xr, r.x) || !in_range(yr, r.y)) continue;
+        const float4 a = s_xy[j];
+        const float4 b = s_b[j];
+        // offsets from the box-local index (the region index plus the
+        // shift and the offset, exact in floats): the plain version's
+        // arithmetic
+        const float dxn = ((xf + b.x) - a.x) * a.z;
+        const float dyn = ((yf + b.y) - a.y) * a.w;
+        const float dxy2 = dxn * dxn + dyn * dyn;
+        if (!(dxy2 < p.lim2)) continue;
+        const float4 zw = s_z[j];
+        // the chord: voxels z of the clipped z range (region-local) with
+        // |z - d + offset - w| < sqrt(lim^2 - dxy2) / sz + slack; the
+        // centre's region-local index rounds once, which the slack covers
+        const float half = fast_sqrt(p.lim2 - dxy2) * zw.z + kSlack;
+        const float zc = zw.x - zw.w;
+        const float z_lo = fmaxf(zc - half, b.z), z_hi = fminf(zc + half, b.w);
+        float ve[F];
 #pragma unroll
-      for (int f = 0; f < F; ++f) ve[f] = s_val[j][f];
-      const int x0 = range_lo(r.x), y0 = range_lo(r.y), z0 = range_lo(r.z);
-      const int bx = range_hi(r.x) - x0 + 1, bxy = bx * (range_hi(r.y) - y0 + 1);
-      const int n_box = bxy * (range_hi(r.z) - z0 + 1);
-      // the integer/float conversions of the voxel index are quarter-rate
-      // on this card: the loop keeps k as a float too, splits it with
-      // round-to-nearest by the 1.5 * 2^23 trick (exact for these small
-      // integers: (k + 1/4) / b lies at least 1/(4b) from a half-integer),
-      // and builds each box-local index as (float)(x0 - d) + xk, exactly
-      const float fbx = (float)bx, fbxy = (float)bxy;
-      const float inv_bx = 1.0f / fbx, inv_bxy = 1.0f / fbxy;
-      const float jx0 = (float)(x0 - range_d(r.x)), jy0 = (float)(y0 - range_d(r.y)),
-                  jz0 = (float)(z0 - range_d(r.z));
-      const int cell0 = (z0 * p.TY + y0) * p.TX + x0;
-      float kf = (float)lane;
-      for (int k = lane; k < n_box; k += 32, kf += 32.0f) {
-        const float tz = fmaf(kf + 0.25f, inv_bxy, -0.5f) + kRound;
-        const float zk = tz - kRound;
-        const float k2 = fmaf(-zk, fbxy, kf);
-        const float ty_ = fmaf(k2 + 0.25f, inv_bx, -0.5f) + kRound;
-        const float yk = ty_ - kRound;
-        const float xk = fmaf(-yk, fbx, k2);
-        // offsets from the box-local index: the plain version's arithmetic
-        const float dxn = ((jx0 + xk) + p.offset - a.x) * a.z;
-        const float dyn = ((jy0 + yk) + p.offset - a.y) * a.w;
-        const float dzn = ((jz0 + zk) + p.offset - zw.x) * zw.y;
-        const float q2 = (dxn * dxn + dyn * dyn) + dzn * dzn;
-        if (q2 < p.lim2) {
-          const float wgt = ast::shape_q<KID>(fast_sqrt(q2));
-          const int zi = __float_as_int(tz) - __float_as_int(kRound);
-          const int yi = __float_as_int(ty_) - __float_as_int(kRound);
-          float* cell = s_acc + cell0 + (zi * p.TY + yi) * p.TX + (k - zi * bxy - yi * bx);
+        for (int f = 0; f < F; ++f) ve[f] = s_val[f * S + j];
+        if constexpr (kZ > 0) {
 #pragma unroll
-          for (int f = 0; f < F; ++f) cell[f * n_vox] = fmaf(wgt, ve[f], cell[f * n_vox]);
+          for (int z = 0; z < kZ; ++z) {
+            if ((float)z < z_lo || (float)z > z_hi) continue;
+            const float dzn = (((float)z + zw.w) - zw.x) * zw.y;
+            const float q2 = dxy2 + dzn * dzn;
+            if (q2 < p.lim2) {
+              const float wgt = ast::shape_q<KID>(fast_sqrt(q2));
+#pragma unroll
+              for (int f = 0; f < F; ++f) acc[f][z] = fmaf(wgt, ve[f], acc[f][z]);
+            }
+          }
+        } else {
+          float zf = ceilf(z_lo);
+          for (int z = (int)zf; zf <= z_hi; zf += 1.0f, ++z) {
+            const float dzn = ((zf + zw.w) - zw.x) * zw.y;
+            const float q2 = dxy2 + dzn * dzn;
+            if (q2 < p.lim2) {
+              const float wgt = ast::shape_q<KID>(fast_sqrt(q2));
+              float* cell = s_col + z * n_thr + t;
+#pragma unroll
+              for (int f = 0; f < F; ++f) cell[f * p.TZ * n_thr] = fmaf(wgt, ve[f], cell[f * p.TZ * n_thr]);
+            }
+          }
         }
       }
-      __syncwarp();  // the next candidate's lanes may add to the same voxels
     }
+    __syncthreads();  // the stage is read
   }
 
-  // add the region's sums into the cube once: plain loads and stores (the
+  // add the column's sums into the cube once: plain loads and stores (the
   // region is this block's alone) or, for a region shared by several
   // blocks, atomics
+  if (!mine) return;
   const long long cube = (long long)p.nz * p.ny * p.nx;
-  for (int k = lane; k < n_vox; k += 32) {
-    const int z = k / (p.TY * p.TX), yx = k - z * p.TY * p.TX;
-    const int y = yx / p.TX, x = yx - y * p.TX;
-    if (z >= RZ || y >= RY || x >= RX) continue;
-    const long long g = ((long long)(rz0 + z) * p.ny + (ry0 + y)) * p.nx + (rx0 + x);
+  const long long g0 = ((long long)rz0 * p.ny + (ry0 + yr)) * p.nx + (rx0 + xr);
+  const long long plane = (long long)p.ny * p.nx;
+  auto add = [&](float a, int z, int f) {
+    if (a == 0.0f) return;
+    float* cell = out + f * cube + g0 + z * plane;
+    if (atomic) atomicAdd(cell, a);
+    else *cell += a;
+  };
+  if constexpr (kZ > 0) {
 #pragma unroll
-    for (int f = 0; f < F; ++f) {
-      const float a = s_acc[f * n_vox + k];
-      if (a == 0.0f) continue;
-      float* cell = out + f * cube + g;
-      if (atomic) atomicAdd(cell, a);
-      else *cell += a;
+    for (int z = 0; z < kZ; ++z) {
+      if (z >= RZ) break;
+#pragma unroll
+      for (int f = 0; f < F; ++f) add(acc[f][z], z, f);
+    }
+  } else {
+    for (int z = 0; z < RZ; ++z) {
+#pragma unroll
+      for (int f = 0; f < F; ++f) add(s_col[(f * p.TZ + z) * n_thr + t], z, f);
     }
   }
 }
@@ -307,8 +396,10 @@ int deposit3d_launch(const float* u, const float* v, const float* w,
                      float psz, int kernel_id, float norm3d,
                      float support_factor, void* stream) {
   if (n_items <= 0) return cudaSuccess;
+  // the walk adds the offset to integer shifts, exactly for these two
+  if (offset != 0.0f && offset != 0.5f) return cudaErrorInvalidValue;
   if (n_fields < 1 || n_fields > kMaxFields3 || K <= 0 || TZ <= 0 || TZ > 255 ||
-      TY <= 0 || TX <= 0 || TY > 255 || TX > 255 ||
+      TY <= 0 || TX <= 0 || TY * TX > kMaxThreads ||
       ntx <= 0 || nty <= 0 || nz <= 0 || ny <= 0 || nx <= 0 || wz <= 0 ||
       wy <= 0 || wx <= 0 || wz * wy * wx > kMaxCombos)
     return cudaErrorInvalidValue;
@@ -333,35 +424,41 @@ int deposit3d_launch(const float* u, const float* v, const float* w,
   p.psy = psy;
   p.psz = psz;
   p.norm3d = norm3d;
-  p.lim = support_factor;
   p.lim2 = support_factor * support_factor;
+  p.rx = support_factor / psx;
+  p.ry = support_factor / psy;
+  p.rz = support_factor / psz;
+  // a thread a column, whole warps; the stage holds two rounds of staging
+  const int threads = (TY * TX + 31) / 32 * 32;
+  p.stage = 2 * threads;
+  const bool regs = TZ <= kRegZ;
   cudaStream_t s = (cudaStream_t)stream;
   int smem_optin = 0;
   cudaError_t err = ast::smem_optin(&smem_optin);
   if (err != cudaSuccess) return err;
-  // the region's sums and the candidate pairs' running counts; the stage is
-  // static
-  const size_t acc_bytes = (size_t)n_fields * TZ * TY * TX * sizeof(float) +
-                           (size_t)(wz * wy * wx + 1) * sizeof(int);
+  const size_t smem = (size_t)p.stage * (3 * sizeof(float4) + sizeof(int2) + n_fields * sizeof(float)) +
+                      (size_t)wz * wy * wx * sizeof(int4) +
+                      (size_t)(wz * wy * wx + 1 + 2 * threads / 32) * sizeof(int) +
+                      (regs ? 0 : (size_t)n_fields * TZ * threads * sizeof(float));
+  if (smem > (size_t)smem_optin) return cudaErrorInvalidConfiguration;
   return ast::dispatch_footprint(kernel_id, 0, [&](auto kid, auto) {
     constexpr int KID = decltype(kid)::value;
-    auto go = [&](auto f) {
-      auto kern = deposit3d_pull_kernel<KID, decltype(f)::value>;
-      cudaFuncAttributes attr;
-      cudaError_t e = cudaFuncGetAttributes(&attr, kern);
+    auto go = [&](auto f, auto z) {
+      auto kern = deposit3d_pull_kernel<KID, decltype(f)::value, decltype(z)::value>;
+      cudaError_t e = ast::allow_smem(kern, smem);
       if (e != cudaSuccess) return e;
-      if (acc_bytes + attr.sharedSizeBytes > (size_t)smem_optin) return cudaErrorInvalidConfiguration;
-      e = ast::allow_smem(kern, acc_bytes);
-      if (e != cudaSuccess) return e;
-      kern<<<n_items, 32, acc_bytes, s>>>(u, v, w, h, vals, ld_vals, pstart, pcount, tabz, taby,
-                                          tabx, items, out, p);
+      kern<<<n_items, threads, smem, s>>>(u, v, w, h, vals, ld_vals, pstart, pcount, tabz, taby, tabx,
+                                         items, out, p);
       return cudaGetLastError();
     };
+    auto depth = [&](auto f) {
+      return regs ? go(f, std::integral_constant<int, kRegZ>{}) : go(f, std::integral_constant<int, 0>{});
+    };
     switch (n_fields) {
-      case 1: return go(std::integral_constant<int, 1>{});
-      case 2: return go(std::integral_constant<int, 2>{});
-      case 3: return go(std::integral_constant<int, 3>{});
-      default: return go(std::integral_constant<int, 4>{});
+      case 1: return depth(std::integral_constant<int, 1>{});
+      case 2: return depth(std::integral_constant<int, 2>{});
+      case 3: return depth(std::integral_constant<int, 3>{});
+      default: return depth(std::integral_constant<int, 4>{});
     }
   });
 }

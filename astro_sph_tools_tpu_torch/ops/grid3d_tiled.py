@@ -31,8 +31,9 @@ are gone:
 
 Spans (``utils/profiling.py``): ``layout.grid3d`` (particles, K4/K8/K16 per
 populated level, n_oversize), ``deposit3d.levels`` (#6 over the levels;
-launches, particles) and ``deposit3d.oversize`` (the route, binning
-included; particles, and on the card launches and tile_pairs).
+launches, particles, and the work lists' candidates and blocks) and
+``deposit3d.oversize`` (the route, binning included; particles, and on the
+card launches and tile_pairs).
 
 Not ported (TPU-only): the SMEM/HBM budget adaptation of the tile heights,
 the packed schedule words and 8-channel packing, and the compile caches.
@@ -293,17 +294,19 @@ def _region_candidates(pcount: Tensor, geom: _Geometry3D, tables) -> Tensor:
 
 
 def _region_items(pcount: Tensor, geom: _Geometry3D, tables):
-    """Thread-block work of one level: ``(items, max_candidates)``, items
-    ``(n_items, 4)`` int32 ``[region, first candidate, end candidate,
-    atomic]``. Regions without candidates get no block; the rest run
-    heaviest first, and a region with more than ``_REGION_CANDIDATES``
-    candidates is shared by ``ceil(count / _REGION_CANDIDATES)`` blocks that
-    add with atomics (flag 1). One host sync (three counts)."""
+    """Thread-block work of one level: ``(items, max_candidates,
+    candidates)``, items ``(n_items, 4)`` int32 ``[region, first candidate,
+    end candidate, atomic]``, ``candidates`` the sum of every region's
+    count, the candidates the blocks stage. Regions without candidates get
+    no block; the rest run heaviest first, and a region with more than
+    ``_REGION_CANDIDATES`` candidates is shared by ``ceil(count /
+    _REGION_CANDIDATES)`` blocks that add with atomics (flag 1). One host
+    sync (four counts)."""
     split = _REGION_CANDIDATES
     counts = _region_candidates(pcount, geom, tables)
     n_split = (counts + (split - 1)) // split
-    n_active, max_count, total = (int(c) for c in torch.stack(
-        [(counts > 0).sum(), counts.max(), n_split.sum()]).tolist())
+    n_active, max_count, total, candidates = (int(c) for c in torch.stack(
+        [(counts > 0).sum(), counts.max(), n_split.sum(), counts.sum()]).tolist())
     dev = pcount.device
     order = torch.argsort(counts, descending=True, stable=True)[:n_active]
     n_split = n_split[order]
@@ -313,7 +316,42 @@ def _region_items(pcount: Tensor, geom: _Geometry3D, tables):
     hi = torch.minimum(counts[region], lo + split)
     atomic = (torch.repeat_interleave(n_split, n_split, output_size=total) > 1).long()
     items = torch.stack([region, lo, hi, atomic], dim=1).to(torch.int32).contiguous()
-    return items, max_count
+    return items, max_count, candidates
+
+
+#: voxels a column's chord is widened by (``csrc/deposit3d.cu``'s kSlack)
+_CHORD_SLACK = 0.01
+
+
+def _axis_range(c: Tensor, r: Tensor, K: int, B: int, offset: float) -> tuple[Tensor, Tensor]:
+    """The box-local index range ``[lo, hi]`` of one axis that the kernel
+    clips a staged candidate to (``csrc/deposit3d.cu::axis_range``, in its
+    f32 arithmetic): the K window around the nearest sample, the box
+    ``[0, B)`` and the support ``c - offset +- r`` rounded outwards, ``r``
+    the support radius in voxels (``h`` times support_factor over the
+    voxel edge)."""
+    j0 = torch.clamp(torch.floor(c - offset + 0.5), -2 * K - 4, B + 2 * K + 4).long() - K // 2
+    lo = torch.maximum(j0.clamp(min=0), torch.floor(c - offset - r).clamp(-1, B).long())
+    hi = torch.minimum((j0 + K - 1).clamp(max=B - 1), torch.ceil(c - offset + r).clamp(-1, B).long())
+    return lo, hi
+
+
+def _chord_range(w: Tensor, sz: Tensor, dxy2: Tensor, lo: Tensor, hi: Tensor, *, lim2: float, offset: float,
+                 slack: float = _CHORD_SLACK) -> tuple[Tensor, Tensor]:
+    """The box-local z indices ``[k_lo, k_hi]`` that a thread walks for a
+    candidate whose support meets its column at ``dxy2`` (the squared
+    normalised offset in x and y), as ``csrc/deposit3d.cu`` bounds them in
+    f32: the indices k of the candidate's clipped range ``[lo, hi]`` with
+    ``|k + offset - w| < sqrt(lim2 - dxy2) / sz + slack`` (none where
+    ``k_lo > k_hi``). The card takes the root by the reciprocal root,
+    multiplies by ``1 / sz`` and compares region-local indices with the
+    centre's region-local index: a few ulp of the chord, which the slack
+    covers."""
+    half = torch.sqrt(lim2 - dxy2) / sz + slack
+    zc = w - offset
+    k_lo = torch.ceil(torch.maximum(zc - half, lo.float())).long()
+    k_hi = torch.floor(torch.minimum(zc + half, hi.float())).long()
+    return k_lo, k_hi
 
 
 def _check_cuda_inputs(u, v, w, h, values, pstart, pcount, grid) -> None:
@@ -373,21 +411,26 @@ def deposit_3d_tiles(
     ``csrc/deposit3d.cu`` (built at first use) and raises if the build or
     the launch fails; on a CPU tensor it runs :func:`deposit_3d_tiles_plain`.
     The kernel sums in f32 FMA arithmetic whatever ``precision=`` the caller
-    chose.
+    chose. On either device the level's work list (:func:`_region_items`)
+    adds its candidates and blocks to ``deposit_3d_tiles.candidates`` and
+    ``.blocks``.
     """
     args = dict(geom=geom, kernel=kernel, periodic=periodic, psx=psx, psy=psy, psz=psz, offset=offset)
-    if u.device.type == "cpu":
-        return deposit_3d_tiles_plain(u, v, w, h, values, pstart, pcount, grid, **args)
-    if u.device.type != "cuda":
+    if u.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no 3D deposit kernel for device {u.device}")
-    _check_cuda_inputs(u, v, w, h, values, pstart, pcount, grid)
+    if u.device.type == "cuda":
+        _check_cuda_inputs(u, v, w, h, values, pstart, pcount, grid)
     cfg = geom.cfg
     nz, ny, nx = grid.shape[1:]
     tables = _candidate_tables(geom, (nz, ny, nx), periodic, u.device)
-    widths = [(t.shape[1] - 1) // 2 for t in tables]
-    items, _ = _region_items(pcount, geom, tables)
+    items, _, candidates = _region_items(pcount, geom, tables)
+    deposit_3d_tiles.candidates += candidates
+    deposit_3d_tiles.blocks += items.shape[0]
+    if u.device.type == "cpu":
+        return deposit_3d_tiles_plain(u, v, w, h, values, pstart, pcount, grid, **args)
     if items.shape[0] == 0:
         return grid
+    widths = [(t.shape[1] - 1) // 2 for t in tables]
     kspec = get_kernel(kernel)
     lib, _ = _build.load("deposit3d")
     with torch.cuda.device(u.device):
@@ -409,6 +452,10 @@ def deposit_3d_tiles(
 
 #: kernel launches made by :func:`deposit_3d_tiles` in this process (CUDA only)
 deposit_3d_tiles.launches = 0
+#: candidates its work lists staged, summed over their blocks (either device)
+deposit_3d_tiles.candidates = 0
+#: thread blocks of its work lists (either device)
+deposit_3d_tiles.blocks = 0
 
 
 # ---------------------------------------------------------------------------
@@ -611,7 +658,7 @@ def deposit_3d_tiled(
     nz, ny, nx = tp.spec.shape
     dev = tp.sorted_u.device
     grid = torch.zeros((tp.n_fields, nz, ny, nx), dtype=torch.float32, device=dev)
-    launches = deposit_3d_tiles.launches
+    launches, candidates, blocks = deposit_3d_tiles.launches, deposit_3d_tiles.candidates, deposit_3d_tiles.blocks
     with span("deposit3d.levels", particles=sum(count for _, _, count in tp.geoms)) as sp:
         for geom, lo, count in tp.geoms:
             sl = slice(lo, lo + count)
@@ -621,7 +668,8 @@ def deposit_3d_tiled(
                 tp.sorted_values[:, sl], pstart, pcount, grid,
                 **_level_args(geom, tp.spec, tp.kernel),
             )
-        sp.count(launches=deposit_3d_tiles.launches - launches)
+        sp.count(launches=deposit_3d_tiles.launches - launches, candidates=deposit_3d_tiles.candidates - candidates,
+                 blocks=deposit_3d_tiles.blocks - blocks)
 
     if tp.n_oversize:
         # oversize stragglers live at the end of the sorted layout with

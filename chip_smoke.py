@@ -3,7 +3,7 @@
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
-    python3 chip_smoke.py                # phases 0-14, 16, 17 and 19-26
+    python3 chip_smoke.py                # phases 0-14, 16, 17 and 19-27
     python3 chip_smoke.py --phases 0,1,2 # a subset, for debugging
 
 It drives the port's main paths — the adaptive-h sorted tile engine behind
@@ -294,7 +294,23 @@ fails (non-zero exit) if any phase fails (phases 19 and 23 run after phase
     ``plain_f64_sum`` (1e-5 * max); and the spans ``deposit.levels`` (the
     sorted engine) and ``deposit.tail`` (the coherent engine on the same
     particles) count, in a traced render, the launches and register-path
-    launches the wrapper made.
+    launches the wrapper made;
+27. kernel #6 at the cube cell's level populations (``cube_level_cases``:
+    ``sphbench``'s EAGLE Ref-L0025N0376 generator at ``CUBE_CELL_SEED``,
+    all 53M gas particles through ``tile_particles_3d`` into a periodic
+    512^3 x 2-field cube, Wendland C2): per K = 4 / 8 / 16 level the
+    particles, the voxels inside the supports (4/3 pi s^3 each), the bound
+    (those pairs at ``sphbench.counting``'s 14 + 2F operations, or the
+    particles and the cube's read and write), the kernel's time (CUDA
+    events, median of 5), the candidates the work list stages per particle,
+    split regions; two launches bit for bit on every voxel of the regions
+    no split shares; kernel and plain version on a strided subset of the
+    level (``CUBE_LEVEL_PLAIN_N`` particles) within 1e-6 * max; and the
+    span ``deposit3d.levels`` counting, in a traced pass, the candidates
+    and blocks the work lists hold. Only the wrapper's surface and
+    ``_region_candidates`` are used, so that a copy of this file placed in
+    a checkout of an earlier tree times that tree's kernel (counters it
+    lacks read None).
 
 Every phase prints one JSON line; the kernels' summary line and the card's
 ``nvidia-smi`` line come before the last line, which is
@@ -664,7 +680,7 @@ def phase_build():
     emit({"phase": "build", "ptxas_by_kernel": {
         name: ptxas_summary(logs, name)
         for name in ("deposit2d_register", "coherent_prep_kernel", "columns_kernel", "column_sums_kernel",
-                     "wide_bin_kernel", "wide_deposit_kernel")
+                     "wide_bin_kernel", "wide_deposit_kernel", "deposit3d_pull_kernel")
     }})
 
 
@@ -2075,6 +2091,104 @@ def grid_route_cases(torch, device) -> dict:
     return row
 
 
+CUBE_LEVEL_PLAIN_N = 1 << 18  # particles of each level phase 27 holds to the plain version
+CUBE_LEVEL_TOL = 1e-6  # phase 27: the kernel against the plain version on that subset, of the max
+
+
+def cube_level_cases(torch, device) -> list:
+    """Kernel #6 at the cube cell's level populations (phase 27; see the
+    module docstring). Written against the wrapper's public surface and
+    ``_region_candidates``, so that the same phase times a parent tree's
+    kernel; counters the tree lacks read None."""
+    from astro_sph_tools_tpu_torch.ops import GridSpec, deposit_3d_tiled, tile_particles_3d
+    from astro_sph_tools_tpu_torch.ops import grid3d_tiled as G
+    from astro_sph_tools_tpu_torch.ops._device import tile_ranges
+    from astro_sph_tools_tpu_torch.utils.profiling import device_trace, spans
+    from sphbench.counting import pair_ops
+    from sphbench.generators import clustered
+
+    with open(os.path.join(ROOT, CUBE_CELL_CONFIG)) as f:
+        cfg = json.load(f)
+    res, kernel = int(cfg["product"]["resolution"]), cfg["kernel"]
+    inputs = clustered.generate(cfg["snapshot"], CUBE_CELL_SEED, device)
+    box = inputs["box"]
+    m = inputs["masses"]
+    spec = GridSpec(shape=(res,) * 3, extent=(0.0, box) * 3, periodic_wrap=True)
+    tp = tile_particles_3d(inputs["positions"], inputs["smoothing_lengths"],
+                           torch.stack([m, m * inputs["temperatures"]]), spec, kernel=kernel, device=device)
+    del inputs, m
+    torch.cuda.empty_cache()
+    F, vox = tp.n_fields, box / res
+    counted = hasattr(G.deposit_3d_tiles, "candidates")
+
+    # the span's counters over one traced pass of the levels
+    before = (G.deposit_3d_tiles.candidates, G.deposit_3d_tiles.blocks) if counted else None
+    with device_trace(device=device):
+        deposit_3d_tiled(tp)
+    span_counts = next((sp["counts"] for sp in spans() if sp["name"] == "deposit3d.levels"), {})
+    made = ((G.deposit_3d_tiles.candidates - before[0], G.deposit_3d_tiles.blocks - before[1]) if counted
+            else None)
+    rows = []
+    for geom, lo, count in tp.geoms:
+        sl = slice(lo, lo + count)
+        pstart, pcount = tile_ranges(tp.sorted_tile[sl], geom.n_tiles)
+        args = (tp.sorted_u[sl], tp.sorted_v[sl], tp.sorted_w[sl], tp.sorted_h[sl], tp.sorted_values[:, sl],
+                pstart, pcount)
+        kw = G._level_args(geom, spec, kernel)
+        tables = G._candidate_tables(geom, spec.shape, True, device)
+        counts = G._region_candidates(pcount, geom, tables)
+        split_region = counts > G._REGION_CANDIDATES
+        candidates = int(counts.sum())
+        got = G.deposit_3d_tiles(*args, torch.zeros((F, res, res, res), device=device), **kw)
+        again = G.deposit_3d_tiles(*args, torch.zeros_like(got), **kw)
+        # bit for bit on every voxel of the regions no split shares
+        split_vox = split_region.view(geom.ntz, geom.nty, geom.ntx)
+        for axis, T_ in ((0, geom.cfg.TZ), (1, geom.cfg.TY), (2, geom.cfg.TX)):
+            split_vox = torch.repeat_interleave(split_vox, T_, dim=axis)
+        split_vox = split_vox[:res, :res, :res]
+        repeat = not bool(((got != again) & ~split_vox).any())
+        del again, split_vox
+        out = torch.zeros_like(got)
+        ms = cuda_ms(lambda: G.deposit_3d_tiles(*args, out, **kw), 5)
+        del out
+        # a strided subset of the level (still tile-sorted), kernel and plain
+        step = max(1, count // CUBE_LEVEL_PLAIN_N)
+        sub_sl = slice(lo, lo + count, step)
+        sub = tuple(a[sub_sl].contiguous() for a in (tp.sorted_u, tp.sorted_v, tp.sorted_w, tp.sorted_h))
+        sub += (tp.sorted_values[:, sub_sl].contiguous(), *tile_ranges(tp.sorted_tile[sub_sl], geom.n_tiles))
+        n_sub = int(sub[0].shape[0])
+        k_sub = G.deposit_3d_tiles(*sub, torch.zeros_like(got), **kw)
+        p_sub = G.deposit_3d_tiles_plain(*sub, torch.zeros_like(got), **kw)
+        err, rel = rel_err(k_sub, p_sub)
+        del k_sub, p_sub, sub
+        pairs = support_points(args[3], 2.0, vox, 3)
+        b = bound(4.0 * (4 + F) * count + 2 * 4.0 * F * res ** 3, pairs * pair_ops(F, kernel))
+        row = {
+            "phase": "cube_levels", "K": geom.cfg.K, "F": F, "particles": count, "n_tiles": geom.n_tiles,
+            "max_pcount": int(pcount.max()), "pairs_inside": pairs, "ms": ms, **b,
+            "s_per_pair": ms * 1e-3 / pairs, "candidates": candidates, "candidates_per_particle": candidates / count,
+            "active_regions": int((counts > 0).sum()), "split_regions": int(split_region.sum()),
+            "max_candidates": int(counts.max()), "plain_subset_n": n_sub,
+            "plain_max_abs_err": err, "plain_rel_err": rel, "repeatable_unsplit": repeat,
+        }
+        emit(row)
+        rows.append(row)
+        del got, args
+        check(rel <= CUBE_LEVEL_TOL, f"K={geom.cfg.K}: kernel #6 off its plain version: {row}")
+        check(repeat, f"K={geom.cfg.K}: two launches of kernel #6 differ on unsplit regions")
+        check(ms >= b["bound_ms"], f"K={geom.cfg.K}: kernel #6 under its bound: {row}")
+    total = sum(r["candidates"] for r in rows)
+    emit({"phase": "cube_levels", "counted": counted, "span": span_counts,
+          "made": list(made) if made else None, "candidates": total,
+          "kernel_ms": sum(r["ms"] for r in rows), "bound_ms": sum(r["bound_ms"] for r in rows)})
+    if counted:
+        check(span_counts.get("candidates") == made[0] == total and span_counts.get("blocks") == made[1] > 0,
+              f"deposit3d.levels counts {span_counts}, the work lists {total} candidates, made {made}")
+    del tp
+    torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # config 4: sightline columns and absorption spectra
 # ---------------------------------------------------------------------------
@@ -2635,7 +2749,7 @@ def region_work(torch, geom, spec, pcount, periodic=None) -> dict:
 
     periodic = spec.periodic_wrap if periodic is None else periodic
     tables = _candidate_tables(geom, spec.shape, periodic, pcount.device)
-    items, max_cand = _region_items(pcount, geom, tables)
+    items, max_cand, _ = _region_items(pcount, geom, tables)
     counts = _region_candidates(pcount, geom, tables)
     return {"regions": int((counts > 0).sum()), "blocks": items.shape[0],
             "split_blocks": int(items[:, 3].sum()), "max_candidates": max_cand,
@@ -4949,7 +5063,7 @@ def phase_rest(torch, device, particles, fidelity_out: str) -> dict:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,19,23,10,11,12,13,14,25,26,16,17,20,21,22,24",
+    parser.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,19,23,10,11,12,13,14,25,26,27,16,17,20,21,22,24",
                         help="comma-separated phases to run (15 and 18 only when named)")
     parser.add_argument("--log2n", type=int, default=MAIN_LOG2N, help="log2 of the main path's particle count")
     parser.add_argument("--sight-n", type=int, default=SIGHT_N, help="gas particles of phases 10-12")
@@ -5024,6 +5138,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     grid_out = grid_route_cases(torch, device) if 25 in phases else None
     box_rows = box_level_cases(torch, device) if 26 in phases else []
+    cube_rows = cube_level_cases(torch, device) if 27 in phases else []
     rp, rand_gen_s = random_particles(torch, device, args.rand_log2n) if phases & {16, 17} else (None, 0.0)
     app_cases = phase_append_kernel(torch, device, rp) if 16 in phases else []
     rand_out = phase_random(torch, device, rp, rand_gen_s) if 17 in phases else None
@@ -5207,6 +5322,9 @@ def main() -> None:
             "ms": vox_case["ms"] if vox_case else None,
             "plain_ms": vox_case["plain_ms"] if vox_case else None,
             **bound_keys(vox_case),
+            # the cube cell's K = 4 / 8 / 16 levels (phase 27)
+            "cube_levels": {r["K"]: {"ms": r["ms"], "bound_ms": r["bound_ms"], "plain_rel_err": r["plain_rel_err"],
+                                     "candidates_per_particle": r["candidates_per_particle"]} for r in cube_rows},
             **par_launches("deposit3d"),
         },
         {

@@ -11,7 +11,9 @@ fidelity budget), 2e-5 * max against JAX (each engine rounds f32 voxel
 coordinates its own way; XLA on the CPU does not round f32 division and sqrt
 as IEEE does).
 
-The CUDA tests need a card and skip here.
+The CUDA tests need a card and skip here. The card's machine has no JAX:
+there they run alone, ``python -m pytest --noconftest -m cuda
+tests/test_torch_grid3d_tiled.py``.
 """
 
 import importlib
@@ -20,11 +22,15 @@ import numpy as np
 import pytest
 import torch
 
-from astro_sph_tools_tpu.ops import grid3d as JG
-from astro_sph_tools_tpu.ops import grid3d_pallas as JP
 from astro_sph_tools_tpu_torch.ops import GridSpec, deposit_3d
 from astro_sph_tools_tpu_torch.ops._device import PRECISIONS_3D, tile_ranges
 from oracles import grid3d_oracle
+
+try:
+    from astro_sph_tools_tpu.ops import grid3d as JG
+    from astro_sph_tools_tpu.ops import grid3d_pallas as JP
+except ImportError:  # only the CUDA tests, which need no JAX, can run
+    JG = JP = None
 
 T = importlib.import_module("astro_sph_tools_tpu_torch.ops.grid3d_tiled")
 
@@ -309,8 +315,8 @@ def test_region_items_split_dense_regions(monkeypatch):
     counts = T._region_candidates(pcount, geom, tables)
     assert counts.tolist() == [305] * 27  # 3 tiles a side: every region sees every tile once
     monkeypatch.setattr(T, "_REGION_CANDIDATES", 128)
-    items, max_count = T._region_items(pcount, geom, tables)
-    assert max_count == 305 and items.dtype == torch.int32
+    items, max_count, candidates = T._region_items(pcount, geom, tables)
+    assert max_count == 305 and candidates == 305 * 27 and items.dtype == torch.int32
     assert items.shape[0] == 27 * 3 and bool((items[:, 3] == 1).all())
     for r in range(27):
         mine = items[items[:, 0] == r]
@@ -322,25 +328,27 @@ def test_region_items_split_dense_regions(monkeypatch):
     pcount[62] = 40  # tile (2, 2, 2): regions (1..3)^3
     pcount[0] = 3  # tile (0, 0, 0): regions (0..1)^3, no wrap
     tables = T._candidate_tables(geom, (40, 40, 40), False, "cpu")
-    items, max_count = T._region_items(pcount, geom, tables)
-    assert max_count == 43 and bool((items[:, 3] == 0).all())
+    items, max_count, candidates = T._region_items(pcount, geom, tables)
+    assert max_count == 43 and candidates == 43 + 40 * 26 + 3 * 7 and bool((items[:, 3] == 0).all())
     near_62 = sorted((z * 5 + y) * 5 + x for z in (1, 2, 3) for y in (1, 2, 3) for x in (1, 2, 3))
     near_0 = sorted((z * 5 + y) * 5 + x for z in (0, 1) for y in (0, 1) for x in (0, 1))
     assert items[:, 0].tolist() == [31] + [r for r in near_62 if r != 31] + [r for r in near_0 if r != 31]
     assert items[:, 2].tolist() == [43] + [40] * 26 + [3] * 7 and bool((items[:, 1] == 0).all())
 
 
-def _pull_emulated(u, v, w, h, values, pstart, pcount, grid, *, geom, kernel, periodic, psx, psy, psz, offset):
-    """The CUDA kernel's algorithm in torch: per block of the work list, its
-    region's candidates (every particle of every (z, y, x) candidate pair,
-    in the kernel's order, sliced to the block's range), each clipped to
-    the region through its shift, summed into the region's voxels."""
+def _staged(u, v, w, h, pstart, pcount, shape, *, geom, kernel, periodic, psx, psy, psz, offset):
+    """The kernel's stage, block by block of its work list: the region
+    (tz, ty, tx), its extent R per axis, and the candidates it keeps (every
+    particle of every (z, y, x) candidate pair, in the kernel's order,
+    sliced to the block's range; those with h > 0 whose clipped range is
+    non-empty on every axis): their particle indices, shifts (n, 3), and
+    per axis (z, y, x) the normalised distance a voxel and the box-local
+    clipped range [lo, hi] (``T._axis_range`` within the region)."""
     cfg = geom.cfg
-    Ts, Bs, K = (cfg.TZ, cfg.TY, cfg.TX), cfg.box, cfg.K
-    shape = tuple(grid.shape[1:])
-    tables = T._candidate_tables(geom, shape, periodic, grid.device)
-    items, _ = T._region_items(pcount, geom, tables)
-    ks = T.get_kernel(kernel)
+    Ts, Bs = (cfg.TZ, cfg.TY, cfg.TX), cfg.box
+    tables = T._candidate_tables(geom, shape, periodic, u.device)
+    items, _, _ = T._region_items(pcount, geom, tables)
+    lim = T.get_kernel(kernel).support_factor
     coords, cell = (w, v, u), (psz, psy, psx)
     for region, lo, hi, _ in items.tolist():
         tz, rem = divmod(region, geom.nty * geom.ntx)
@@ -357,23 +365,62 @@ def _pull_emulated(u, v, w, h, values, pstart, pcount, grid, *, geom, kernel, pe
                     shift += [[rows[a][2 + 2 * c] for a, c in enumerate((cz, cy, cx))]] * n0
         idx = torch.tensor(cand[lo:hi], dtype=torch.long)
         d = torch.tensor(shift[lo:hi], dtype=torch.long).reshape(-1, 3)
-        inv_h = torch.where(h[idx] > 0, 1.0 / h[idx], 0.0)
-        vals = values[:, idx] * ((ks.norm_3d * inv_h) * (inv_h * inv_h))
-        q2 = torch.zeros(len(idx), *Ts)
-        ok = torch.ones(len(idx), *Ts, dtype=torch.bool)
         R = [min(Ts[a], shape[a] - t3[a] * Ts[a]) for a in range(3)]
+        inv_h = torch.where(h[idx] > 0, 1.0 / h[idx], 0.0)
+        scale, ranges = [], []
+        keep = h[idx] > 0
         for a in range(3):
-            c = coords[a][idx]
-            r = torch.arange(Ts[a])
-            j = r[None, :] - d[:, a:a + 1]  # box-local index
-            j0 = (torch.floor(c - offset + 0.5).long() - K // 2)[:, None]
-            ok_a = (j >= j0) & (j < j0 + K) & (j >= 0) & (j < Bs[a]) & (r[None, :] < R[a])
-            dn = ((j.float() + offset) - c[:, None]) * (cell[a] * inv_h)[:, None]
-            sh = [len(idx), 1, 1, 1]
-            sh[a + 1] = Ts[a]
-            q2 = q2 + (dn * dn).reshape(sh)
-            ok = ok & ok_a.reshape(sh)
-        wgt = torch.where(ok & (q2 < ks.support_factor**2), ks.shape_q(torch.sqrt(q2)), 0.0)
+            sc = cell[a] * inv_h
+            reach = torch.tensor(lim, dtype=torch.float32) / torch.tensor(cell[a], dtype=torch.float32)
+            blo, bhi = T._axis_range(coords[a][idx], h[idx] * reach, cfg.K, Bs[a], offset)
+            blo, bhi = torch.maximum(blo, -d[:, a]), torch.minimum(bhi, R[a] - 1 - d[:, a])
+            keep &= blo <= bhi
+            scale.append(sc)
+            ranges.append((blo, bhi))
+        yield t3, R, idx[keep], d[keep], [sc[keep] for sc in scale], [(a[keep], b[keep]) for a, b in ranges]
+
+
+def _columns(idx, d, scale, ranges, coords, Ts, offset, lim2):
+    """Each staged candidate's walk over the region's (x, y) columns:
+    normalised offsets per axis (z, y, x) at the region's voxels (n, T),
+    dxy2 (n, TY, TX) as the kernel sums it, whether the column lies in the
+    clipped range and meets the support, and the chord's box-local z range
+    (``T._chord_range``, (n, TY, TX) each)."""
+    dn, box = [], []
+    for a in range(3):
+        j = torch.arange(Ts[a])[None, :] - d[:, a:a + 1]  # box-local index of the region's voxels
+        dn.append(((j.float() + offset) - coords[a][idx][:, None]) * scale[a][:, None])
+        box.append(j)
+    _, dy, dx = dn
+    dxy2 = (dx * dx)[:, None, :] + (dy * dy)[:, :, None]
+    inside = [(box[a] >= ranges[a][0][:, None]) & (box[a] <= ranges[a][1][:, None]) for a in range(3)]
+    col = inside[1][:, :, None] & inside[2][:, None, :] & (dxy2 < lim2)
+    zlo, zhi = (r[:, None, None] for r in ranges[0])
+    k_lo, k_hi = T._chord_range(coords[0][idx][:, None, None], scale[0][:, None, None], dxy2, zlo, zhi,
+                                lim2=lim2, offset=offset)
+    return dn, box, dxy2, inside, col, (k_lo, k_hi)
+
+
+def _pull_emulated(u, v, w, h, values, pstart, pcount, grid, *, geom, kernel, periodic, psx, psy, psz, offset):
+    """The CUDA kernel's algorithm in torch: per block of the work list, its
+    staged candidates (``_staged``); per (x, y) column of the region that a
+    candidate's clipped range holds and its support meets, the voxels of
+    the chord (``_columns``) inside the support, summed into the region's
+    voxels."""
+    cfg = geom.cfg
+    Ts = (cfg.TZ, cfg.TY, cfg.TX)
+    shape = tuple(grid.shape[1:])
+    ks = T.get_kernel(kernel)
+    lim2 = ks.support_factor**2
+    kw = dict(geom=geom, kernel=kernel, periodic=periodic, psx=psx, psy=psy, psz=psz, offset=offset)
+    for t3, R, idx, d, scale, ranges in _staged(u, v, w, h, pstart, pcount, shape, **kw):
+        dn, box, dxy2, _, col, (k_lo, k_hi) = _columns(idx, d, scale, ranges, (w, v, u), Ts, offset, lim2)
+        jz = box[0][:, :, None, None]
+        q2 = dxy2[:, None] + (dn[0] * dn[0])[:, :, None, None]  # (n, Tz, Ty, Tx)
+        walk = col[:, None] & (jz >= k_lo[:, None]) & (jz <= k_hi[:, None]) & (q2 < lim2)
+        wgt = torch.where(walk, ks.shape_q(torch.sqrt(q2)), 0.0)
+        inv_h = 1.0 / h[idx]
+        vals = values[:, idx] * ((ks.norm_3d * inv_h) * (inv_h * inv_h))
         blk = torch.einsum("fp,pzyx->fzyx", vals, wgt)
         o = [t3[a] * Ts[a] for a in range(3)]
         grid[:, o[0]:o[0] + R[0], o[1]:o[1] + R[1], o[2]:o[2] + R[2]] += blk[:, :R[0], :R[1], :R[2]]
@@ -431,6 +478,81 @@ def test_pull_work_list_dense_tile(monkeypatch):
     assert rel_err(got, jax_plain(pos, h, vals, spec.shape, True)) < PATH_TOL
 
 
+# (grid, periodic): the CUDA tests' awkward grids, the folded 4 x 6 x 20
+# periodic box among them
+CHORD_GRIDS = {
+    "periodic_20": ((20, 20, 20), True),
+    "open_20": ((20, 20, 20), False),
+    "folded_4x6x20": ((4, 6, 20), True),
+    "per_axis": ((24, 16, 40), (True, False, True)),
+}
+
+
+@pytest.mark.parametrize("li", range(3))
+@pytest.mark.parametrize("name", sorted(CHORD_GRIDS))
+def test_chords_hold_every_support_voxel(name, li):
+    """Brute force over every staged (candidate, column) of the work list:
+    each voxel of the candidate's clipped box with q^2 < lim^2 (the kernel's
+    f32 sums) lies in a column that the column test keeps, and inside the
+    chord the thread walks, also with half the slack (the other half covers
+    the card's own rounding of dxy2, the root and the division). Supports at
+    the level's upper edge (s = 1, 3, 7 voxels), just above its lower edge,
+    and between."""
+    shape, periodic = CHORD_GRIDS[name]
+    rng = np.random.default_rng(sorted(CHORD_GRIDS).index(name) * 3 + li + 190)
+    npix = max(shape)
+    vox = BOX / npix
+    pos, h, vals = level_particles(rng, li, 300, 1, npix, spread=0.03)
+    lo_s = 0.4 if li == 0 else T.PALLAS_3D_LEVELS[li - 1].max_s_vox
+    h[:100] = T.PALLAS_3D_LEVELS[li].max_s_vox * vox / 2.0
+    h[100:150] = np.nextafter(lo_s, np.inf) * vox / 2.0
+    spec = GridSpec(shape, EXT, periodic_wrap=periodic if isinstance(periodic, bool) else False)
+    geom, args = sorted_level_inputs(pos, h, vals, spec, T.PALLAS_3D_LEVELS[li])
+    kw = T._level_args(geom, spec, "cubic_spline")
+    kw["periodic"] = periodic
+    u, v, w, hh, _, pstart, pcount = args
+    Ts = (geom.cfg.TZ, geom.cfg.TY, geom.cfg.TX)
+    lim2 = T.get_kernel("cubic_spline").support_factor ** 2
+    support = walked = 0
+    for _, _, idx, d, scale, ranges in _staged(u, v, w, hh, pstart, pcount, shape, **kw):
+        dn, box, dxy2, inside, col, (k_lo, k_hi) = _columns(idx, d, scale, ranges, (w, v, u), Ts, kw["offset"], lim2)
+        q2 = dxy2[:, None] + (dn[0] * dn[0])[:, :, None, None]
+        sup = inside[0][:, :, None, None] & inside[1][:, None, :, None] & inside[2][:, None, None, :] & (q2 < lim2)
+        assert not bool((sup & ~col[:, None]).any())
+        jz = box[0][:, :, None, None]
+        for lo, hi in ((k_lo, k_hi), T._chord_range(
+                w[idx][:, None, None], scale[0][:, None, None], dxy2, ranges[0][0][:, None, None],
+                ranges[0][1][:, None, None], lim2=lim2, offset=kw["offset"], slack=T._CHORD_SLACK / 2)):
+            assert not bool((sup & ((jz < lo[:, None]) | (jz > hi[:, None]))).any())
+        support += int(sup.sum())
+        walked += int(torch.where(col, (k_hi - k_lo + 1).clamp(min=0), 0).sum())
+    # every support voxel walked; the chords' slack adds few others
+    assert 0 < support <= walked <= 1.25 * support + 1000
+
+
+def test_wrapper_counts_its_work_lists(monkeypatch):
+    """``deposit_3d_tiles.candidates`` grows by the sum of
+    ``_region_candidates`` over the active regions and ``.blocks`` by the
+    work list's blocks (on the CPU too, where the plain version runs), here
+    with regions split over blocks whose slices cover each region's
+    candidates once."""
+    monkeypatch.setattr(T, "_REGION_CANDIDATES", 256)
+    rng = np.random.default_rng(181)
+    spec = GridSpec((24, 24, 24), EXT, periodic_wrap=True)
+    pos, h, vals = level_particles(rng, 1, 3000, 1, 24)
+    pos[:2000] = rng.uniform(0.0, BOX / 3, (2000, 3))  # one busy tile
+    geom, args = sorted_level_inputs(pos, h, vals, spec, T.PALLAS_3D_LEVELS[1])
+    tables = T._candidate_tables(geom, spec.shape, True, "cpu")
+    counts = T._region_candidates(args[6], geom, tables)
+    items, max_count, candidates = T._region_items(args[6], geom, tables)
+    assert candidates == int(counts[counts > 0].sum()) == int((items[:, 2] - items[:, 1]).sum())
+    assert max_count > 256 and int(items[:, 3].sum()) > 0
+    before = T.deposit_3d_tiles.candidates, T.deposit_3d_tiles.blocks, T.deposit_3d_tiles.launches
+    T.deposit_3d_tiles(*args, torch.zeros((1, 24, 24, 24)), **T._level_args(geom, spec, "cubic_spline"))
+    after = T.deposit_3d_tiles.candidates, T.deposit_3d_tiles.blocks, T.deposit_3d_tiles.launches
+    assert tuple(b - a for a, b in zip(before, after)) == (candidates, items.shape[0], 0)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -439,42 +561,74 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n_fields", [1, 2, 3, 4])
 @pytest.mark.parametrize("periodic", [True, False])
-def test_cuda_kernel_matches_plain(cuda_device, periodic):
-    """The CUDA kernel against its plain version on the card, every level."""
-    rng = np.random.default_rng(101)
+def test_cuda_kernel_matches_plain(cuda_device, periodic, n_fields):
+    """The CUDA kernel against its plain version on the card, every level,
+    F = 1-4, and two launches bit for bit (no region is split here)."""
+    rng = np.random.default_rng(101 + n_fields)
     spec = GridSpec((64,) * 3, EXT, periodic_wrap=periodic)
     for li in range(3):
-        pos, h, vals = level_particles(rng, li, 20000, 4, 64, spread=0.02)
+        pos, h, vals = level_particles(rng, li, 20000, n_fields, 64, spread=0.02)
         geom, args = sorted_level_inputs(pos, h, vals, spec, T.PALLAS_3D_LEVELS[li])
         args = [a.to(cuda_device) for a in args]
         kw = T._level_args(geom, spec, "cubic_spline")
-        got = T.deposit_3d_tiles(*args, torch.zeros((4, 64, 64, 64), device=cuda_device), **kw)
-        ref = T.deposit_3d_tiles_plain(*args, torch.zeros((4, 64, 64, 64), device=cuda_device), **kw)
+        got = T.deposit_3d_tiles(*args, torch.zeros((n_fields, 64, 64, 64), device=cuda_device), **kw)
+        again = T.deposit_3d_tiles(*args, torch.zeros_like(got), **kw)
+        ref = T.deposit_3d_tiles_plain(*args, torch.zeros_like(got), **kw)
         torch.cuda.synchronize()
         assert rel_err(got.cpu(), ref.cpu()) <= TOL
+        assert torch.equal(got, again)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n_fields", [1, 2, 3, 4])
 @pytest.mark.parametrize("shape,periodic", [
     ((20, 20, 20), True), ((20, 20, 20), False), ((4, 6, 20), True), ((24, 16, 40), (True, False, True)),
 ])
-def test_cuda_kernel_matches_plain_on_awkward_grids(cuda_device, shape, periodic):
+def test_cuda_kernel_matches_plain_on_awkward_grids(cuda_device, shape, periodic, n_fields):
     """Grids the tiles do not divide, boxes that fold over a small periodic
-    axis, and per-axis periodicity, every level, with regions split over
-    blocks: the kernel against its plain version on the card."""
-    rng = np.random.default_rng(121)
+    axis, and per-axis periodicity, every level, F = 1-4, with regions whole
+    and split over blocks: the kernel against its plain version on the
+    card."""
+    rng = np.random.default_rng(121 + n_fields)
     spec = GridSpec(shape, EXT, periodic_wrap=periodic if isinstance(periodic, bool) else False)
     for li in range(3):
-        pos, h, vals = level_particles(rng, li, 3000, 3, max(shape), spread=0.02)
+        pos, h, vals = level_particles(rng, li, 3000, n_fields, max(shape), spread=0.02)
         geom, args = sorted_level_inputs(pos, h, vals, spec, T.PALLAS_3D_LEVELS[li])
         args = [a.to(cuda_device) for a in args]
         kw = T._level_args(geom, spec, "cubic_spline")
         kw["periodic"] = periodic
-        got = T.deposit_3d_tiles(*args, torch.zeros((3, *shape), device=cuda_device), **kw)
-        ref = T.deposit_3d_tiles_plain(*args, torch.zeros((3, *shape), device=cuda_device), **kw)
-        torch.cuda.synchronize()
-        assert rel_err(got.cpu(), ref.cpu()) <= TOL
+        for split in (T._REGION_CANDIDATES, 512):
+            T._REGION_CANDIDATES, default = split, T._REGION_CANDIDATES
+            try:
+                got = T.deposit_3d_tiles(*args, torch.zeros((n_fields, *shape), device=cuda_device), **kw)
+            finally:
+                T._REGION_CANDIDATES = default
+            ref = T.deposit_3d_tiles_plain(*args, torch.zeros_like(got), **kw)
+            torch.cuda.synchronize()
+            assert rel_err(got.cpu(), ref.cpu()) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiles", [(16, 8, 8), (16, 16, 16), (4, 8, 32)])
+def test_cuda_kernel_on_other_tile_geometries(cuda_device, tiles):
+    """Tiles deeper than the registers hold (their sums in each thread's own
+    shared-memory column) and shallower ones, every level, F = 2 and 4,
+    against the plain version on the card."""
+    rng = np.random.default_rng(131)
+    spec = GridSpec((32,) * 3, EXT, periodic_wrap=True)
+    for li, base in enumerate(T.PALLAS_3D_LEVELS):
+        cfg = T.Pallas3DConfig(K=base.K, TZ=tiles[0], TY=tiles[1], TX=tiles[2])
+        for n_fields in (2, 4):
+            pos, h, vals = level_particles(rng, li, 5000, n_fields, 32, spread=0.02)
+            geom, args = sorted_level_inputs(pos, h, vals, spec, cfg)
+            args = [a.to(cuda_device) for a in args]
+            kw = T._level_args(geom, spec, "cubic_spline")
+            got = T.deposit_3d_tiles(*args, torch.zeros((n_fields, 32, 32, 32), device=cuda_device), **kw)
+            ref = T.deposit_3d_tiles_plain(*args, torch.zeros_like(got), **kw)
+            torch.cuda.synchronize()
+            assert rel_err(got.cpu(), ref.cpu()) <= TOL
 
 
 @pytest.mark.cuda

@@ -29,7 +29,13 @@ from astro_sph_tools_tpu_torch.ops.deposit import MapSpec
 from astro_sph_tools_tpu_torch.ops.deposit_coherent import tile_particles_coherent
 from astro_sph_tools_tpu_torch.ops.deposit_tiled import tile_particles
 from astro_sph_tools_tpu_torch.ops.grid3d import GridSpec
-from astro_sph_tools_tpu_torch.ops.grid3d_tiled import tile_particles_3d
+from astro_sph_tools_tpu_torch.ops._device import tile_ranges
+from astro_sph_tools_tpu_torch.ops.grid3d_tiled import (
+    _candidate_tables,
+    _region_candidates,
+    _region_items,
+    tile_particles_3d,
+)
 from astro_sph_tools_tpu_torch.utils import profiling
 from astro_sph_tools_tpu_torch.utils.profiling import count, device_trace, span, spans
 
@@ -241,8 +247,31 @@ def test_grid3d_layout_counters_add_up_to_the_particles(cube_snap):
     layout = one(records, "layout.grid3d")
     assert layout == {"particles": N, "n_oversize": tp.n_oversize, **levels}
     assert sum(v for k, v in layout.items() if k.startswith("K")) + layout["n_oversize"] == layout["particles"]
-    assert one(records, "deposit3d.levels") == {"particles": sum(levels.values()), "launches": 0}  # no CUDA here
+    lv = one(records, "deposit3d.levels")
+    assert {k: lv[k] for k in ("particles", "launches")} == {"particles": sum(levels.values()), "launches": 0}
     assert one(records, "deposit3d.oversize") == {"particles": tp.n_oversize}
+
+
+def test_grid3d_level_counters_equal_the_work_lists(cube_snap):
+    """The span ``deposit3d.levels`` counts the candidates and the thread
+    blocks of every level's work list: the sum of ``_region_candidates``
+    over the active regions, and ``_region_items``' blocks (on the CPU too,
+    where the plain version runs and no kernel launches)."""
+    _, records, _ = profiled(lambda: cube_render(cube_snap))
+    pos = cube_snap.get_positions(ParticleType.gas).to_value("Mpc")
+    h = cube_snap.get_smoothing_lengths(ParticleType.gas).to_value("Mpc")
+    spec = GridSpec((GRID_RES,) * 3, (0.0, BOX) * 3, periodic_wrap=True)
+    tp = tile_particles_3d(pos, h, torch.ones(N), spec, kernel="wendland_c2", device="cpu")
+    candidates = blocks = 0
+    for geom, lo, c in tp.geoms:
+        _, pcount = tile_ranges(tp.sorted_tile[lo:lo + c], geom.n_tiles)
+        tables = _candidate_tables(geom, spec.shape, True, "cpu")
+        counts = _region_candidates(pcount, geom, tables)
+        candidates += int(counts[counts > 0].sum())
+        blocks += _region_items(pcount, geom, tables)[0].shape[0]
+    assert candidates > 0 and blocks > 0
+    assert one(records, "deposit3d.levels") == {"particles": sum(c for _, _, c in tp.geoms), "launches": 0,
+                                                "candidates": candidates, "blocks": blocks}
 
 
 def test_halo_counters_add_up_over_the_oversize_route(halo_inputs):
