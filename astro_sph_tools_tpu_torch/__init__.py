@@ -18,7 +18,7 @@ from ._cpu_math import warm_cpu_math
 warm_cpu_math()
 
 from .data_structures import Cosmology, CoordinateAxes, ParticleType
-from .render import MapStack, render_grid_stack, render_halo_maps, render_map_stack
+from .render import MapStack, Sightlines, render_grid_stack, render_halo_maps, render_map_stack, render_sightlines
 from .units import UnitArray, unit_array, unit_quantity
 
 __all__ = [
@@ -33,4 +33,6 @@ __all__ = [
     "render_grid_stack",
     "render_halo_maps",
     "render_map_stack",
+    "render_sightlines",
+    "Sightlines",
 ]

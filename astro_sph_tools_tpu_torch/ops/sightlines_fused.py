@@ -29,6 +29,11 @@ of its rays' cells per wrapped row plus an x-wrap span
 (:func:`_level_schedule`), from a host copy of the bounds table;
 :func:`unsort_sum` takes the blocks back to the caller's ray order.
 
+Spans (``utils/profiling.py``): ``layout.rays`` around each ray staging
+(here :func:`_columns_layout`: particles, rays, levels, items; the spectra's
+in ``ops/spectra_fused.py``: blocks in place of items) and
+``sightlines.columns`` around kernel #4 (launches, rays, items).
+
 The TPU kernel's packed 24-bit schedule words, empty-unit compaction and
 power-of-two step padding existed for its SMEM and its sequential grid; the
 pow2 particle padding for its compiled-program cache. None is ported.
@@ -45,6 +50,7 @@ import torch
 
 from .. import _build
 from ..kernels.splines import clenshaw, get_kernel, integrated_kernel_chebyshev
+from ..utils.profiling import span
 from ._device import as_f32, device_const
 from .sightlines import _host
 
@@ -647,32 +653,38 @@ def column_integrate_pallas(
     if layout is None:
         zero = torch.zeros((n_fields, n_rays_in), dtype=torch.float32, device=device)
         return zero[0] if single else zero
-    totals = columns_tiles(
-        layout.packed, layout.bounds, layout.rx, layout.ry, layout.rays, layout.grids, n_fields=n_fields,
-        kernel=kernel, projection=projection, periodic=layout.periodic, Lx=layout.Lx, Ly=layout.Ly,
-    )  # (F, n_rays)
+    launches = columns_tiles.launches
+    with span("sightlines.columns", rays=layout.n_rays, items=layout.n_items) as sp:
+        totals = columns_tiles(
+            layout.packed, layout.bounds, layout.rx, layout.ry, layout.rays, layout.grids, n_fields=n_fields,
+            kernel=kernel, projection=projection, periodic=layout.periodic, Lx=layout.Lx, Ly=layout.Ly,
+        )  # (F, n_rays)
+        sp.count(launches=columns_tiles.launches - launches)
     return totals[0] if single else totals
 
 
 def _columns_layout(x, y, h, values, ray_x, ray_y, *, kernel: str, periodic_box, device):
     """(ColumnLayout or None, n_fields, single) of a columns pass on
-    ``device``; None when there is no particle."""
-    values = as_f32(values, device)
-    single = values.ndim == 1
-    if single:
-        values = values[:, None]
-    n_fields = values.shape[1]
-    if n_fields > _MAX_FIELDS:
-        raise ValueError(f"the fused sightline engine supports at most {_MAX_FIELDS} fields per pass")
-    x, y, h = as_f32(x, device), as_f32(y, device), as_f32(h, device)
-    if h.shape[0] == 0:
-        return None, n_fields, single
-    S = get_kernel(kernel).support_factor
-    rays = np.stack([_host(ray_x, np.float64), _host(ray_y, np.float64)])
-    rays, x0, y0, Lx, Ly, s_max = _domain(x, y, h, rays, S, periodic_box)
-    grids = _choose_grids(Lx, Ly, s_max)
-    periodic = periodic_box is not None
-    packed, bounds = _sort_particles(x, y, h, list(values.T), grids, S, (x0, y0, Lx, Ly), periodic)
-    rx, ry, table, grid_rows = _ray_table(rays, grids, x0, y0, Lx, Ly, device)
-    return ColumnLayout(packed=packed, bounds=bounds, rx=rx, ry=ry, rays=table, grids=grid_rows,
-                        periodic=periodic, Lx=Lx, Ly=Ly), n_fields, single
+    ``device``; None when there is no particle. Span ``layout.rays``."""
+    with span("layout.rays") as sp:
+        values = as_f32(values, device)
+        single = values.ndim == 1
+        if single:
+            values = values[:, None]
+        n_fields = values.shape[1]
+        if n_fields > _MAX_FIELDS:
+            raise ValueError(f"the fused sightline engine supports at most {_MAX_FIELDS} fields per pass")
+        x, y, h = as_f32(x, device), as_f32(y, device), as_f32(h, device)
+        if h.shape[0] == 0:
+            return None, n_fields, single
+        S = get_kernel(kernel).support_factor
+        rays = np.stack([_host(ray_x, np.float64), _host(ray_y, np.float64)])
+        rays, x0, y0, Lx, Ly, s_max = _domain(x, y, h, rays, S, periodic_box)
+        grids = _choose_grids(Lx, Ly, s_max)
+        periodic = periodic_box is not None
+        packed, bounds = _sort_particles(x, y, h, list(values.T), grids, S, (x0, y0, Lx, Ly), periodic)
+        rx, ry, table, grid_rows = _ray_table(rays, grids, x0, y0, Lx, Ly, device)
+        layout = ColumnLayout(packed=packed, bounds=bounds, rx=rx, ry=ry, rays=table, grids=grid_rows,
+                              periodic=periodic, Lx=Lx, Ly=Ly)
+        sp.count(particles=int(h.shape[0]), rays=layout.n_rays, levels=len(grid_rows), items=layout.n_items)
+        return layout, n_fields, single

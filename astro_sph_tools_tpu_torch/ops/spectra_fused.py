@@ -17,6 +17,12 @@ exp(-36)); for ``profile="voigt"`` it used the same Gaussian rule, which
 drops the damping wings' far images and leaves tau near the antipode up to
 ~50 % low. This engine sums the 7 images of ``ops/spectra.py::_profile_sum``
 for Voigt, as the dense and binned engines do.
+
+Spans (``utils/profiling.py``): ``layout.rays`` around the staging,
+:func:`_spectra_layout` (the per-particle inputs and :func:`stage_rays`;
+particles, rays, populated levels, blocks), and ``sightlines.spectra``
+around kernel #5 (launches, rays, blocks, bins, and the velocity images
+summed, 2 n + 1, or 1 without a wrap).
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import torch
 
 from .. import _build
 from ..kernels.splines import clenshaw, get_kernel, integrated_kernel_chebyshev
+from ..utils.profiling import span
 from ._device import device_const
 from .sightlines_fused import (
     _RAY_BATCH,
@@ -338,11 +345,15 @@ def absorption_spectra_pallas(
     )
     if layout is None:
         return torch.zeros((n_rays_in, n_bins), dtype=torch.float32, device=device), v_centres
-    out = spectra_tiles(
-        layout.packed, layout.rx, layout.ry, layout.lo, layout.hi,
-        torch.as_tensor(v_centres, device=device), kernel=kernel, periodic=layout.periodic,
-        Lx=layout.Lx, Ly=layout.Ly, v_box=v_box, n_images=n_images, profile=profile, voigt_k=voigt_k,
-    )
+    launches = spectra_tiles.launches
+    images = 2 * n_images + 1 if v_box is not None else 1
+    with span("sightlines.spectra", rays=n_rays_in, blocks=layout.n_blocks, bins=n_bins, images=images) as sp:
+        out = spectra_tiles(
+            layout.packed, layout.rx, layout.ry, layout.lo, layout.hi,
+            torch.as_tensor(v_centres, device=device), kernel=kernel, periodic=layout.periodic,
+            Lx=layout.Lx, Ly=layout.Ly, v_box=v_box, n_images=n_images, profile=profile, voigt_k=voigt_k,
+        )
+        sp.count(launches=spectra_tiles.launches - launches)
     return unsort_sum(out, layout), v_centres
 
 
@@ -350,22 +361,26 @@ def _spectra_layout(pos, h, values, velocities_los, temperatures, ray_x, ray_y, 
                     atomic_weight, n_bins, kernel, periodic, profile, device):
     """(RayLayout or None, v_centres, wrapped v_box or None, n_images) of a
     spectra pass on ``device``. Raises if the spectra kernel could not
-    window lines on these bins (:func:`bin_grid`)."""
-    (x, y, h_t, col, v_eff, b_dopp), v_box, v_centres = _spectra_inputs(
-        pos, h, values, velocities_los, temperatures, cosmology=cosmology, box_size=box_size,
-        atomic_weight=atomic_weight, n_bins=n_bins, periodic=periodic, device=device,
-    )
-    wrap = v_box if (periodic and v_box is not None) else None
-    bin_grid(torch.from_numpy(v_centres), wrap)
-    n_images = 0
-    if wrap is not None:
-        b_max = float(b_dopp.max()) if b_dopp.numel() else 1.0
-        n_images = n_velocity_images(profile, b_max, wrap)
-    if len(ray_x) == 0:
-        return None, v_centres, wrap, n_images
-    layout = stage_rays(
-        x, y, h_t, [col, v_eff, b_dopp], ray_x, ray_y,
-        support_factor=get_kernel(kernel).support_factor,
-        periodic_box=float(box_size) if periodic else None, B=_B,
-    )
-    return layout, v_centres, wrap, n_images
+    window lines on these bins (:func:`bin_grid`). Span ``layout.rays``."""
+    with span("layout.rays") as sp:
+        (x, y, h_t, col, v_eff, b_dopp), v_box, v_centres = _spectra_inputs(
+            pos, h, values, velocities_los, temperatures, cosmology=cosmology, box_size=box_size,
+            atomic_weight=atomic_weight, n_bins=n_bins, periodic=periodic, device=device,
+        )
+        wrap = v_box if (periodic and v_box is not None) else None
+        bin_grid(torch.from_numpy(v_centres), wrap)
+        n_images = 0
+        if wrap is not None:
+            b_max = float(b_dopp.max()) if b_dopp.numel() else 1.0
+            n_images = n_velocity_images(profile, b_max, wrap)
+        if len(ray_x) == 0:
+            return None, v_centres, wrap, n_images
+        layout = stage_rays(
+            x, y, h_t, [col, v_eff, b_dopp], ray_x, ray_y,
+            support_factor=get_kernel(kernel).support_factor,
+            periodic_box=float(box_size) if periodic else None, B=_B,
+        )
+        if layout is not None:
+            sp.count(particles=int(h_t.shape[0]), rays=layout.n_rays, levels=len(layout.rorders),
+                     blocks=layout.n_blocks)
+        return layout, v_centres, wrap, n_images

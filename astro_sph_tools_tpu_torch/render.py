@@ -8,7 +8,9 @@ fields, stacks the deposit payloads (weighted quantities ride the same pass
 as the weights), renders on the chosen engine on ``device``, and ends as
 every product ends (:func:`_finish`): the weighted means derived on
 ``device``, then every map copied back. Maps come back as NumPy arrays, as
-in the JAX package.
+in the JAX package. :func:`render_sightlines` is the same path for rays:
+per-ray columns and absorption spectra (BASELINE config 4), which the JAX
+package reaches only through its sightlines CLI.
 """
 
 from __future__ import annotations
@@ -30,6 +32,10 @@ from .ops.deposit_tiled import deposit_2d_auto
 from .ops.grid3d import GridSpec
 from .ops.grid3d_tiled import deposit_3d_auto
 from .ops.periodic import shift_centre
+from .ops.sightlines import column_integrate
+from .ops.sightlines_fused import column_integrate_pallas
+from .ops.spectra import absorption_spectra
+from .ops.spectra_fused import absorption_spectra_pallas
 from .parallel._comm import all_reduce_
 from .parallel.mesh import Mesh
 from .utils.profiling import PhaseTimer, count, span
@@ -277,6 +283,109 @@ def render_grid_stack(
         result = _finish(dict(zip(names, cubes)), weighted, "density", timer, pinned=True)
 
         return MapStack(maps=result, spec=spec, axis=None, particle_type=particle_type, timings=timer.report())
+
+
+#: ``render_sightlines``' engines: the fused kernel passes or the dense plain
+#: sweeps, the caller's choice
+SIGHTLINE_ENGINES = ("pallas", "dense")
+
+
+@dataclass
+class Sightlines:
+    """Result of :func:`render_sightlines`, NumPy arrays: per ray its
+    column (R,) and, where spectra were asked for, its spectrum (R, n_bins)
+    at the velocity bin centres (km/s; None otherwise); and each phase's
+    seconds."""
+
+    columns: np.ndarray
+    tau: Optional[np.ndarray]
+    velocity_kms: Optional[np.ndarray]
+    timings: dict = field(default_factory=dict)
+
+
+def render_sightlines(
+    snapshot: SnapshotBase,
+    ray_x,
+    ray_y,
+    *,
+    axis: CoordinateAxes = CoordinateAxes.Z,
+    kernel: str = "cubic_spline",
+    spectra: bool = False,
+    n_bins: int = 512,
+    profile: str = "gaussian",
+    gamma: Optional[float] = None,
+    rest_wavelength_angstrom: float = 1215.67,
+    atomic_weight: float = 1.008,
+    periodic: bool = True,
+    engine: str = "pallas",
+    device="cuda",
+) -> Sightlines:
+    """Cast rays along ``axis`` through a snapshot's gas (BASELINE config
+    4): each ray's kernel column of the particle masses and, with
+    ``spectra``, its velocity-space spectrum.
+
+    The rays stand at (``ray_x``, ``ray_y``) cMpc on the plane of ``axis``.
+    The columns are ``sum_i m_i Y(b_i, h_i)`` with ``Y`` the line-integrated
+    kernel (Msun cMpc^-2 for h-full comoving input); the spectra spread each
+    column over ``n_bins`` velocity bins by a Gaussian or, with ``profile=
+    "voigt"`` and the damping rate ``gamma`` (1/s), a Voigt line of an ion of
+    ``atomic_weight`` at ``rest_wavelength_angstrom``, about the particle's
+    Hubble-flow plus peculiar velocity along ``axis`` in the snapshot's
+    cosmology (multiply by the line cross-section for optical depth; an ion
+    fraction is one more factor per particle). ``periodic`` wraps the box on
+    the plane and the velocities over its Hubble-flow extent.
+
+    ``engine``: ``"pallas"`` runs the fused passes, kernel #4
+    (``ops/sightlines_fused.py::column_integrate_pallas``) and kernel #5
+    (``ops/spectra_fused.py::absorption_spectra_pallas``, which raises
+    unless ``n_bins`` is a multiple of 128), their CUDA kernels on a CUDA
+    ``device`` and plain torch versions on the CPU; ``"dense"`` the plain
+    sweeps over every particle (``column_integrate``,
+    ``absorption_spectra``). The results are those calls' bit for bit.
+    ``timings`` holds the io, columns, spectra and to_host seconds; the
+    copy back is pageable, as for maps.
+    """
+    if engine not in SIGHTLINE_ENGINES:
+        raise ValueError(f"Unknown engine {engine!r} ({' | '.join(SIGHTLINE_ENGINES)})")
+    with span("render.sightlines") as sp:
+        device = torch.device(device)
+        timer = PhaseTimer(device)
+        i, j = axis.projection_plane
+        box = float(snapshot.box_size.value[0])
+        rx, ry = _host_f64(ray_x), _host_f64(ray_y)
+
+        with timer.phase("io"):
+            gas = ParticleType.gas
+            pos = snapshot.get_positions(gas).to_value("Mpc")
+            h = snapshot.get_smoothing_lengths(gas).to_value("Mpc")
+            mass = snapshot.get_masses(gas).to_value("Msun")
+            if spectra:
+                v_los = snapshot.get_velocities(gas).to_value("km/s")[:, axis.value]
+                temperature = snapshot.get_temperatures(gas).to_value("K")
+        n = int(h.shape[0])
+        sp.count(particles=n, rays=len(rx), bins=n_bins if spectra else 0)
+        fused = engine == "pallas"
+
+        with timer.phase("columns"):
+            column_fn = column_integrate_pallas if fused else column_integrate
+            result = {"columns": column_fn(pos[:, i], pos[:, j], h, mass, rx, ry, kernel=kernel,
+                                           projection="integrated", periodic_box=box if periodic else None,
+                                           device=device)}
+        v_centres = None
+        if spectra:
+            with timer.phase("spectra"):
+                spectra_fn = absorption_spectra_pallas if fused else absorption_spectra
+                # the line of sight rotated to z, as the spectra engines take it
+                result["tau"], v_centres = spectra_fn(
+                    pos[:, [i, j, axis.value]], h, mass, v_los, temperature, rx, ry,
+                    cosmology=snapshot.cosmology, box_size=box, atomic_weight=atomic_weight, n_bins=n_bins,
+                    kernel=kernel, periodic=periodic, profile=profile, gamma=gamma,
+                    rest_wavelength_angstrom=rest_wavelength_angstrom, device=device,
+                )
+        with timer.phase("to_host"):
+            count(bytes=sum(t.numel() * t.element_size() for t in result.values()))
+            host = {name: _to_host(t, pinned=False) for name, t in result.items()}
+        return Sightlines(columns=host["columns"], tau=host.get("tau"), velocity_kms=v_centres, timings=timer.report())
 
 
 def _to_host(t: torch.Tensor, *, pinned: bool) -> np.ndarray:

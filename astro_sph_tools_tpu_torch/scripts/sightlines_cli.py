@@ -10,7 +10,9 @@ results go to HDF5 in the same layout. Run it with
 
 ``--device`` (default ``cuda``) picks where the engines run; the fused
 engines launch their CUDA kernels there and use their plain torch versions
-on ``cpu``. ``h5py`` is imported when the output is written.
+on ``cpu``. The work is one call of ``render.py::render_sightlines``, the
+path the benchmark measures; the CLI draws or reads the rays and writes the
+result. ``h5py`` is imported when the output is written.
 """
 
 from __future__ import annotations
@@ -21,11 +23,8 @@ from typing import Optional
 import numpy as np
 
 from ..data_structures.particle_types import CoordinateAxes, ParticleType
-from ..ops.sightlines import column_integrate
-from ..ops.sightlines_fused import column_integrate_pallas
-from ..ops.spectra import absorption_spectra
-from ..ops.spectra_fused import absorption_spectra_pallas
-from ..utils.console import print_info, timed_phase
+from ..render import SIGHTLINE_ENGINES, render_sightlines
+from ..utils.console import print_info, print_timing
 from .params import Param, ScriptWrapper
 from .render_map import load_snapshot
 
@@ -66,16 +65,17 @@ PARAMS = (
     Param("device", None, "Torch device the engines run on (cuda | cpu).", str, default="cuda"),
 )
 
+#: ``--engine auto`` takes the fused passes from this many particle x ray
+#: pairs on (a small sweep has no layout or schedule to build), where the
+#: spectra's bins are a multiple of 128, and the dense sweeps otherwise
+_FUSED_PAIRS = 1e7
 
-def _use_pallas(engine: str, n_pairs: float) -> bool:
-    if engine == "pallas":
-        return True
-    if engine == "dense":
-        return False
+
+def _engine(engine: str, n_pairs: float, spectra: bool, spectra_bins: int) -> str:
     if engine != "auto":
-        raise SystemExit(f"error: unknown engine {engine!r}")
-    # small sweeps stay on the dense path (no layout or schedule to build)
-    return n_pairs >= 1e7
+        return engine
+    fused = n_pairs >= _FUSED_PAIRS and not (spectra and spectra_bins % 128)
+    return "pallas" if fused else "dense"
 
 
 def main(argv: Optional[list] = None) -> int:
@@ -105,9 +105,10 @@ def run(
     rest_wavelength: float = 1215.67,
     device: str = "cuda",
 ) -> int:
+    if engine != "auto" and engine not in SIGHTLINE_ENGINES:
+        raise SystemExit(f"error: unknown engine {engine!r}")
     snap = load_snapshot(snapshot, format)
     ax = CoordinateAxes.from_string(axis)
-    i, j = ax.projection_plane
     box = float(snap.box_size.value[0])
 
     if ray_file:
@@ -120,37 +121,17 @@ def run(
         rx = rng.uniform(0.0, box, n_rays)
         ry = rng.uniform(0.0, box, n_rays)
 
-    with timed_phase("read snapshot fields"):
-        pos = snap.get_positions(ParticleType.gas).to_value("Mpc")
-        h = snap.get_smoothing_lengths(ParticleType.gas).to_value("Mpc")
-        m = snap.get_masses(ParticleType.gas).to_value("Msun")
-
-    fused = _use_pallas(engine, float(len(h)) * len(rx))
-    with timed_phase("column integration"):
-        column_fn = column_integrate_pallas if fused else column_integrate
-        cols = column_fn(
-            pos[:, i], pos[:, j], h, m, rx, ry,
-            kernel=kernel, projection="integrated", periodic_box=box, device=device,
-        ).cpu().numpy()
-
-    spec_data = None
-    if spectra:
-        with timed_phase("spectra synthesis"):
-            v = snap.get_velocities(ParticleType.gas).to_value("km/s")
-            T = snap.get_temperatures(ParticleType.gas).to_value("K")
-            # rotate so the LOS axis is z for the spectra engine
-            pos_rot = pos[:, [i, j, ax.value]]
-            spectra_fn = (
-                absorption_spectra_pallas if (fused and spectra_bins % 128 == 0) else absorption_spectra
-            )
-            tau, v_centres = spectra_fn(
-                pos_rot, h, m, v[:, ax.value], T, rx, ry,
-                cosmology=snap.cosmology, box_size=box, n_bins=spectra_bins,
-                atomic_weight=atomic_weight, kernel=kernel,
-                profile=profile, gamma=gamma,
-                rest_wavelength_angstrom=rest_wavelength, device=device,
-            )
-            spec_data = (tau.cpu().numpy(), v_centres)
+    n_pairs = float(snap.number_of_particles_this_rank(ParticleType.gas)) * len(rx)
+    engine = _engine(engine, n_pairs, spectra, spectra_bins)
+    print_info(f"Engine: {engine}")
+    los = render_sightlines(
+        snap, rx, ry, axis=ax, kernel=kernel, spectra=spectra, n_bins=spectra_bins, profile=profile, gamma=gamma,
+        rest_wavelength_angstrom=rest_wavelength, atomic_weight=atomic_weight, engine=engine, device=device,
+    )
+    for phase, label in (("io", "read snapshot fields"), ("columns", "column integration"),
+                         ("spectra", "spectra synthesis"), ("to_host", "copy back")):
+        if phase in los.timings:
+            print_timing(label, los.timings[phase])
 
     import h5py
 
@@ -162,14 +143,13 @@ def run(
         hdr.attrs["Kernel"] = kernel
         f.create_dataset("ray_x", data=rx).attrs["Description"] = "cMpc"
         f.create_dataset("ray_y", data=ry).attrs["Description"] = "cMpc"
-        f.create_dataset("column_density", data=cols).attrs["Description"] = (
+        f.create_dataset("column_density", data=los.columns).attrs["Description"] = (
             "Mass column density, Msun / cMpc^2 (integrated kernel)."
         )
-        if spec_data is not None:
-            tau, v_centres = spec_data
+        if spectra:
             g = f.create_group("Spectra")
-            g.create_dataset("velocity_kms", data=v_centres)
-            g.create_dataset("tau", data=tau).attrs["Description"] = (
+            g.create_dataset("velocity_kms", data=los.velocity_kms)
+            g.create_dataset("tau", data=los.tau).attrs["Description"] = (
                 "Doppler-broadened kernel column per velocity bin "
                 "(multiply by the line cross-section for optical depth)."
             )

@@ -132,15 +132,20 @@ class Stopwatch:
         return last, last
 
 
+def print_timing(name: str, seconds: float) -> None:
+    """Print a phase's wall clock when verbose, debug or time stamps are on."""
+    if settings.verbose or settings.debug or settings.show_times:
+        _emit("TIMING: ", f"{name}: {seconds:.3f}s")
+
+
 @contextmanager
 def timed_phase(name: str):
     """Wall-clock a pipeline phase (IO, layout, kernel pass ...); printed
-    when verbose, debug or time stamps are on. Device work that the phase
-    enqueues is covered only if the phase ends in a synchronising call."""
+    when verbose, debug or time stamps are on (:func:`print_timing`). Device
+    work that the phase enqueues is covered only if the phase ends in a
+    synchronising call."""
     t0 = time.perf_counter()
     try:
         yield
     finally:
-        dt = time.perf_counter() - t0
-        if settings.verbose or settings.debug or settings.show_times:
-            _emit("TIMING: ", f"{name}: {dt:.3f}s")
+        print_timing(name, time.perf_counter() - t0)

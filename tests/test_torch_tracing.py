@@ -3,7 +3,7 @@ the benchmark's readers of them (``sphbench/metrics/``).
 
 - Off: with no profiler running, ``span`` hands back one shared object and
   a render records nothing.
-- Under ``torch.profiler``: each render (maps, haloes, cubes) records its
+- Under ``torch.profiler``: each render (maps, haloes, cubes, sightlines) records its
   tree of spans, one ``product`` a call; the counters equal what the
   layouts report when built directly; every span's host interval holds its
   ``record_function`` event in the raw kineto events, the clock
@@ -21,7 +21,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from astro_sph_tools_tpu_torch import render_grid_stack, render_halo_maps, render_map_stack
+from astro_sph_tools_tpu_torch import render_grid_stack, render_halo_maps, render_map_stack, render_sightlines
 from astro_sph_tools_tpu_torch.data_structures import ParticleType
 from astro_sph_tools_tpu_torch.io.catalogue import BasicHaloDefinitions
 from astro_sph_tools_tpu_torch.io.memory import MemoryCatalogue, MemorySnapshot
@@ -78,6 +78,32 @@ def cube_snap():
     fields = _fields(7, (0.05, 0.9))
     fields["smoothing_lengths"][:200] = torch.linspace(1.5, 2.4, 200)  # past K = 16: the oversize route
     return MemorySnapshot(fields, BOX)
+
+
+LOS_RAYS, LOS_BINS = 48, 128
+
+
+@pytest.fixture(scope="module")
+def los_snap():
+    """Particles with velocities, and 48 rays: a few supports a ray."""
+    fields = _fields(9, (0.1, 0.5))
+    fields["velocities"] = torch.tensor(np.random.default_rng(10).normal(0.0, 100.0, (N, 3)), dtype=torch.float32)
+    rays = np.random.default_rng(11).uniform(0.0, BOX, (2, LOS_RAYS))
+    return MemorySnapshot(fields, BOX, redshift=0.5), rays
+
+
+def los_render(inputs):
+    """On one intra-op thread, as ``test_torch_render_sightlines.py::
+    one_torch_thread`` says why: the render's CPU kernels are many small
+    ops, each slowed by the test run's workers sharing the cores."""
+    snap, rays = inputs
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return render_sightlines(snap, rays[0], rays[1], kernel="wendland_c2", spectra=True, n_bins=LOS_BINS,
+                                 profile="voigt", gamma=6.265e8, engine="pallas", device="cpu")
+    finally:
+        torch.set_num_threads(threads)
 
 
 def box_render(snap, engine):
@@ -147,6 +173,13 @@ GRID_TREE = [("render.grid_stack", None), ("render.io", "render.grid_stack"), ("
              ("render.to_host", "render.grid_stack")]
 
 
+LOS_TREE = [("render.sightlines", None), ("render.io", "render.sightlines"),
+            ("render.columns", "render.sightlines"), ("layout.rays", "render.columns"),
+            ("sightlines.columns", "render.columns"), ("render.spectra", "render.sightlines"),
+            ("layout.rays", "render.spectra"), ("sightlines.spectra", "render.spectra"),
+            ("render.to_host", "render.sightlines")]
+
+
 @pytest.mark.parametrize("engine", ["coherent", "pallas"])
 def test_map_stack_records_its_span_tree(box_snap, engine):
     _, records, _ = profiled(lambda: box_render(box_snap, engine))
@@ -170,6 +203,50 @@ def test_grid_stack_records_its_span_tree(cube_snap):
     assert {s["product"] for s in records} == {records[0]["id"]}
     assert records[0]["counts"] == {"particles": N, "fields": 2, "voxels": GRID_RES**3}
     assert one(records, "render.to_host") == {"bytes": 3 * GRID_RES**3 * 4}
+
+
+@pytest.fixture(scope="module")
+def los_records(los_snap):
+    """The spans of one profiled sightline render, which two tests read."""
+    return profiled(lambda: los_render(los_snap))[1]
+
+
+def test_sightlines_record_their_span_tree(los_records):
+    records = los_records
+    assert tree(records) == LOS_TREE
+    assert {s["product"] for s in records} == {records[0]["id"]}
+    assert records[0]["counts"] == {"particles": N, "rays": LOS_RAYS, "bins": LOS_BINS}
+    # the columns and the spectra, float32, back in one phase
+    assert one(records, "render.to_host") == {"bytes": 4 * LOS_RAYS * (1 + LOS_BINS)}
+    assert all(s["device_ms"] is None for s in records)  # no CUDA here
+
+
+def test_sightline_counters_count_the_stagings_and_the_kernels(los_records):
+    """Each ``layout.rays`` counts its particles, rays and levels, and the
+    columns' (level, ray, cell row) items or the spectra's ray blocks; the
+    kernels' spans count the same items or blocks and the launches (0: the
+    plain versions run here)."""
+    records = los_records
+    layouts = [s["counts"] for s in records if s["name"] == "layout.rays"]
+    assert [set(c) for c in layouts] == [{"particles", "rays", "levels", "items"},
+                                         {"particles", "rays", "levels", "blocks"}]
+    assert all(c["particles"] == N and c["rays"] == LOS_RAYS and c["levels"] >= 1 for c in layouts)
+    assert layouts[0]["items"] == 3 * layouts[0]["levels"] * LOS_RAYS  # three cell rows a (level, ray)
+    columns = one(records, "sightlines.columns")
+    assert columns == {"rays": LOS_RAYS, "items": layouts[0]["items"], "launches": 0}
+    spectra = one(records, "sightlines.spectra")
+    assert spectra == {"rays": LOS_RAYS, "blocks": layouts[1]["blocks"], "bins": LOS_BINS, "images": 7,
+                       "launches": 0}
+    assert layouts[1]["blocks"] == layouts[1]["levels"] * -(-LOS_RAYS // 32)  # 32 rays a block, each level
+
+
+def test_the_registry_still_lists_the_sightline_kernels():
+    from astro_sph_tools_tpu_torch.ops import kernel_counters
+    from astro_sph_tools_tpu_torch.ops.sightlines_fused import columns_tiles
+    from astro_sph_tools_tpu_torch.ops.spectra_fused import spectra_tiles
+
+    counters = kernel_counters()
+    assert counters["sightline_columns"] is columns_tiles and counters["sightline_spectra"] is spectra_tiles
 
 
 def test_each_call_is_one_product(box_snap):
@@ -301,9 +378,13 @@ def test_halo_counters_add_up_over_the_oversize_route(halo_inputs):
 CLOCK_SLACK = 20_000
 
 
-def render_of(which, box_snap, halo_inputs, cube_snap):
-    return {"halo": lambda: halo_render(halo_inputs), "grid": lambda: cube_render(cube_snap)}.get(
-        which, lambda: box_render(box_snap, which))
+def render_of(which, box_snap, halo_inputs, cube_snap, los_snap=None):
+    def sightlines():
+        los = los_render(los_snap)
+        return {"columns": los.columns, "tau": los.tau}
+
+    return {"halo": lambda: halo_render(halo_inputs), "grid": lambda: cube_render(cube_snap),
+            "sightlines": sightlines}.get(which, lambda: box_render(box_snap, which))
 
 
 def misplaced(records, prof) -> list:
@@ -325,13 +406,13 @@ def misplaced(records, prof) -> list:
     return out
 
 
-@pytest.mark.parametrize("which", ["coherent", "pallas", "halo", "grid"])
-def test_spans_lie_on_their_record_function_events(box_snap, halo_inputs, cube_snap, which):
+@pytest.mark.parametrize("which", ["coherent", "pallas", "halo", "grid", "sightlines"])
+def test_spans_lie_on_their_record_function_events(box_snap, halo_inputs, cube_snap, los_snap, which):
     """Each span's stamps are read just outside its record_function, so its
     interval holds the event's on one clock, however long the thread waits
     between the two stamps (a loaded host can hold it up for milliseconds:
     the distance between the stamps is no test of the clock)."""
-    _, records, prof = profiled(render_of(which, box_snap, halo_inputs, cube_snap))
+    _, records, prof = profiled(render_of(which, box_snap, halo_inputs, cube_snap, los_snap))
     assert misplaced(records, prof) == []
 
 
@@ -349,9 +430,9 @@ def test_a_span_stamped_on_another_clock_does_not_lie_on_its_event(box_snap):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("which", ["coherent", "pallas", "halo", "grid"])
-def test_maps_are_bit_for_bit_those_rendered_without_the_profiler(box_snap, halo_inputs, cube_snap, which):
-    render = render_of(which, box_snap, halo_inputs, cube_snap)
+@pytest.mark.parametrize("which", ["coherent", "pallas", "halo", "grid", "sightlines"])
+def test_maps_are_bit_for_bit_those_rendered_without_the_profiler(box_snap, halo_inputs, cube_snap, los_snap, which):
+    render = render_of(which, box_snap, halo_inputs, cube_snap, los_snap)
     fn = render if which == "halo" else (lambda: [render()])
     plain = fn()
     traced, records, _ = profiled(fn)
@@ -395,6 +476,11 @@ FABRICATED = [
     _rec("deposit3d.levels", 100.0, particles=4500, launches=3), _rec("deposit3d.oversize", 60.0, particles=500),
     _rec("layout.grid3d", 34.0, particles=5000, K8=3000, K16=1600, n_oversize=400),
     _rec("deposit3d.levels", 104.0, particles=4600, launches=2), _rec("deposit3d.oversize", 50.0, particles=400),
+    _rec("render.sightlines", 3.0), _rec("layout.rays", 40.0, particles=5000, rays=100, levels=6, items=1800),
+    _rec("sightlines.columns", 2.5, launches=1),
+    _rec("layout.rays", 30.0, particles=5000, rays=100, levels=4, blocks=16),
+    _rec("sightlines.spectra", 180.0, launches=1, bins=512), _rec("layout.rays", 44.0),
+    _rec("sightlines.columns", 2.7), _rec("layout.rays", 32.0), _rec("sightlines.spectra", 184.0),
 ]
 EXPECTED = {
     "coherent_layout_ms": (7.0 + 9.0) / 2,
@@ -409,12 +495,17 @@ EXPECTED = {
     "grid3d_level_ms": (100.0 + 104.0) / 2,
     "grid3d_oversize_ms": (60.0 + 50.0) / 2,
     "grid3d_oversize_pct": 100.0 * 900 / 10000,
+    "los_layout_ms": (40.0 + 30.0 + 44.0 + 32.0) / 2,
+    "los_columns_ms": (2.5 + 2.7) / 2,
+    "los_spectra_ms": (180.0 + 184.0) / 2,
 }
 SPAN_OF = {"coherent_layout_ms": "layout.coherent", "sorted_layout_ms": "layout.sorted",
            "level_deposit_ms": "deposit.", "coherent_deposit_ms": "deposit.coherent",
            "oversize_ms": "deposit.oversize", "to_host_ms": "render.to_host", "routed_pct": "layout.coherent",
            "oversize_pct": "layout.sorted", "grid3d_layout_ms": "layout.grid3d", "grid3d_level_ms": "deposit3d.levels",
-           "grid3d_oversize_ms": "deposit3d.oversize", "grid3d_oversize_pct": "layout.grid3d"}
+           "grid3d_oversize_ms": "deposit3d.oversize", "grid3d_oversize_pct": "layout.grid3d",
+           "los_layout_ms": "layout.rays", "los_columns_ms": "sightlines.columns",
+           "los_spectra_ms": "sightlines.spectra"}
 
 
 @pytest.mark.parametrize("name", sorted(EXPECTED))
@@ -454,3 +545,20 @@ def test_the_grid3d_roofline_reads_the_least_time_over_both_3d_kernels(monkeypat
     assert _metric("grid3d_deposit_roofline").read(_CubeRun()) is None
     monkeypatch.delattr(profiling, "spans")  # a program without spans
     assert _metric("grid3d_deposit_roofline").read(_CubeRun()) is None
+
+
+class _LosRun(_Run):
+    def work(self):
+        return {"seconds": 0.03, "spectra": {"seconds": 0.018}}  # a product's and the spectra's least times
+
+
+def test_the_spectra_roofline_reads_their_least_time_over_kernel_5(monkeypatch):
+    monkeypatch.setattr(profiling, "spans", lambda: FABRICATED)
+    # (180 + 184) ms of #5 over two products
+    assert _metric("spectra_roofline").read(_LosRun()) == pytest.approx(100.0 * 18.0 / 182.0, rel=1e-12)
+    monkeypatch.setattr(profiling, "spans", lambda: [s for s in FABRICATED if s["name"] != "sightlines.spectra"])
+    assert _metric("spectra_roofline").read(_LosRun()) is None
+    monkeypatch.setattr(profiling, "spans", lambda: [dict(s, self_device_ms=None) for s in FABRICATED])
+    assert _metric("spectra_roofline").read(_LosRun()) is None
+    monkeypatch.delattr(profiling, "spans")  # a program without spans
+    assert _metric("spectra_roofline").read(_LosRun()) is None
