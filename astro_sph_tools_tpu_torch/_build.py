@@ -149,8 +149,10 @@ _SIGNATURES = {
             _F, _F, _F, _F,  # offset, psx, psy, psz
             _I, _F, _F,  # kernel id, norm_3d, support_factor
             _P,  # out (F, nz, ny, nx), added into
+            _P,  # walk counters (2 uint64) or NULL
             _P,  # cudaStream_t
         ],
+        "wide3d_deposit_attributes": [_I, _I, ctypes.POINTER(_I)],  # kernel id, n_fields, attrs (3,)
     },
     "layout_shear": {
         "append_gangs_launch": [

@@ -22,8 +22,12 @@ span's interval holds its event's however long the thread is held up
 between the two stamps), its counters
 and, once CUDA is initialised, two timing events on the current stream,
 whose interval is the span's time on the device's timeline. Counters are
-numbers the caller already holds on the host; ``sp.count(...)`` adds some
+numbers the caller already holds on the host, or one-element tensors that a
+kernel fills on the device, read only when :func:`spans` resolves the
+window (so that counting adds no synchronise); ``sp.count(...)`` adds some
 once they are known, and :func:`count` adds to the innermost open span.
+:func:`recording` says whether a profiler runs, for a caller whose
+counting costs work of its own.
 :func:`spans` returns the records of the latest profiled window with each
 span's device time and self device time (less its child spans').
 """
@@ -151,6 +155,11 @@ def span(name: str, **counts):
     return _Span(name, counts)
 
 
+def recording() -> bool:
+    """Whether a profiler runs, so that spans and counters record."""
+    return bool(_profiler._is_profiler_enabled)
+
+
 def count(**counts) -> None:
     """Add ``counts`` to the innermost open span of this thread (nothing
     while no profiler runs)."""
@@ -159,6 +168,11 @@ def count(**counts) -> None:
     stack = _window.open_spans()
     if stack:
         stack[-1].counts.update(counts)
+
+
+def _host(c):
+    """A counter as a host number (a device tensor's one value)."""
+    return c.item() if isinstance(c, torch.Tensor) else c
 
 
 def spans() -> list[dict]:
@@ -179,7 +193,7 @@ def spans() -> list[dict]:
             child_ms[s.parent] = child_ms.get(s.parent, 0.0) + ms
     return [
         {"name": s.name, "id": s.id, "parent": s.parent, "product": s.product, "start_ns": s.start_ns,
-         "end_ns": s.end_ns, "counts": dict(s.counts), "device_ms": s.device_ms,
+         "end_ns": s.end_ns, "counts": {k: _host(c) for k, c in s.counts.items()}, "device_ms": s.device_ms,
          "self_device_ms": None if s.device_ms is None else s.device_ms - child_ms.get(s.id, 0.0)}
         for s in closed
     ]

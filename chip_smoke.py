@@ -278,7 +278,12 @@ fails (non-zero exit) if any phase fails (phases 19 and 23 run after phase
     segment (``CUBE_PLAIN_N`` particles), each against the f64 scatter of
     the subset (the route within 1e-5 * max; the plain route, which places
     the particles again from f32 world coordinates, reads ~1e-5 there), and
-    the plain route's time scaled to the whole segment;
+    the plain route's time scaled to the whole segment; the kernel's walk
+    counters from one traced pass (``walk_lanes``, ``walk_pairs`` and their
+    ratio, the lane efficiency) and its registers, local (spill) bytes and
+    shared bytes a block. Only the wrapper's surface, ``tile_lists`` and
+    ``_deposit`` are used, so that a copy of this file placed in a checkout
+    of an earlier tree times that tree's kernel (what it lacks reads None);
 26. kernel #1's register path (K >= 32, ``deposit2d_register``) at the box
     cells' own level populations (``box_level_cases``: ``sphbench``'s
     EAGLE Ref-L0025N0376 generator, all 53M gas particles at EAGLE's h,
@@ -680,7 +685,7 @@ def phase_build():
     emit({"phase": "build", "ptxas_by_kernel": {
         name: ptxas_summary(logs, name)
         for name in ("deposit2d_register", "coherent_prep_kernel", "columns_kernel", "column_sums_kernel",
-                     "wide_bin_kernel", "wide_deposit_kernel", "deposit3d_pull_kernel")
+                     "wide_bin_kernel", "wide_deposit_kernel", "deposit3d_pull_kernel", "wide3d_deposit_kernel")
     }})
 
 
@@ -1995,8 +2000,13 @@ def grid_route_cases(torch, device) -> dict:
     particles, timed through ``deposit_3d_wide`` (binning and deposit) and
     its parts, held to the float64 reference scatter and, on a subset, to
     the plain route."""
+    import ctypes
+
+    from astro_sph_tools_tpu_torch import _build
+    from astro_sph_tools_tpu_torch.kernels.splines import get_kernel
     from astro_sph_tools_tpu_torch.ops import GridSpec, tile_particles_3d
     from astro_sph_tools_tpu_torch.ops import grid3d_wide as W
+    from astro_sph_tools_tpu_torch.utils.profiling import span, spans
     from sphbench.counting import pair_ops
     from sphbench.generators import clustered
     from sphbench.reference import box_cube
@@ -2046,9 +2056,23 @@ def grid_route_cases(torch, device) -> dict:
                            kernel=kernel, out=out)
 
         deposit_ms = cuda_ms(deposit, 3)
+        # the walk's counters, from one traced pass (None on a tree without them)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            with span("deposit3d.oversize"):
+                W.deposit_3d_wide(u, v, w, hh, vals, spec, kernel=kernel, out=out)
+            torch.cuda.synchronize()
+        walk = [s["counts"] for s in spans() if s["name"] == "deposit3d.oversize"][-1]
         del batches, out
     finally:
         W.deposit_3d = plain_engine
+    walk_lanes, walk_pairs = walk.get("walk_lanes"), walk.get("walk_pairs")
+    # the kernel's registers, spill (local) bytes and shared bytes a block at F (None on a tree without them)
+    lib, _ = _build.load("deposit3d_wide")
+    resources = None
+    if hasattr(lib, "wide3d_deposit_attributes"):
+        attrs = (ctypes.c_int * 3)()
+        _build.check(lib, lib.wide3d_deposit_attributes(get_kernel(kernel).kernel_id, F, attrs), "deposit3d_wide")
+        resources = dict(zip(("registers", "local_bytes", "shared_bytes"), attrs))
     # the yardstick: the f64 scatter of the same placed particles (world
     # coordinates from the global voxel coordinates, as the plain route takes them)
     ref = box_cube.scatter(torch.stack([u, v, w], dim=1).double() * vox, hh.double(), vals.double(), (res,) * 3,
@@ -2075,6 +2099,8 @@ def grid_route_cases(torch, device) -> dict:
         "oversize_share": n_over / n, "s_vox": [2.0 * float(hh.min()) / vox, 2.0 * float(hh.max()) / vox],
         "launches": launches, "tile_pairs": entries, "pairs_inside": inside,
         "route_ms": route_ms, "bin_ms": bin_ms, "deposit_ms": deposit_ms, **b,
+        "walk_lanes": walk_lanes, "walk_pairs": walk_pairs,
+        "walk_efficiency": walk_pairs / walk_lanes if walk_lanes else None, "kernel_resources": resources,
         "max_abs_err": max(e[0] for e in errs), "rel_err_vs_f64": max(e[1] for e in errs),
         "repeatable": repeat, "plain_subset_n": int(idx.shape[0]), "plain_ms": plain_ms,
         "plain_ms_whole_segment": plain_ms * n_over / int(idx.shape[0]), "subset_rel_err_vs_f64": sub_err,

@@ -1,6 +1,8 @@
 """``render_grid_stack`` (``render.py``) against the plain float64 reference
-``reference_grid.py``, on the CPU; on the card, the 3D oversize route's
-kernel (``csrc/deposit3d_wide.cu``) against the plain stencil engine.
+``reference_grid.py``, on the CPU; the 3D oversize route's tile lists and
+its kernel's walk (``grid3d_wide.walk_plain``) against brute force; on the
+card, the route's kernel (``csrc/deposit3d_wide.cu``) against the plain
+stencil engine and a float64 nearest-image sum, and its walk counters.
 
 The inputs are seeded random particles whose supports fill every footprint
 level of the 3D layout (K = 4, 8, 16), the oversize route past K = 16
@@ -21,6 +23,7 @@ import torch
 import reference_grid
 from astro_sph_tools_tpu_torch import render_grid_stack
 from astro_sph_tools_tpu_torch.io.memory import MemorySnapshot
+from astro_sph_tools_tpu_torch.kernels.splines import get_kernel
 from astro_sph_tools_tpu_torch.ops import grid3d_wide as W
 from astro_sph_tools_tpu_torch.ops.grid3d import GridSpec
 from astro_sph_tools_tpu_torch.ops.grid3d_tiled import tile_particles_3d
@@ -28,6 +31,7 @@ from astro_sph_tools_tpu_torch.ops.grid3d_tiled import tile_particles_3d
 BOX = 8.0
 N = 1 << 13
 TOL = 5e-5
+Tensor = torch.Tensor
 CASES = {"periodic-48": (True, 48, None), "open-56": (False, 56, (0.5, 7.0, 1.0, 7.5, 0.0, 6.0))}
 
 
@@ -191,6 +195,111 @@ def test_the_tile_lists_hold_every_tile_a_support_meets():
     assert got == want
 
 
+def one_column(device) -> tuple:
+    """(u, v, w, h, values, spec): one particle of support radius 8
+    voxels on a periodic 48^3 grid whose disk meets, of tile (1, 1, 1)'s
+    patch (16..23, 16..19), the column (19, 16) alone (the particle lies
+    7.97 voxels below it along y; its neighbours in x lie sqrt(1 + 7.97^2)
+    > 8 voxels off); ``ONE_COLUMN`` names that tile and column."""
+    spec = GridSpec(shape=(48, 48, 48), extent=(0.0, 4.8) * 3, periodic_wrap=True)
+    t = [torch.tensor([c], dtype=torch.float32, device=device) for c in (19.5, 16.5 - 7.97, 24.3, 0.4)]
+    return (*t, torch.ones(1, 1, device=device), spec)
+
+
+ONE_COLUMN = {"tile": (1 * 3 + 1) * 3 + 1, "column": (19, 16)}
+
+
+def walk_case(case: str):
+    """(u, v, w, h, spec) of a walk case: random supports of 7-16 voxels
+    (``oversize``), on grids that are not multiples of 16."""
+    if case == "one-column":
+        u, v, w, h, _, spec = one_column("cpu")
+        return u, v, w, h, spec
+    shape, periodic, margin = WALKS[case]
+    u, v, w, h, _, spec = oversize(3, 12, shape, device="cpu", periodic=periodic, n_fields=1, s_max=16.0,
+                                   margin=margin)
+    if case == "periodic-across-the-edge":  # centres within 2 voxels of each axis's periodic edge
+        u, v, w = (torch.remainder(torch.where(c < n / 2, c, c - n) * (2.0 / (n / 2)), n)
+                   for c, n in ((u, shape[2]), (v, shape[1]), (w, shape[0])))
+    return u, v, w, h, spec
+
+
+WALKS = {  # shape (nz, ny, nx), periodic, centres' margin beyond an open grid (voxels)
+    "periodic-ragged": ((116, 36, 44), True, 0.0),
+    "open-ragged": ((36, 44, 40), False, 6.0),
+    "periodic-across-the-edge": ((72, 40, 52), True, 0.0),
+    "periodic-two-images-a-tile": ((12, 20, 24), True, 0.0),
+    "one-column": None,
+}
+
+
+def supports_in_tile(u, v, w, h, spec, tile: int, *, scale: float) -> set:
+    """(particle, x, y, z) of every voxel of ``tile`` with q^2 < scale *
+    lim^2, in float64, each axis at the particle's nearest image."""
+    nz, ny, nx = spec.shape
+    ntx, nty, _ = W.tile_grid(spec)
+    tz, rem = divmod(tile, ntx * nty)
+    ty, tx = divmod(rem, ntx)
+    axes = [np.arange(t * W.TILE, min(n, (t + 1) * W.TILE)) for t, n in ((tx, nx), (ty, ny), (tz, nz))]
+    dz, dy, dx = spec.voxel_size
+    out = set()
+    for i in range(u.shape[0]):
+        d = []
+        for k, c, n, size, per in zip(axes, (u, v, w), (nx, ny, nz), (dx, dy, dz),
+                                      W._per_axis(spec.periodic_wrap)):
+            off = k + spec.sample_offset - float(c[i])
+            d.append((off - n * np.round(off / n) if per else off) * size / float(h[i]))
+        q2 = d[2][:, None, None] ** 2 + d[1][None, :, None] ** 2 + d[0][None, None, :] ** 2
+        for a, b, c in np.argwhere(q2 < scale * 4.0):  # Wendland C2: support 2 h
+            out.add((i, int(axes[0][c]), int(axes[1][b]), int(axes[2][a])))
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(WALKS))
+def test_the_flattened_walk_visits_each_voxel_inside_a_support_once(case):
+    """``walk_plain``, the kernel's walk step for step (patch tests, each
+    column's chord in the tile at the one image that can meet it, the
+    flattened index's column and plane; the columns' own walks where two
+    images can meet a tile), over every tile: no voxel twice for one
+    entry, none off the tile or the grid, and the voxels that pass the
+    exact test those of brute force, every voxel of the tile (float64
+    q^2 < lim^2 within 1e-5 of lim^2: the walk's f32 test decides the
+    borderline ones). The counters: the voxels inside, 32 lanes a step."""
+    u, v, w, h, spec = walk_case(case)
+    ntx, nty, ntz = W.tile_grid(spec)
+    nz, ny, nx = spec.shape
+    lanes = pairs = 0
+    for tile in range(ntx * nty * ntz):
+        r = W.walk_plain(u, v, w, h, spec, tile, kernel="wendland_c2")
+        keys = [tuple(k) for k in torch.cat([r["entry"][:, None], r["voxels"]], dim=1).tolist()]
+        assert len(set(keys)) == len(keys), f"tile {tile}: a voxel visited twice for one entry"
+        tz, rem = divmod(tile, ntx * nty)
+        ty, tx = divmod(rem, ntx)
+        for _, x, y, z in keys:
+            assert tx * 16 <= x < min(nx, tx * 16 + 16) and ty * 16 <= y < min(ny, ty * 16 + 16)
+            assert tz * 16 <= z < min(nz, tz * 16 + 16)
+        got = {k for k, inside in zip(keys, r["inside"].tolist()) if inside}
+        assert supports_in_tile(u, v, w, h, spec, tile, scale=1 - 1e-5) <= got, f"tile {tile}: a voxel missed"
+        assert got <= supports_in_tile(u, v, w, h, spec, tile, scale=1 + 1e-5), f"tile {tile}: a voxel outside"
+        assert r["pairs"] == len(got) and r["lanes"] % 32 == 0 and r["lanes"] >= r["pairs"]
+        lanes, pairs = lanes + r["lanes"], pairs + r["pairs"]
+        if case == "one-column" and tile == ONE_COLUMN["tile"]:
+            patch = {(x, y) for _, x, y, _ in got if 16 <= x < 24 and 16 <= y < 20}
+            assert patch == {ONE_COLUMN["column"]}
+    assert pairs > 0
+
+
+def test_the_flattened_walk_keeps_its_lanes_busy():
+    """At supports of 7-15.4 voxels on a grid deep enough for one image a
+    tile (2 half + 16 < nz), the walk's voxels inside over its lane steps
+    (the kernel's ``walk_pairs / walk_lanes``) is ~0.89; a thread a column
+    walking its own chord, the warp at its longest, kept ~0.45."""
+    u, v, w, h, _, spec = oversize(11, 24, (64, 64, 64), device="cpu", periodic=True, n_fields=1, s_max=15.4,
+                                   margin=0.0)
+    runs = [W.walk_plain(u, v, w, h, spec, tile, kernel="wendland_c2") for tile in range(64)]
+    assert sum(r["pairs"] for r in runs) / sum(r["lanes"] for r in runs) >= 0.8
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(CARD))
 def test_cuda_route_matches_the_plain_engine(cuda_device, case, monkeypatch):
@@ -223,6 +332,87 @@ def test_cuda_route_matches_the_plain_engine(cuda_device, case, monkeypatch):
     W.deposit_3d_wide(u, v, w, h, values, spec, kernel="wendland_c2", out=batched)
     assert W.deposit_3d_wide.launches > launches + 1, "one launch a batch"
     assert rel_err(batched.cpu(), ref.cpu()) <= 1e-5
+
+
+def no_plain(*a, **k):
+    raise AssertionError("the plain engine ran on the card")
+
+
+def nearest_image_cube(u, v, w, h, values, spec) -> Tensor:
+    """The route's contract in float64, every voxel against every particle:
+    sum_i val_f(i) W(r, h_i), r taken per axis at the particle's nearest
+    image on a periodic axis (as the dense pass takes it), Wendland C2."""
+    kspec = get_kernel("wendland_c2")
+    nz, ny, nx = spec.shape
+    dz, dy, dx = spec.voxel_size
+    d2 = 0.0
+    for a, (n, c, size, per) in enumerate(zip((nx, ny, nz), (u, v, w), (dx, dy, dz),
+                                              W._per_axis(spec.periodic_wrap))):
+        off = torch.arange(n, dtype=torch.float64, device=u.device)[None, :] + spec.sample_offset - c.double()[:, None]
+        off = off - n * torch.round(off / n) if per else off
+        view = [-1, 1, 1, 1]
+        view[3 - a] = n
+        d2 = d2 + ((off * size) ** 2).view(view)
+    hd = h.double().view(-1, 1, 1, 1)
+    wgt = torch.where(d2 < (kspec.support_factor * hd) ** 2, kspec.w(torch.sqrt(d2), hd), 0.0)
+    return torch.einsum("fn,nzyx->fzyx", values.double(), wgt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["two-images-a-tile", "one-column"])
+def test_cuda_route_on_its_edge_cases(cuda_device, case, monkeypatch):
+    """The kernel against the route's contract in float64, 1e-5 of the max,
+    two runs bit for bit: on a periodic 12 x 20 x 24 grid, where two images
+    of a support can meet one tile and chords cover the whole axis (2 half
+    >= nz), so each lane walks its own column (the plain stencil engine's
+    windows, wrapped on axes shorter than them, add further images there);
+    and on a list that meets one column of one patch."""
+    if case == "one-column":
+        u, v, w, h, values, spec = one_column(cuda_device)
+    else:
+        u, v, w, h, values, spec = oversize(13, 300, (12, 20, 24), device=cuda_device, periodic=True,
+                                            n_fields=2, s_max=16.0, margin=0.0)
+    F = values.shape[0]
+    ref = nearest_image_cube(u, v, w, h, values, spec)
+    monkeypatch.setattr(W, "deposit_3d", no_plain)
+    runs = [W.deposit_3d_wide(u, v, w, h, values, spec, kernel="wendland_c2",
+                              out=torch.zeros(F, *spec.shape, device=cuda_device)) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    assert rel_err(runs[0].cpu(), ref.cpu()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["periodic-ragged", "periodic-two-images-a-tile"])
+def test_cuda_walk_counters_while_profiling(cuda_device, case, monkeypatch):
+    """While a profiler runs, the span ``deposit3d.oversize`` takes the
+    kernel's ``walk_lanes`` and ``walk_pairs``: those of ``walk_plain`` over
+    every tile (within 1e-3: the card's fused multiply-adds and fast divide
+    move a borderline chord end or test); without one, the wrapper passes
+    the kernel no counters."""
+    from astro_sph_tools_tpu_torch.utils.profiling import span, spans
+
+    u, v, w, h, spec = walk_case(case)
+    ntx, nty, ntz = W.tile_grid(spec)
+    plain = [W.walk_plain(u, v, w, h, spec, t, kernel="wendland_c2") for t in range(ntx * nty * ntz)]
+    args = [a.to(cuda_device) for a in (u, v, w, h)] + [torch.ones(1, u.shape[0], device=cuda_device)]
+    passed = []
+    deposit = W._deposit
+    monkeypatch.setattr(W, "_deposit", lambda *a, stats=None, **k: passed.append(stats) or deposit(*a, stats=stats,
+                                                                                                  **k))
+    out = torch.zeros(1, *spec.shape, device=cuda_device)
+    W.deposit_3d_wide(*args, spec, kernel="wendland_c2", out=out)
+    assert passed and all(s is None for s in passed)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with span("deposit3d.oversize"):
+            W.deposit_3d_wide(*args, spec, kernel="wendland_c2", out=out)
+        torch.cuda.synchronize()
+    assert passed[-1] is not None
+    (counts,) = [s["counts"] for s in spans() if s["name"] == "deposit3d.oversize"]
+    lanes, pairs = sum(r["lanes"] for r in plain), sum(r["pairs"] for r in plain)
+    assert counts["walk_lanes"] == pytest.approx(lanes, rel=1e-3)
+    assert counts["walk_pairs"] == pytest.approx(pairs, rel=1e-3)
+    assert 0 < counts["walk_pairs"] <= counts["walk_lanes"]
 
 
 @pytest.mark.cuda
